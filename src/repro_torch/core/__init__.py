@@ -1,0 +1,15 @@
+"""Core: the task-graph model, machine and performance models, the
+simulator facade and the HEFT / DADA strategies."""
+from .api import run_simulation
+from .dada import DADA, DualApprox
+from .dag import Access, DataObject, GraphArrays, Mode, Task, TaskGraph
+from .heft import HEFT
+from .machine import HOST_MEM, LinkModel, MachineModel, Resource, ResourceClass, make_machine
+from .simulator import SimResult, Simulator, Strategy
+
+__all__ = [
+    "Access", "DADA", "DataObject", "DualApprox", "GraphArrays", "HEFT",
+    "HOST_MEM", "LinkModel", "MachineModel", "Mode", "Resource",
+    "ResourceClass", "SimResult", "Simulator", "Strategy", "Task",
+    "TaskGraph", "make_machine", "run_simulation",
+]

@@ -1,0 +1,49 @@
+"""The single-graph simulation facade over :class:`repro_torch.runtime.engine.Engine`.
+
+Construct with one graph, ``run()`` one :class:`SimResult` — the
+counterpart of ``repro.core.simulator.Simulator`` on its default path.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from ..runtime.engine import Engine, GraphContext, Strategy
+from ..runtime.metrics import ScheduledInterval, SimResult
+from .dag import TaskGraph
+from .machine import MachineModel
+from .perfmodel import TransferModel
+
+__all__ = ["ScheduledInterval", "SimResult", "Simulator", "Strategy"]
+
+
+class Simulator(Engine):
+    """One task graph on one machine: the paper's simulation setup."""
+
+    def __init__(
+        self,
+        graph: TaskGraph,
+        machine: MachineModel,
+        strategy: Strategy,
+        seed: int = 0,
+        noise: float = 0.03,
+        transfer_model: Optional[TransferModel] = None,
+    ) -> None:
+        super().__init__(
+            machine, strategy, seed=seed, noise=noise,
+            transfer_model=transfer_model,
+        )
+        self._primary: GraphContext = self.submit(graph)
+
+    def run(self) -> SimResult:
+        self._run_loop()
+        m = self.metrics
+        return SimResult(
+            makespan=self.now,
+            total_bytes=m.total_bytes,
+            n_transfers=m.n_transfers,
+            busy=dict(m.busy),
+            intervals=m.intervals,
+            strategy=self.strategy.name,
+            total_flops=self._primary.graph.total_flops(),
+            n_events=m.n_events,
+        )

@@ -1,0 +1,330 @@
+"""The event-driven XKaapi-like runtime engine.
+
+Reproduces the paper's execution flow (§2.1-2.2):
+  * each worker owns a local ready-queue,
+  * completing a task triggers ``activate`` on its newly-ready successors —
+    this is where the scheduling strategy runs,
+  * transfers to/from accelerator memories are prefetched when a task is
+    pushed, overlap with computation, and contend on shared PCIe-switch
+    links (FIFO per link group — :mod:`repro_torch.runtime.transfers`),
+  * the runtime observes real (noisy) durations and feeds the history-based
+    performance model, which therefore calibrates online (§2.3).
+
+Counterpart of ``repro.runtime.engine`` on its default path: unbounded
+device memories, no faults, no work stealing, no audit log, no serving
+mode. Several graphs may be submitted before :meth:`Engine.run`; their
+roots are placed in submit order when the run starts.
+
+Determinism: all randomness flows through one seeded numpy Generator (the
+per-task duration noise of each graph is drawn, in tid order, when the
+graph is submitted). Event posting order, seeded-stream consumption and
+IEEE operation order are those of ``repro``'s engine, so a run here is
+bit-for-bit the reference run.
+"""
+from __future__ import annotations
+
+import heapq
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..core.dag import GraphArrays, Task, TaskGraph
+from ..core.machine import HOST_MEM, MachineModel, ResourceClass
+from ..core.perfmodel import (
+    ClassPredictor,
+    HistoryPerfModel,
+    Residency,
+    TransferModel,
+)
+from .events import EventQueue
+from .metrics import Metrics, ScheduledInterval, SimResult
+from .queues import Worker
+from .transfers import TransferEngine
+
+
+class Strategy:
+    """Scheduling strategy interface: placement happens in ``place``."""
+
+    name = "base"
+
+    def place(
+        self, sim, ready: List[Task], src: Optional[int]
+    ) -> None:  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+class GraphContext:
+    """Per-submitted-graph state."""
+
+    __slots__ = (
+        "gid", "graph", "arrays", "residency", "inflight", "waiting",
+        "noise_mult", "preds", "succ", "done", "n_done", "n_tasks",
+        "rid_static", "predictors", "finish", "intervals",
+    )
+
+    def __init__(self, gid: int, graph: TaskGraph) -> None:
+        self.gid = gid
+        self.graph = graph
+        self.arrays: GraphArrays = graph.arrays()
+        self.residency = Residency()
+        self.residency.attach(self.arrays)
+        # all application data starts in host memory (paper setup)
+        self.residency.initialize(self.arrays.data_names, HOST_MEM)
+        # in-flight transfers indexed per data name: name -> {dst_mem: t}
+        self.inflight: Dict[str, Dict[int, float]] = {}
+        self.waiting: Dict[tuple, List[int]] = {}  # (name, mem) -> worker rids
+        self.preds = [len(graph.pred[t.tid]) for t in graph.tasks]
+        self.succ = [graph.succ[t.tid] for t in graph.tasks]
+        self.done = [False] * len(graph)
+        self.n_done = 0
+        self.n_tasks = len(graph)
+        self.predictors: Dict[str, ClassPredictor] = {}
+        self.rid_static: List[List[float]] = []
+        self.noise_mult: Optional[List[float]] = None
+        self.finish = 0.0
+        self.intervals: List[ScheduledInterval] = []
+
+
+class Engine:
+    """The event loop: events + queues + transfers.
+
+    Strategies see the surface ``push``, ``load_ts``, ``now``,
+    ``predictor``, ``residency``, ``arrays``, ``graph``, ``machine``,
+    ``transfer_model`` and ``model``; during an activation these views
+    point at the graph whose tasks became ready.
+    """
+
+    def __init__(
+        self,
+        machine: MachineModel,
+        strategy,
+        seed: int = 0,
+        noise: float = 0.03,
+        transfer_model: Optional[TransferModel] = None,
+    ) -> None:
+        self.machine = machine
+        self.strategy = strategy
+        self.rng = np.random.default_rng(seed)
+        self.noise = noise
+        self.model = HistoryPerfModel()
+        self.transfer_model = transfer_model or TransferModel(
+            bandwidth=machine.link.bandwidth, latency=machine.link.latency
+        )
+
+        self.now = 0.0
+        self.events = EventQueue()
+        self.workers = [Worker(r.rid) for r in machine.resources]
+        # shared predicted-completion time-stamps (paper §2.3)
+        self.load_ts = [0.0] * len(self.workers)
+        # per-rid memory space / residency bit
+        self._mem_of = [r.mem for r in machine.resources]
+        self._bit_of = [1 << (r.mem + 1) for r in machine.resources]
+
+        self.metrics = Metrics(machine)
+        self.transfers = TransferEngine(machine, self.events, self.metrics)
+
+        self._ctxs: List[GraphContext] = []
+        self._ctx_of: Dict[int, GraphContext] = {}  # id(task) -> context
+        self._cur: Optional[GraphContext] = None
+        # strategy-facing views of the current activation's graph
+        self.graph: Optional[TaskGraph] = None
+        self.arrays: Optional[GraphArrays] = None
+        self.residency: Optional[Residency] = None
+
+    # ------------------------------------------------------------------
+    def submit(self, graph: TaskGraph) -> GraphContext:
+        """Add a task graph to the run; its roots are placed when the run
+        starts. Returns the graph's :class:`GraphContext`."""
+        if graph.tasks and id(graph.tasks[0]) in self._ctx_of:
+            raise ValueError(
+                "this TaskGraph object is already submitted to the engine; "
+                "build a fresh graph per submission"
+            )
+        ctx = GraphContext(len(self._ctxs), graph)
+        # One multiplicative noise factor per task, drawn as a single
+        # batched normal at submit, in tid order.
+        if self.noise > 0 and len(graph) > 0:
+            ctx.noise_mult = np.exp(
+                self.rng.normal(0.0, self.noise, size=len(graph))
+            ).tolist()
+        ctx.rid_static = [
+            self._predictor(ctx, r.cls).static_list
+            for r in self.machine.resources
+        ]
+        for t in graph.tasks:
+            self._ctx_of[id(t)] = ctx
+        self._ctxs.append(ctx)
+        if self._cur is None:
+            self._set_ctx(ctx)
+        return ctx
+
+    def _set_ctx(self, ctx: GraphContext) -> None:
+        self._cur = ctx
+        self.graph = ctx.graph
+        self.arrays = ctx.arrays
+        self.residency = ctx.residency
+
+    def _predictor(self, ctx: GraphContext, cls: ResourceClass) -> ClassPredictor:
+        p = ctx.predictors.get(cls.name)
+        if p is None:
+            p = ctx.predictors[cls.name] = ClassPredictor(
+                self.model, cls, ctx.arrays
+            )
+        return p
+
+    def predictor(self, cls: ResourceClass) -> ClassPredictor:
+        """Cached vectorized prediction for ``cls`` (of the current
+        activation's graph)."""
+        return self._predictor(self._cur, cls)
+
+    # ------------------------------------------------------------------
+    def push(self, task: Task, rid: int) -> None:
+        """Push ``task`` onto worker ``rid``'s queue and prefetch its inputs."""
+        w = self.workers[rid]
+        w.queue.append(task)
+        ctx = self._ctx_of[id(task)]
+        self.transfers.prefetch(
+            ctx, task, self._mem_of[rid], self._bit_of[rid], self.now
+        )
+        self._try_start(w)
+
+    def _try_start(self, w: Worker) -> None:
+        if w.running is not None or not w.queue:
+            return
+        rid = w.rid
+        task = w.queue[0]
+        ctx = self._ctx_of[id(task)]
+        # make sure inputs are (going to be) resident
+        mem = self._mem_of[rid]
+        bit = self._bit_of[rid]
+        mask_list = ctx.residency.mask_list
+        inflight = ctx.inflight
+        waiting = ctx.waiting
+        request = self.transfers.request
+        now = self.now
+        missing = 0
+        for did, name, size in ctx.arrays.task_reads[task.tid]:
+            if not mask_list[did] & bit:
+                fl = inflight.get(name)
+                if fl is None or mem not in fl:
+                    request(ctx, name, size, mem, now)
+                waiting.setdefault((name, mem), []).append(rid)
+                missing += 1
+        if missing:
+            w.blocked_on = missing
+            return
+        w.queue.popleft()
+        w.blocked_on = 0
+        tid = task.tid
+        # ground-truth duration: per-rid static flops/rate times the
+        # task's seeded noise factor
+        dur = ctx.rid_static[rid][tid]
+        if ctx.noise_mult is not None:
+            dur *= ctx.noise_mult[tid]
+        w.running = task
+        w.run_start = now
+        self.events.post(now + dur, "done", (rid, ctx, tid, dur))
+
+    def _complete(self, rid: int, ctx: GraphContext, tid: int, dur: float) -> None:
+        w = self.workers[rid]
+        res = self.machine.resources[rid]
+        task = ctx.graph.tasks[tid]
+        w.running = None
+        ctx.done[tid] = True
+        ctx.n_done += 1
+        metrics = self.metrics
+        metrics.busy[rid] += dur
+        iv = ScheduledInterval(tid, rid, w.run_start, self.now)
+        metrics.intervals.append(iv)
+        ctx.intervals.append(iv)
+        self.model.observe(task, res.cls, dur)
+        bit = self._bit_of[rid]
+        write_id = ctx.residency.write_id
+        inflight_pop = ctx.inflight.pop
+        for did, name, size in ctx.arrays.task_writes[tid]:
+            write_id(did, name, bit)
+            # invalidate any stale dedup entries for this data
+            inflight_pop(name, None)
+        # load time-stamp correction (§2.3: runtime corrects predictions)
+        if not w.queue:
+            self.load_ts[rid] = self.now
+
+        newly_ready: List[Task] = []
+        preds = ctx.preds
+        tasks = ctx.graph.tasks
+        for s in ctx.succ[tid]:
+            preds[s] -= 1
+            if preds[s] == 0:
+                newly_ready.append(tasks[s])
+        if ctx.n_done == ctx.n_tasks:
+            ctx.finish = self.now
+        if newly_ready:
+            # the *activate* operation — where scheduling decisions happen
+            self._set_ctx(ctx)
+            self.strategy.place(self, newly_ready, rid)
+        self._try_start(w)
+
+    # ------------------------------------------------------------------
+    def _run_loop(self) -> None:
+        for ctx in self._ctxs:
+            roots = ctx.graph.roots()
+            if roots:
+                self._set_ctx(ctx)
+                self.strategy.place(self, roots, None)
+        events = self.events.heap
+        heappop = heapq.heappop
+        workers = self.workers
+        n_events = 0
+        while events:
+            t, _, kind, payload = heappop(events)
+            self.now = t
+            n_events += 1
+            if kind == "xfer":
+                ctx, name, mem = payload
+                inflight = ctx.inflight
+                flights = inflight.get(name)
+                if flights is not None:
+                    flights.pop(mem, None)
+                    if not flights:
+                        del inflight[name]
+                ctx.residency.add_copy(name, mem)
+                waiters = ctx.waiting.pop((name, mem), None)
+                if waiters:
+                    for rid in waiters:
+                        w = workers[rid]
+                        if w.blocked_on > 0:
+                            w.blocked_on -= 1
+                            if w.blocked_on == 0:
+                                self._try_start(w)
+            else:  # "done"
+                rid, ctx, tid, dur = payload
+                self._complete(rid, ctx, tid, dur)
+        self.metrics.n_events = n_events
+        for ctx in self._ctxs:
+            if ctx.n_done != ctx.n_tasks:
+                missing = [t.tid for t in ctx.graph.tasks if not ctx.done[t.tid]]
+                raise RuntimeError(
+                    f"simulation stalled: graph {ctx.gid} has "
+                    f"{len(missing)} tasks unfinished, e.g. {missing[:5]}"
+                )
+
+    def run(self) -> List[SimResult]:
+        """Run every submitted graph to completion; one result per graph
+        (submit order). Transfer counters are machine-global."""
+        self._run_loop()
+        out = []
+        for ctx in self._ctxs:
+            busy: Dict[int, float] = {r.rid: 0.0 for r in self.machine.resources}
+            for iv in ctx.intervals:
+                busy[iv.rid] += iv.end - iv.start
+            out.append(SimResult(
+                makespan=ctx.finish,
+                total_bytes=self.metrics.total_bytes,
+                n_transfers=self.metrics.n_transfers,
+                busy=busy,
+                intervals=ctx.intervals,
+                strategy=self.strategy.name,
+                total_flops=ctx.graph.total_flops(),
+                n_events=self.metrics.n_events,
+            ))
+        return out

@@ -1,0 +1,110 @@
+"""Transfer layer: link groups, the in-flight index, prefetch routing.
+
+  * transfers serialize FIFO on their *link group* (GPUs sharing a PCIe
+    switch share its bandwidth — ``link_free`` tracks when each group
+    drains);
+  * the in-flight index is kept per graph context and per data name
+    (``ctx.inflight[name] -> {dst_mem: done_t}``), so duplicate requests
+    dedup in O(1) and a write invalidates stale entries in O(copies);
+  * GPU→GPU moves route through the host (two hops, the paper-era PCIe
+    path), reusing an already-in-flight host hop when one exists.
+
+A transfer in flight when its data is overwritten still lands as a valid
+copy: ``repro``'s engine keeps that modeling artifact by default, and
+this engine matches it bit for bit.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+from ..core.machine import HOST_MEM, MachineModel
+
+from .events import EventQueue
+from .metrics import Metrics
+
+
+class TransferEngine:
+    """Link timing + transfer routing for one engine."""
+
+    __slots__ = (
+        "events", "metrics", "mem_link", "link_free", "_link_lat", "_link_bw",
+    )
+
+    def __init__(
+        self, machine: MachineModel, events: EventQueue, metrics: Metrics
+    ) -> None:
+        self.events = events
+        self.metrics = metrics
+        self.link_free: Dict[int, float] = {}
+        # accelerator memory -> link group (first resource on that memory)
+        self.mem_link: Dict[int, Optional[int]] = {}
+        for r in machine.resources:
+            if r.is_accelerator:
+                self.mem_link.setdefault(r.mem, r.link)
+        self._link_lat = machine.link.latency
+        self._link_bw = machine.link.bandwidth
+
+    def one_hop(self, nbytes: int, group: Optional[int], t: float) -> float:
+        """Serialize the transfer on its link group (FIFO = shared bandwidth)."""
+        start = max(t, self.link_free.get(group, 0.0)) if group is not None else t
+        dur = 0.0 if nbytes <= 0 else self._link_lat + nbytes / self._link_bw
+        done = start + dur
+        if group is not None:
+            self.link_free[group] = done
+        self.metrics.total_bytes += nbytes
+        self.metrics.n_transfers += 1
+        return done
+
+    def request(
+        self, ctx, name: str, size: int, dst_mem: int, now: float
+    ) -> Optional[float]:
+        """Ensure a valid copy of ``name`` will exist at ``dst_mem``.
+
+        Returns the completion time, or None if already resident.
+        """
+        mask = ctx.residency._mask.get(name, 0)
+        if mask & (1 << (dst_mem + 1)):
+            return None  # already resident
+        inflight = ctx.inflight
+        flights = inflight.get(name)
+        if flights is not None:
+            done = flights.get(dst_mem)
+            if done is not None:
+                return done
+        if mask == 0:
+            raise RuntimeError(f"no valid copy of {name} anywhere")
+        mem_link = self.mem_link
+        post = self.events.post
+        if (mask & 1) and dst_mem != HOST_MEM:
+            # a host copy exists: single host->device hop
+            done = self.one_hop(size, mem_link.get(dst_mem), now)
+        elif dst_mem == HOST_MEM:
+            src = (mask & -mask).bit_length() - 2  # lowest-numbered location
+            done = self.one_hop(size, mem_link.get(src), now)
+        else:
+            # GPU -> host -> GPU (two hops, paper-era PCIe path)
+            src = (mask & -mask).bit_length() - 2
+            if flights is not None and HOST_MEM in flights:
+                mid = flights[HOST_MEM]
+            else:
+                mid = self.one_hop(size, mem_link.get(src), now)
+                if flights is None:
+                    flights = inflight[name] = {}
+                flights[HOST_MEM] = mid
+                post(mid, "xfer", (ctx, name, HOST_MEM))
+            done = self.one_hop(size, mem_link.get(dst_mem), mid)
+        if flights is None:
+            flights = inflight[name] = {}
+        flights[dst_mem] = done
+        post(done, "xfer", (ctx, name, dst_mem))
+        return done
+
+    def prefetch(self, ctx, task, mem: int, bit: int, now: float) -> None:
+        """Start transfers for every non-resident input of ``task``."""
+        mask_list = ctx.residency.mask_list
+        inflight = ctx.inflight
+        for did, name, size in ctx.arrays.task_reads[task.tid]:
+            if not mask_list[did] & bit:
+                fl = inflight.get(name)
+                if fl is None or mem not in fl:
+                    self.request(ctx, name, size, mem, now)

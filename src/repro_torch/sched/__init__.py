@@ -1,0 +1,11 @@
+"""``repro_torch.sched`` — the policy registry with the built-in policies
+``heft``, ``dada`` and ``dual`` (``resolve("dada?alpha=0.5&use_cp=1")``)."""
+from ..core.dada import DADA, DualApprox
+from ..core.heft import HEFT
+from .registry import get_factory, parse_spec, register, registered, resolve
+
+register("heft", HEFT)
+register("dada", DADA)
+register("dual", DualApprox)
+
+__all__ = ["get_factory", "parse_spec", "register", "registered", "resolve"]

@@ -1,0 +1,120 @@
+"""The port stands alone: no module of ``repro_torch`` and not
+``chip_smoke.py`` imports ``jax`` or ``repro`` (checked by importing every
+module in a fresh interpreter and by an AST scan), device resolution
+refuses a missing card, and ``chip_smoke.py`` fails without printing a
+result when there is no card or no repo beside it."""
+import ast
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+SRC = ROOT / "src"
+PORT = SRC / "repro_torch"
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    return env
+
+
+def _port_modules():
+    import repro_torch
+
+    return ["repro_torch"] + [
+        m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
+    ]
+
+
+def test_every_module_imports_without_jax_or_repro():
+    modules = _port_modules()
+    assert len(modules) >= 25
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "sys.exit('imported: ' + ', '.join(bad) if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=_env(), capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_no_source_file_imports_jax_or_repro():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 25
+    offenders = {
+        str(f.relative_to(ROOT)): sorted(
+            r for r in set(_imported_roots(f)) if r in ("jax", "jaxlib", "repro")
+        )
+        for f in files
+    }
+    assert {f: r for f, r in offenders.items() if r} == {}
+
+
+def test_resolve_device(monkeypatch):
+    from repro_torch.device import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda:0")
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], env=_env(),
+        capture_output=True, text=True, timeout=120, cwd=ROOT,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], env=env, capture_output=True,
+        text=True, timeout=120, cwd=tmp_path,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_kernel_source_is_in_the_package():
+    from repro_torch.kernels import sched_score
+
+    src = sched_score._SRC
+    assert src.is_file() and src.is_relative_to(PORT)
+    text = src.read_text()
+    assert "sched_score.py:121" in text  # names the TPU kernel it replaces
+    assert "use_fast_math" not in " ".join(sched_score.NVCC_FLAGS)
+    assert "sm_90a" in " ".join(sched_score.NVCC_FLAGS)
