@@ -1,12 +1,13 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (each prints its own lines and its wall time; any failure exits
 non-zero and no phase carries on past its own failure):
 
-  1. build    build the CUDA kernel from the repo's sources with nvcc and
-              print the card (name and power limit, from nvidia-smi);
+  1. build    build both CUDA kernels from the repo's sources, one nvcc
+              each, started together; print their ptxas reports and the
+              card (name and power limit, from nvidia-smi);
   2. kernel   the transfer-matrix kernel against its plain PyTorch versions
               on seeded inputs (n_pad 8..256, r_pad 1..4, n_u 9/25/30, with
               empty masks, host-only masks and padded reads): the outputs
@@ -20,10 +21,25 @@ non-zero and no phase carries on past its own failure):
               (makespan, bytes, transfers, busy, intervals) must equal the
               port's own device="cpu" run, every task must run once, and
               every run must have launched the kernel;
-  4. profile  one NT 16 Cholesky run per strategy under torch.profiler:
-              the device's busy time (kernels and copies) against the
-              run's wall time;
-  5. report   a JSON line of every ported kernel, then the last line
+  4. gemm     the gemm_update kernel against its plain version on the card
+              and on the CPU, over shapes (64,64,64) .. (1024,512,1024) x
+              {f32, bf16} x alpha {-1, 1, 0.5} x trans_b, at the reference's
+              TOL (atol TOL*sqrt(k), rtol TOL; 2e-4 f32, 5e-2 bf16), with
+              TF32 off; matmul likewise; a non-tiling shape and an f64 CUDA
+              tensor must raise; then its time at the linalg path's three
+              shapes beside the plain version, torch.addmm and the bound;
+  5. linalg   tile Cholesky, LU and QR of an 8192^2 f32 matrix (tile 512,
+              NT 16) on the card: HEFT and DADA(0.5)+CP schedule the DAG on
+              paper_machine(8) (scores on the card), execute_graph runs it
+              in program order and execute_schedule replays each schedule.
+              Each replay must equal program order exactly, the residual
+              must be within tests/test_linalg.py's bound, and gemm_update
+              must launch once per GEMM-shaped task (680 / 1 240 / 1 360);
+              then execute_graph at NT 4 on the card against the CPU;
+  6. profile  one NT 16 Cholesky simulation per strategy and one NT 16
+              execution per factorization under torch.profiler: device
+              busy time against wall time, and the kernels that take it;
+  7. report   a JSON line of every ported kernel, then the last line
               ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits 2 without printing a result when there is
@@ -36,6 +52,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -44,6 +61,17 @@ import torch
 ROOT = Path(__file__).resolve().parent
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 H100_FP64_FLOPS = 34e12  # H100 SXM data sheet, f64 outside the tensor cores
+H100_FP32_FLOPS = 67e12  # f32 outside the tensor cores (the f32 contract forbids TF32)
+H100_BF16_FLOPS = 989e12  # bf16 tensor cores, dense
+GEMM_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # tests/test_kernels.py:21
+# tile size, NT, and the GEMM-shaped task kinds of each factorization
+LINALG_N, LINALG_TILE = 8192, 512
+GEMM_KINDS = {"cholesky": ("syrk", "gemm"), "lu": ("ssssm",), "qr": ("ormqr", "tsmqr")}
+# flop of one gemm_update call per task kind, in units of tile^3: every body
+# computes the full product, so syrk does 2 b^3 (the DAG counts b^3), and
+# tsmqr multiplies the explicit (2b x 2b) Q by a (2b x b) pair: 8 b^3
+KERNEL_FLOPS_B3 = {"syrk": 2, "gemm": 2, "ssssm": 2, "ormqr": 2, "tsmqr": 8}
+RESIDUAL_BOUND = {"cholesky": 1e-5, "lu": 1e-5, "qr": 1e-4}  # tests/test_linalg.py
 
 
 def phase(name):
@@ -132,6 +160,160 @@ def fingerprint(res):
     )
 
 
+def rel_err(x, y) -> float:
+    return ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+
+
+def must_raise(what, fn):
+    try:
+        fn()
+    except ValueError as e:
+        print(f"  refused {what}: {e}")
+        return
+    raise SystemExit(f"gemm_update did not refuse {what}")
+
+
+def gemm_check(tg, dev):
+    """The kernel against its plain version on the card and on the CPU
+    over the sweep; returns the largest |kernel - plain| seen."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
+    shapes = [(64, 64, 64), (128, 128, 128), (256, 128, 384), (384, 256, 128),
+              (512, 512, 512), (1024, 512, 1024)]
+    rng = np.random.default_rng(0)
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n_cases = 0
+    for m, n, k in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = GEMM_TOL[dtype]
+            for trans_b in (False, True):
+                host = [
+                    torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dtype)
+                    for sh in ((m, n), (m, k), (n, k) if trans_b else (k, n))
+                ]
+                c, a, b = (t.to(dev) for t in host)
+                for alpha in (-1.0, 1.0, 0.5):
+                    got = tg.gemm_update(c, a, b, alpha=alpha, trans_b=trans_b)
+                    plain_card = tg.gemm_update_plain(c, a, b, alpha=alpha, trans_b=trans_b)
+                    plain_cpu = tg.gemm_update_plain(*host, alpha=alpha, trans_b=trans_b)
+                    torch.cuda.synchronize()
+                    g = got.cpu().float()
+                    if got.shape != (m, n) or got.dtype != dtype or not torch.isfinite(g).all():
+                        raise SystemExit(f"gemm_update output malformed at {(m, n, k)} {dtype}")
+                    for want in (plain_card.cpu().float(), plain_cpu.float()):
+                        bad = (g - want).abs() > tol * k ** 0.5 + tol * want.abs()
+                        if bad.any():
+                            raise SystemExit(
+                                f"gemm_update disagrees with its plain version at {(m, n, k)} "
+                                f"{dtype} alpha={alpha} trans_b={trans_b}: "
+                                f"max |diff| {(g - want).abs().max().item()}"
+                            )
+                    max_err[dtype] = max(max_err[dtype], (g - plain_card.cpu().float()).abs().max().item())
+                    n_cases += 1
+            a_h = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dtype)
+            b_h = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(dtype)
+            got = tg.matmul(a_h.to(dev), b_h.to(dev)).cpu().float()
+            want = tg.matmul_plain(a_h, b_h).float()
+            if ((got - want).abs() > tol * k ** 0.5 + tol * want.abs()).any():
+                raise SystemExit(f"matmul disagrees with its plain version at {(m, n, k)} {dtype}")
+            n_cases += 1
+    print(
+        f"gemm_update within TOL of its plain version (card and CPU) on {n_cases} cases; "
+        f"max |kernel - plain on the card|: f32 {max_err[torch.float32]}, "
+        f"bf16 {max_err[torch.bfloat16]}"
+    )
+    y = torch.zeros(100, 100, device=dev)
+    must_raise("a non-tiling shape", lambda: tg.gemm_update(y, y, y, bm=64, bn=64, bk=64))
+    x = torch.zeros(64, 64, dtype=torch.float64, device=dev)
+    must_raise("an f64 CUDA tensor", lambda: tg.gemm_update(x, x, x))
+    return {str(dt).replace("torch.", ""): err for dt, err in max_err.items()}
+
+
+def gemm_timing(tg, dev):
+    """Kernel, plain-version and torch.addmm times at the linalg path's
+    shapes; returns one row per (shape, dtype)."""
+    cases = [("syrk/gemm", 512, 512, 512, True, -1.0), ("ssssm", 512, 512, 512, False, -1.0),
+             ("tsmqr (matmul)", 1024, 512, 1024, False, 1.0)]
+    rows = []
+    rng = np.random.default_rng(2)
+    for label, m, n, k, trans_b, alpha in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(dtype).to(dev)
+            b = torch.from_numpy(
+                rng.standard_normal((n, k) if trans_b else (k, n)).astype(np.float32)
+            ).to(dtype).to(dev)
+            if alpha == 1.0:  # matmul: C = 0, as it launches the kernel
+                c = torch.zeros((m, n), dtype=dtype, device=dev)
+            else:
+                c = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(dtype).to(dev)
+            bt = b.T if trans_b else b
+            kernel = lambda: tg.gemm_update(c, a, b, alpha=alpha, trans_b=trans_b)  # noqa: E731
+            ms = time_ms(kernel)
+            device_ms = graph_ms(kernel)
+            plain = lambda: tg.gemm_update_plain(c, a, b, alpha=alpha, trans_b=trans_b)  # noqa: E731
+            library = lambda: torch.addmm(c, a, bt, alpha=alpha)  # noqa: E731
+            plain_ms, plain_device_ms = time_ms(plain), graph_ms(plain)
+            library_ms, library_device_ms = time_ms(library), graph_ms(library)
+            flops = 2 * m * n * k
+            nbytes = (2 * m * n + m * k + k * n) * c.element_size()
+            peak = H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
+            ops_ms = flops / peak * 1e3
+            bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
+            bound_ms = max(ops_ms, bytes_ms)
+            row = {
+                "label": label, "shape": [m, n, k], "trans_b": trans_b, "alpha": alpha,
+                "dtype": str(dtype).replace("torch.", ""), "ms": ms, "device_ms": device_ms,
+                "plain_ms": plain_ms, "plain_device_ms": plain_device_ms,
+                "library_ms": library_ms, "library_device_ms": library_device_ms, "bound_ms": bound_ms,
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "tflops": flops / device_ms / 1e9, "share_of_bound": bound_ms / device_ms,
+            }
+            rows.append(row)
+            print(
+                f"gemm_update {label} (m,n,k)={(m, n, k)} {row['dtype']}: kernel {ms:.6f} ms "
+                f"per call ({device_ms:.6f} ms on the device, from a CUDA graph), plain "
+                f"{plain_ms:.6f} ms ({plain_device_ms:.6f}), torch.addmm {library_ms:.6f} ms "
+                f"({library_device_ms:.6f}), bound {bound_ms:.6f} ms "
+                f"({row['bound_by']}: {flops} flop, {nbytes} bytes), {row['tflops']:.3f} TFLOP/s "
+                f"on the device, {100 * row['share_of_bound']:.2f} % of the bound",
+                flush=True,
+            )
+    return rows
+
+
+def residual(kind, a, m) -> float:
+    """The reference tests' residuals (tests/test_linalg.py)."""
+    if kind == "cholesky":
+        low = torch.tril(m)
+        return rel_err(low @ low.T, a)
+    if kind == "lu":
+        low = torch.tril(m, -1) + torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
+        return rel_err(low @ torch.triu(m), a)
+    r = torch.triu(m)
+    return rel_err(r.T @ r, a.T @ a)
+
+
+def dense_residual(kind, a) -> float:
+    """The same residual of the card's own dense factorization of the
+    whole matrix (a yardstick only)."""
+    if kind == "cholesky":
+        low = torch.linalg.cholesky(a)
+        return rel_err(low @ low.T, a)
+    if kind == "lu":
+        p, low, up = torch.linalg.lu(a)
+        return rel_err(p @ (low @ up), a)
+    r = torch.linalg.qr(a, mode="r")[1]
+    return rel_err(r.T @ r, a.T @ a)
+
+
+def r_rows_signed(m):
+    """R with each row's sign set so that its diagonal is non-negative:
+    QR factors are unique only up to these signs."""
+    r = torch.triu(m)
+    s = torch.sign(torch.diagonal(r))
+    return r * torch.where(s == 0, torch.ones_like(s), s)[:, None]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -140,7 +322,10 @@ def main() -> int:
     from repro_torch.configs.paper_machine import paper_machine
     from repro_torch.core import Simulator
     from repro_torch.kernels import sched_score as ss
+    from repro_torch.kernels import tile_gemm as tg
+    from repro_torch.linalg import tiles
     from repro_torch.linalg.cholesky import cholesky_graph
+    from repro_torch.linalg.execute import execute_graph, execute_schedule
     from repro_torch.linalg.lu import lu_graph
     from repro_torch.linalg.qr import qr_graph
     from repro_torch.sched import resolve
@@ -153,9 +338,12 @@ def main() -> int:
     t0 = phase("build")
     card = card_line()
     print(card)
-    report = ss.build()
-    for line in report.splitlines():
-        print(f"  {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        reports = list(pool.map(lambda mod: mod.build(), (ss, tg)))
+    for mod, report in zip((ss, tg), reports):
+        print(f"{mod._SRC.name}:")
+        for line in report.splitlines():
+            print(f"  {line.strip()}")
     done("build", t0)
 
     # ---- 2. kernel against its plain versions ------------------------------
@@ -273,10 +461,109 @@ def main() -> int:
         total_launches += launches
     done("main", t0)
 
-    # ---- 4. profile ---------------------------------------------------------
+    # ---- 4. gemm kernel against its plain version, and its times ------------
+    t0 = phase("gemm")
+    gemm_max_err = gemm_check(tg, dev)
+    gemm_rows = gemm_timing(tg, dev)
+    done("gemm", t0)
+
+    # ---- 5. linalg: the tile factorizations executed on the card -------------
+    t0 = phase("linalg")
+    gens = {"cholesky": tiles.random_spd, "lu": tiles.random_dd, "qr": tiles.random_dense}
+    nt = LINALG_N // LINALG_TILE
+    for gname, build in builders.items():  # warm-up: library handles, first-use costs
+        execute_graph(build(2, LINALG_TILE), tiles.split_tiles(gens[gname](2 * LINALG_TILE), LINALG_TILE))
+    torch.cuda.synchronize()
+    gemm_launches = {}  # per execution, by factorization
+    gemm_total = 0  # over every execution of the phase
+    for gname, build in builders.items():
+        graph = build(nt, LINALG_TILE)
+        n_gemm = sum(t.kind in GEMM_KINDS[gname] for t in graph.tasks)
+        gemm_flops = sum(
+            KERNEL_FLOPS_B3[t.kind] * LINALG_TILE ** 3
+            for t in graph.tasks if t.kind in GEMM_KINDS[gname]
+        )
+        w0 = time.perf_counter()
+        a = gens[gname](LINALG_N, seed=0)
+        torch.cuda.synchronize()
+        print(f"linalg {gname}: {LINALG_N}^2 f32 matrix made in {time.perf_counter() - w0:.3f} s "
+              f"(numpy, seed 0); {len(graph)} tasks, {n_gemm} GEMM-shaped ({gemm_flops:.4e} flop)")
+        schedules = {}
+        for spec in specs:
+            ss.transfer_matrix.launches = 0
+            w0 = time.perf_counter()
+            schedules[spec] = Simulator(build(nt, LINALG_TILE), machine, resolve(spec), seed=0).run()
+            torch.cuda.synchronize()
+            print(f"  schedule {schedules[spec].strategy}: makespan={schedules[spec].makespan!r} "
+                  f"transfer launches={ss.transfer_matrix.launches} "
+                  f"wall_s={time.perf_counter() - w0:.3f}")
+            if ss.transfer_matrix.launches == 0:
+                raise SystemExit(f"{gname} {spec}: no transfer kernel launch while scheduling")
+        runs = [("program order", None)] + [(schedules[s].strategy, schedules[s]) for s in specs]
+        reference = None
+        for label, res in runs:
+            tg.gemm_update.launches = 0
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            if res is None:
+                store = execute_graph(graph, tiles.split_tiles(a, LINALG_TILE))
+            else:
+                store = execute_schedule(graph, tiles.split_tiles(a, LINALG_TILE), res)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+            launches = tg.gemm_update.launches
+            m = tiles.join_tiles(store, nt, LINALG_TILE)
+            del store
+            if m.shape != a.shape or not torch.isfinite(m).all():
+                raise SystemExit(f"{gname} {label}: result malformed")
+            if launches != n_gemm:
+                raise SystemExit(f"{gname} {label}: {launches} gemm_update launches, want {n_gemm}")
+            print(f"  execute {label}: wall_s={wall:.3f} gemm launches={launches} "
+                  f"gemm GFLOP/s over the wall={gemm_flops / wall / 1e9:.1f}", flush=True)
+            if reference is None:
+                reference = m
+            elif not torch.equal(m, reference):
+                raise SystemExit(f"{gname} {label}: the replay differs from program order "
+                                 f"(max |diff| {(m - reference).abs().max().item()})")
+            gemm_launches[gname] = launches
+            gemm_total += launches
+        err = residual(gname, a, reference)
+        dense = dense_residual(gname, a)
+        bound = RESIDUAL_BOUND[gname] if dense < RESIDUAL_BOUND[gname] else 4 * dense
+        print(f"  residual {err:.3e} (bound {bound:.0e}); the card's dense factorization "
+              f"{dense:.3e}; replays equal program order", flush=True)
+        if not err < bound:
+            raise SystemExit(f"{gname}: residual {err} over its bound {bound}")
+        del a, reference, m
+    # card against CPU at full tile width and a smaller depth
+    for gname, build in builders.items():
+        host = gens[gname](4 * LINALG_TILE, seed=1, device="cpu")
+        got = tiles.join_tiles(
+            execute_graph(build(4, LINALG_TILE), tiles.split_tiles(host.to(dev), LINALG_TILE)),
+            4, LINALG_TILE).cpu()
+        want = tiles.join_tiles(
+            execute_graph(build(4, LINALG_TILE), tiles.split_tiles(host, LINALG_TILE)),
+            4, LINALG_TILE)
+        if gname == "qr":  # compared up to the signs of R's rows
+            got, want = r_rows_signed(got), r_rows_signed(want)
+        err = rel_err(got, want)
+        print(f"linalg {gname} NT=4 tile={LINALG_TILE}: card vs CPU rel {err:.3e}"
+              + (" (R up to row signs)" if gname == "qr" else ""))
+        if not err < 1e-5:
+            raise SystemExit(f"{gname}: card and CPU disagree (rel {err})")
+    done("linalg", t0)
+
+    # ---- 6. profile ---------------------------------------------------------
     t0 = phase("profile")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def device_time(prof):
+        by_name = {
+            e.key: e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+        }
+        return sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1])
 
     for spec in specs:
         for _ in range(2):  # the first run warms the profiler up; the last is read
@@ -286,16 +573,31 @@ def main() -> int:
                 res = sim.run()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - w0
-        busy_us = sum(
-            e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-        )
+        busy_us, _ = device_time(prof)
         print(
             f"profile graph=cholesky NT=16 strategy={res.strategy} wall_s={wall:.3f} "
             f"device_busy_s={busy_us / 1e6:.6f} device_idle_share="
             f"{1.0 - busy_us / 1e6 / wall:.4f}",
             flush=True,
         )
+    for gname, build in builders.items():
+        graph = build(nt, LINALG_TILE)
+        a = gens[gname](LINALG_N, seed=0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            execute_graph(graph, tiles.split_tiles(a, LINALG_TILE))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+        busy_us, top = device_time(prof)
+        print(
+            f"profile execute {gname} NT={nt} program order wall_s={wall:.3f} "
+            f"device_busy_s={busy_us / 1e6:.6f} device_idle_share="
+            f"{1.0 - busy_us / 1e6 / wall:.4f}",
+            flush=True,
+        )
+        for name, us in top[:6]:
+            print(f"  {us / 1e6:.6f} s  {100 * us / busy_us:.1f} %  {name[:110]}")
+        del a
     done("profile", t0)
 
     # ---- 5. report ----------------------------------------------------------
@@ -315,6 +617,25 @@ def main() -> int:
         "library_ms": None,
         "shape": list(shape),
     }]
+    head = gemm_rows[0]  # (512, 512, 512) f32 with trans_b: the syrk / gemm call
+    kernels.append({
+        "name": "gemm_update",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/tile_gemm.cu",
+        "replaces": "src/repro/kernels/tile_gemm.py:53",
+        "launches": gemm_total,
+        "launches_per_execution": gemm_launches,
+        "max_abs_err": max(gemm_max_err.values()),
+        "max_abs_err_by_dtype": gemm_max_err,
+        "ms": head["ms"],
+        "device_ms": head["device_ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "shape": head["shape"],
+        "timings": gemm_rows,
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

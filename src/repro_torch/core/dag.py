@@ -8,14 +8,16 @@ data-flow runtime does it:
   WAW: a writer depends on the last writer.
   WAR: a writer depends on every reader since the last writer.
 
-Counterpart of ``repro.core.dag`` (graph structure only: tasks carry no
-executable tile bodies in this package yet).
+Counterpart of ``repro.core.dag``. A task may carry an executable body
+(``fn``, run by :mod:`repro_torch.linalg.execute`); the scheduler, the
+structure-of-arrays view and the fingerprints never read it.
 """
 from __future__ import annotations
 
 import enum
+import heapq
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -61,6 +63,9 @@ class Task:
     kind: str
     accesses: Tuple[Access, ...]
     flops: float = 0.0
+    # Optional: callable run by the executor; signature
+    # fn(*input_tensors) -> tuple of output tensors matching write accesses.
+    fn: Optional[Callable] = None
     tag: Any = None
 
     def __repr__(self) -> str:
@@ -210,6 +215,7 @@ class TaskGraph:
         kind: str,
         accesses: Sequence[Tuple[DataObject, Mode]],
         flops: float = 0.0,
+        fn: Optional[Callable] = None,
         tag: Any = None,
     ) -> Task:
         tid = len(self.tasks)
@@ -218,6 +224,7 @@ class TaskGraph:
             kind=kind,
             accesses=tuple(Access(d, m) for d, m in accesses),
             flops=flops,
+            fn=fn,
             tag=tag,
         )
         self.tasks.append(task)
@@ -268,3 +275,20 @@ class TaskGraph:
 
     def total_flops(self) -> float:
         return sum(t.flops for t in self.tasks)
+
+    def topo_order(self) -> List[int]:
+        """Kahn topological order (deterministic: ready set kept sorted)."""
+        indeg = {t.tid: len(self.pred[t.tid]) for t in self.tasks}
+        ready = sorted(tid for tid, d in indeg.items() if d == 0)
+        order: List[int] = []
+        heapq.heapify(ready)
+        while ready:
+            tid = heapq.heappop(ready)
+            order.append(tid)
+            for s in self.succ[tid]:
+                indeg[s] -= 1
+                if indeg[s] == 0:
+                    heapq.heappush(ready, s)
+        if len(order) != len(self.tasks):
+            raise ValueError("cycle detected in task graph")
+        return order

@@ -27,27 +27,20 @@ Counterpart of ``repro/kernels/sched_score.py``:
 
 f64 throughout: the H100 has native f64, so the f32 relaxation the
 reference notes for TPUs does not apply. The kernel is built with ``nvcc``
-at first use into ``build/repro_torch_kernels/`` and loaded with ctypes.
+at first use into ``build/repro_torch_kernels/`` and loaded with ctypes
+(:mod:`._build`).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Callable, Optional
 
 import torch
 
+from ._build import NVCC_FLAGS, build_library  # noqa: F401  (NVCC_FLAGS: this kernel's flags)
+
 _SRC = Path(__file__).resolve().parent / "csrc" / "sched_score.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-# IEEE division and f64 throughout: no --use_fast_math
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 
 def _hop_fold(
@@ -127,24 +120,7 @@ def build() -> str:
     global _lib, _build_log
     if _lib is not None:
         return _build_log
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"libsched_score-{tag}.so"
-    if not lib_path.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: cannot build the CUDA kernel")
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-        _build_log = proc.stderr
-    lib = ctypes.CDLL(str(lib_path))
+    lib, _build_log = build_library(_SRC)
     fn = lib.repro_transfer_matrix
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

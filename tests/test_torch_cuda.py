@@ -1,5 +1,5 @@
-"""The CUDA kernel against its plain versions, on the card (these tests
-skip without a CUDA device: the kernel has no CPU mode). Imports only
+"""The CUDA kernels against their plain versions, on the card (these tests
+skip without a CUDA device: a kernel has no CPU mode). Imports only
 torch, numpy and the port, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import sched_score as port
+from repro_torch.kernels import tile_gemm
 
 
 def full_case(seed, n_pad, r_pad, shifts, host_col):
@@ -95,3 +96,96 @@ def test_cuda_simulation_equals_cpu(cuda, spec):
     on_cpu = run_simulation(qr_graph(6, 256), paper_machine(8), resolve(spec, device="cpu"), seed=7)
     assert fingerprint(on_card) == fingerprint(on_cpu)
     assert (launches > 0) == ("heft" in spec or "use_cp" in spec)
+
+
+# ---------------------------------------------------------------------------
+# gemm_update (csrc/tile_gemm.cu)
+
+GEMM_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # tests/test_kernels.py:21
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("m,n,k", [(64, 64, 64), (256, 128, 384), (512, 512, 512), (1024, 512, 1024)])
+def test_cuda_gemm_update_matches_plain(cuda, m, n, k, trans_b, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(m + n + k)
+    c, a, b = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dtype)
+        for s in ((m, n), (m, k), (n, k) if trans_b else (k, n))
+    )
+    want = tile_gemm.gemm_update_plain(c, a, b, alpha=-1.0, trans_b=trans_b)
+    before = tile_gemm.gemm_update.launches
+    got = tile_gemm.gemm_update(c.to(cuda), a.to(cuda), b.to(cuda), alpha=-1.0, trans_b=trans_b)
+    torch.cuda.synchronize()
+    assert tile_gemm.gemm_update.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    tol = GEMM_TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol * k ** 0.5, rtol=tol)
+
+
+@pytest.mark.parametrize("m,n,k", [(100, 100, 100), (8, 24, 40), (200, 72, 136)])
+def test_cuda_gemm_update_ragged_edges(cuda, m, n, k):
+    """Shapes that tile under their own block sizes but are not multiples
+    of the kernel's 64 x 64 x 16 tile: the edges load zeros and skip
+    their stores."""
+    rng = np.random.default_rng(k)
+    c, a, b = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in ((m, n), (m, k), (k, n)))
+    got = tile_gemm.gemm_update(c.to(cuda), a.to(cuda), b.to(cuda), alpha=0.5, bm=m, bn=n, bk=k)
+    want = tile_gemm.gemm_update_plain(c, a, b, alpha=0.5)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4 * k ** 0.5, rtol=2e-4)
+
+
+def test_cuda_gemm_update_reads_strided_views(cuda):
+    """Tiles that are views of a whole matrix (row stride above the
+    width) give the same bits as contiguous copies."""
+    whole = torch.from_numpy(np.random.default_rng(1).standard_normal((1024, 1024)).astype(np.float32)).to(cuda)
+    c, a, b = whole[:512, 512:], whole[512:, :512], whole[512:, 512:]
+    got = tile_gemm.gemm_update(c, a, b, trans_b=True)
+    want = tile_gemm.gemm_update(c.contiguous(), a.contiguous(), b.contiguous(), trans_b=True)
+    assert torch.equal(got, want)
+
+
+def test_cuda_gemm_update_refuses_f64_and_non_tiling(cuda):
+    x = torch.zeros(64, 64, dtype=torch.float64, device=cuda)
+    before = tile_gemm.gemm_update.launches
+    with pytest.raises(ValueError, match="float32"):
+        tile_gemm.gemm_update(x, x, x)
+    y = torch.zeros(100, 100, device=cuda)
+    with pytest.raises(ValueError, match="tile evenly"):
+        tile_gemm.gemm_update(y, y, y, bm=64, bn=64, bk=64)
+    assert tile_gemm.gemm_update.launches == before
+
+
+@pytest.mark.parametrize("kernel", ["cholesky", "lu", "qr"])
+def test_cuda_schedule_replay_equals_cpu(cuda, kernel):
+    """A small factorization scheduled and replayed on the card equals the
+    CPU run within rel 1e-5 (QR's R compared up to row signs), and every
+    GEMM-shaped task launched the kernel once."""
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.core import run_simulation
+    from repro_torch.linalg import cholesky, lu, qr
+    from repro_torch.linalg import tiles as T
+    from repro_torch.linalg.execute import execute_graph, execute_schedule
+    from repro_torch.sched import resolve
+
+    build, gen, kinds = {
+        "cholesky": (cholesky.cholesky_graph, T.random_spd, ("syrk", "gemm")),
+        "lu": (lu.lu_graph, T.random_dd, ("ssssm",)),
+        "qr": (qr.qr_graph, T.random_dense, ("ormqr", "tsmqr")),
+    }[kernel]
+    nt, tile = 4, 128
+    res = run_simulation(build(nt, tile), paper_machine(2), resolve("dada?alpha=0.5&use_cp=1"), seed=7)
+    tile_gemm.gemm_update.launches = 0
+    on_card = T.join_tiles(
+        execute_schedule(build(nt, tile), T.split_tiles(gen(nt * tile, seed=3), tile), res), nt, tile
+    ).cpu()
+    launches = tile_gemm.gemm_update.launches
+    on_cpu = T.join_tiles(
+        execute_graph(build(nt, tile), T.split_tiles(gen(nt * tile, seed=3, device="cpu"), tile)), nt, tile
+    )
+    assert launches == sum(t.kind in kinds for t in build(nt, tile).tasks)
+    if kernel == "qr":
+        on_card, on_cpu = (torch.triu(m) * torch.sign(torch.diagonal(m))[:, None] for m in (on_card, on_cpu))
+    err = ((on_card - on_cpu).abs().max() / on_cpu.abs().max()).item()
+    assert err < 1e-5, err

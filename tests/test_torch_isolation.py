@@ -118,3 +118,29 @@ def test_kernel_source_is_in_the_package():
     assert "sched_score.py:121" in text  # names the TPU kernel it replaces
     assert "use_fast_math" not in " ".join(sched_score.NVCC_FLAGS)
     assert "sm_90a" in " ".join(sched_score.NVCC_FLAGS)
+
+
+def test_gemm_kernel_source_is_in_the_package():
+    from repro_torch.kernels import _build, tile_gemm
+
+    src = tile_gemm._SRC
+    assert src.is_file() and src.is_relative_to(PORT)
+    text = src.read_text()
+    assert "tile_gemm.py:53" in text  # names the TPU kernel it replaces
+    assert "extern \"C\" int repro_gemm_update" in text
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "sm_90a" in flags and "use_fast_math" not in flags
+
+
+def test_build_helper_needs_nvcc(monkeypatch, tmp_path):
+    """The shared nvcc helper raises where there is no compiler."""
+    from repro_torch.kernels import _build
+
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is installed here")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    src = tmp_path / "k.cu"
+    src.write_text("// empty\n")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_library(src)
+    assert not list(tmp_path.glob("*.so"))
