@@ -5,7 +5,7 @@
 Phases (each prints its own lines and its wall time; any failure exits
 non-zero and no phase carries on past its own failure):
 
-  1. build    build both CUDA kernels from the repo's sources, one nvcc
+  1. build    build the four CUDA kernels from the repo's sources, one nvcc
               each, started together; print their ptxas reports and the
               card (name and power limit, from nvidia-smi);
   2. kernel   the transfer-matrix kernel against its plain PyTorch versions
@@ -36,10 +36,26 @@ non-zero and no phase carries on past its own failure):
               must be within tests/test_linalg.py's bound, and gemm_update
               must launch once per GEMM-shaped task (680 / 1 240 / 1 360);
               then execute_graph at NT 4 on the card against the CPU;
-  6. profile  one NT 16 Cholesky simulation per strategy and one NT 16
+  6. attention  flash_attention and flash_decode against their plain
+              versions on the card and on the CPU: tests/test_kernels.py's
+              sweeps at its tolerances, ragged lengths, and the serving
+              path's shapes (chatglm3-6b: 32 query heads, 2 KV heads, hd
+              128, bf16); refusals; then their times at those shapes (and
+              decode at a decode_32k-like shape: B 16, S 32 768) beside the
+              plain version, the bound and scaled_dot_product_attention;
+  7. serve    chatglm3-6b at full width and depth (6.24e9 random bf16
+              parameters from a seeded generator) on the card: prefill of
+              4 x 2048 tokens through make_prefill_step; then
+              prefill_into_cache on a 64-token prompt and 32 greedy decode
+              steps. The two paths' last-position logits on that prompt must
+              agree within SERVE_LOGIT_TOL, every logit must be finite, and
+              each kernel must launch 28 times per forward. Prints tokens/s
+              and a profile of one prefill and one decode step. Then the
+              smoke configs served on the card against the CPU at f32;
+  8. profile  one NT 16 Cholesky simulation per strategy and one NT 16
               execution per factorization under torch.profiler: device
               busy time against wall time, and the kernels that take it;
-  7. report   a JSON line of every ported kernel, then the last line
+  9. report   a JSON line of every ported kernel, then the last line
               ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits 2 without printing a result when there is
@@ -72,6 +88,36 @@ GEMM_KINDS = {"cholesky": ("syrk", "gemm"), "lu": ("ssssm",), "qr": ("ormqr", "t
 # tsmqr multiplies the explicit (2b x 2b) Q by a (2b x b) pair: 8 b^3
 KERNEL_FLOPS_B3 = {"syrk": 2, "gemm": 2, "ssssm": 2, "ormqr": 2, "tsmqr": 8}
 RESIDUAL_BOUND = {"cholesky": 1e-5, "lu": 1e-5, "qr": 1e-4}  # tests/test_linalg.py
+# tests/test_kernels.py:86-88 and :123-125
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+DECODE_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+# the serving path: chatglm3-6b, the default arch of repro/launch/serve.py
+SERVE_ARCH, SERVE_B, SERVE_PREFILL, SERVE_PROMPT, SERVE_STEPS = "chatglm3-6b", 4, 2048, 64, 32
+# |prefill logits - decode-path logits| over the largest |logit|, both bf16
+# through 28 layers: a CPU run of the same code at 28 layers and widths
+# 256 / 512 differs by 1.9e-2 (each path is that far from an f32 run);
+# the tolerance is three times that
+SERVE_LOGIT_TOL = 6e-2
+# flash_attention cases: (B or None for the reference's 3-D call, hq, hk, sq, sk, d, causal)
+ATTN_CASES = [
+    (None, 4, 4, 128, 128, 128, True), (None, 4, 2, 128, 128, 128, True),
+    (None, 8, 1, 128, 256, 128, True), (None, 4, 2, 128, 128, 256, True),
+    (None, 4, 4, 128, 128, 128, False), (None, 8, 1, 128, 256, 128, False),
+    (None, 2, 2, 256, 1024, 128, True),  # test_kernels.py's long context
+    (None, 4, 2, 100, 100, 64, True), (None, 6, 3, 37, 130, 32, True),
+    (None, 2, 1, 77, 45, 128, False), (None, 4, 4, 65, 65, 256, True),
+    (SERVE_B, 32, 2, SERVE_PROMPT, SERVE_PROMPT, 128, True),  # the shared prompt
+    (SERVE_B, 32, 2, SERVE_PREFILL, SERVE_PREFILL, 128, True),  # the prefill
+]
+DECODE_32K = (16, 32768)  # (B, S) of the decode_32k-like timing and check
+# flash_decode cases: (B, hq, hk, S, hd, length)
+DECODE_CASES = [
+    (2, 8, 2, 512, 128, 512), (2, 4, 1, 1024, 128, 700), (2, 16, 16, 256, 128, 256),
+    (2, 4, 2, 300, 32, 171), (3, 16, 16, 50, 256, 1), (1, 8, 1, 33, 64, 33),
+    (SERVE_B, 32, 2, SERVE_PROMPT + SERVE_STEPS, 128, 1),  # the serving cache
+    (SERVE_B, 32, 2, SERVE_PROMPT + SERVE_STEPS, 128, SERVE_PROMPT + SERVE_STEPS),
+    (DECODE_32K[0], 32, 2, DECODE_32K[1], 128, DECODE_32K[1]),
+]
 
 
 def phase(name):
@@ -164,13 +210,16 @@ def rel_err(x, y) -> float:
     return ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
 
 
-def must_raise(what, fn):
+def must_refuse(what, fn, kernel):
+    before = kernel.launches
     try:
         fn()
     except ValueError as e:
         print(f"  refused {what}: {e}")
-        return
-    raise SystemExit(f"gemm_update did not refuse {what}")
+    else:
+        raise SystemExit(f"{kernel.__name__} did not refuse {what}")
+    if kernel.launches != before:
+        raise SystemExit(f"{kernel.__name__} launched while refusing {what}")
 
 
 def gemm_check(tg, dev):
@@ -223,9 +272,10 @@ def gemm_check(tg, dev):
         f"bf16 {max_err[torch.bfloat16]}"
     )
     y = torch.zeros(100, 100, device=dev)
-    must_raise("a non-tiling shape", lambda: tg.gemm_update(y, y, y, bm=64, bn=64, bk=64))
+    must_refuse("a non-tiling shape", lambda: tg.gemm_update(y, y, y, bm=64, bn=64, bk=64),
+                tg.gemm_update)
     x = torch.zeros(64, 64, dtype=torch.float64, device=dev)
-    must_raise("an f64 CUDA tensor", lambda: tg.gemm_update(x, x, x))
+    must_refuse("an f64 CUDA tensor", lambda: tg.gemm_update(x, x, x), tg.gemm_update)
     return {str(dt).replace("torch.", ""): err for dt, err in max_err.items()}
 
 
@@ -314,6 +364,314 @@ def r_rows_signed(m):
     return r * torch.where(s == 0, torch.ones_like(s), s)[:, None]
 
 
+def _draw(rng, shape, dtype):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+
+
+def attention_check(fa, fd, dev):
+    """Both attention kernels against their plain versions on the card and
+    on the CPU; returns the largest |kernel - plain on the card| of each."""
+    rng = np.random.default_rng(0)
+    fa_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[dtype]
+        for B, hq, hk, sq, sk, d, causal in ATTN_CASES:
+            if B is None:
+                host = [_draw(rng, s, dtype) for s in ((hq, sq, d), (hk, sk, d), (hk, sk, d))]
+                args = [t.to(dev) for t in host]
+            else:  # the model's call: (B, S, H, d) projections as (B, H, S, d) views
+                raw = [_draw(rng, s, dtype) for s in ((B, sq, hq, d), (B, sk, hk, d), (B, sk, hk, d))]
+                host = [t.transpose(1, 2) for t in raw]
+                args = [t.to(dev).transpose(1, 2) for t in raw]
+            got = fa.flash_attention(*args, causal=causal)
+            want_card = fa.flash_attention_plain(*args, causal=causal)
+            torch.cuda.synchronize()
+            g = got.cpu().float()
+            shape = tuple(host[0].shape)
+            if tuple(got.shape) != shape or got.dtype != dtype or not torch.isfinite(g).all():
+                raise SystemExit(f"flash_attention output malformed at {shape} {dtype}")
+            wants = [want_card.cpu().float()]
+            if B is None or sq <= SERVE_PROMPT:  # the CPU plain run of the big case is slow
+                wants.append(fa.flash_attention_plain(*host, causal=causal).float())
+            for want in wants:
+                if ((g - want).abs() > tol + tol * want.abs()).any():
+                    raise SystemExit(
+                        f"flash_attention disagrees with its plain version at {shape} "
+                        f"{dtype} causal={causal}: max |diff| {(g - want).abs().max().item()}")
+            fa_err = max(fa_err, (g - wants[0]).abs().max().item())
+            del got, want_card, args
+    print(f"flash_attention within tol of its plain version (card and CPU) on "
+          f"{2 * len(ATTN_CASES)} cases; max |kernel - plain on the card| {fa_err}")
+    fd_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = DECODE_TOL[dtype]
+        for B, hq, hk, S, hd, length in DECODE_CASES:
+            host = [_draw(rng, s, dtype) for s in ((B, hq, hd), (B, S, hk, hd), (B, S, hk, hd))]
+            args = [t.to(dev) for t in host]
+            got = fd.flash_decode(*args, length)
+            want_card = fd.flash_decode_plain(*args, length)
+            torch.cuda.synchronize()
+            g = got.cpu().float()
+            if tuple(got.shape) != (B, hq, hd) or got.dtype != dtype or not torch.isfinite(g).all():
+                raise SystemExit(f"flash_decode output malformed at {(B, hq, hk, S, hd)} {dtype}")
+            wants = [want_card.cpu().float()]
+            if S <= 4096:
+                wants.append(fd.flash_decode_plain(*host, length).float())
+            for want in wants:
+                if ((g - want).abs() > tol + tol * want.abs()).any():
+                    raise SystemExit(
+                        f"flash_decode disagrees with its plain version at "
+                        f"{(B, hq, hk, S, hd, length)} {dtype}: max |diff| "
+                        f"{(g - want).abs().max().item()}")
+            fd_err = max(fd_err, (g - wants[0]).abs().max().item())
+            del got, want_card, args
+    print(f"flash_decode within tol of its plain version (card and CPU) on "
+          f"{2 * len(DECODE_CASES)} cases; max |kernel - plain on the card| {fd_err}")
+    x = torch.zeros(4, 20, 32, device=dev)
+    must_refuse("causal sq > sk", lambda: fa.flash_attention(x, x[:2, :10], x[:2, :10]),
+                fa.flash_attention)
+    must_refuse("an f64 CUDA tensor", lambda: fa.flash_attention(x.double(), x.double(), x.double()),
+                fa.flash_attention)
+    c = torch.zeros(2, 16, 2, 32, device=dev)
+    must_refuse("length 0", lambda: fd.flash_decode(x[:2, :8], c, c, 0), fd.flash_decode)
+    must_refuse("a CPU cache", lambda: fd.flash_decode(x[:2, :8], c.cpu(), c.cpu(), 4),
+                fd.flash_decode)
+    return fa_err, fd_err
+
+
+def attention_timing(fa, fd, dev):
+    """Kernel, plain-version and SDPA times at the serving path's shapes;
+    returns one row per shape."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(3)
+    dt = torch.bfloat16
+    rows = []
+    B, hq, hk, S, d = SERVE_B, 32, 2, SERVE_PREFILL, 128
+    q, k, v = (_draw(rng, (B, S, h, d), dt).to(dev).transpose(1, 2) for h in (hq, hk, hk))
+    pairs = S * (S + 1) // 2  # causal (query, key) pairs a head computes
+    flops = 4 * d * pairs * B * hq
+    nbytes = 2 * (2 * B * S * hq * d + 2 * B * S * hk * d)
+    cases = [("flash_attention", f"prefill B{B} S{S} hq{hq} hk{hk} d{d} bf16 causal", flops, nbytes,
+              lambda: fa.flash_attention(q, k, v),
+              lambda: fa.flash_attention_plain(q, k, v),
+              lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True))]
+    for B, S, label in ((SERVE_B, SERVE_PROMPT + SERVE_STEPS, "serving step"),
+                        (*DECODE_32K, "decode_32k-like")):
+        qd = _draw(rng, (B, hq, d), dt).to(dev)
+        kc = _draw(rng, (B, S, hk, d), dt).to(dev)
+        vc = _draw(rng, (B, S, hk, d), dt).to(dev)
+        q4, k4, v4 = qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+        cases.append((
+            "flash_decode", f"{label} B{B} S{S} hq{hq} hk{hk} d{d} bf16 length {S}",
+            4 * B * hq * S * d, 2 * (2 * B * hq * d + 2 * B * S * hk * d),
+            lambda qd=qd, kc=kc, vc=vc, S=S: fd.flash_decode(qd, kc, vc, S),
+            lambda qd=qd, kc=kc, vc=vc, S=S: fd.flash_decode_plain(qd, kc, vc, S),
+            lambda q4=q4, k4=k4, v4=v4: F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True),
+        ))
+    for name, label, flops, nbytes, kernel, plain, library in cases:
+        ms, device_ms = time_ms(kernel, reps=20), graph_ms(kernel, reps=10)
+        plain_ms = time_ms(plain, reps=5)
+        library_ms, library_device_ms = time_ms(library, reps=20), graph_ms(library, reps=10)
+        ops_ms = flops / H100_BF16_FLOPS * 1e3
+        bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
+        row = {
+            "name": name, "label": label, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": library_device_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flop": flops, "bytes": nbytes,
+        }
+        row["share_of_bound"] = row["bound_ms"] / device_ms
+        rows.append(row)
+        print(f"{name} {label}: kernel {ms:.6f} ms per call ({device_ms:.6f} ms on the device, "
+              f"from a CUDA graph), plain {plain_ms:.6f} ms, SDPA {library_ms:.6f} ms "
+              f"({library_device_ms:.6f}), bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
+              f"{flops} flop, {nbytes} bytes), {flops / device_ms / 1e9:.3f} TFLOP/s and "
+              f"{nbytes / device_ms / 1e9:.3f} TB/s on the device, "
+              f"{100 * row['share_of_bound']:.2f} % of the bound", flush=True)
+    return rows
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def profile_window(fn, label):
+    """``fn`` under torch.profiler (twice: the first run warms the profiler
+    up); prints wall, device busy time, idle share and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            w0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+    by_name = {e.key: e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    busy_us = sum(by_name.values())
+    print(f"profile {label}: wall_s={wall:.6f} device_busy_s={busy_us / 1e6:.6f} "
+          f"device_idle_share={1.0 - busy_us / 1e6 / wall:.4f}", flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {us / 1e6:.6f} s  {100 * us / busy_us:.1f} %  {name[:110]}")
+
+
+def serve_phase(fa, fd, dev):
+    """chatglm3-6b served at full width and depth on the card; returns the
+    main path's launch counts and rates."""
+    from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.launch.serve import prefill_into_cache
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+
+    cfg = get_config(SERVE_ARCH)
+    n_layers = cfg.n_layers
+    w0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"{SERVE_ARCH}: {n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.n_kv_heads} KV heads, hd {cfg.hd}, ff {cfg.d_ff}, vocab {cfg.vocab}; "
+          f"{n_params} parameters ({n_bytes} bytes, {leaves[0].dtype}) made on the card in "
+          f"{time.perf_counter() - w0:.3f} s (seed 0)", flush=True)
+    # the config's analytic count leaves out the 2 L + 1 norm scales
+    want = int(cfg.params_count()) + (2 * n_layers + 1) * cfg.d_model
+    if n_params != want:
+        raise SystemExit(f"parameter count {n_params} != {want} (the config's)")
+    rng = np.random.default_rng(0)
+    long_prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (SERVE_B, SERVE_PREFILL)), device=dev)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (SERVE_B, SERVE_PROMPT)), device=dev)
+    cache_len = SERVE_PROMPT + SERVE_STEPS
+    prefill = make_prefill_step(cfg)
+    serve = make_serve_step(cfg)
+    with torch.inference_mode():
+        prefill(params, {"tokens": prompt})  # warm-up: library handles, the allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # ---- the main path, counted from here ----
+        fa.flash_attention.launches = 0
+        fd.flash_decode.launches = 0
+        n_prefill = n_decode = 0
+        prefill_walls = []
+        for _ in range(2):
+            w0 = time.perf_counter()
+            logits_long = prefill(params, {"tokens": long_prompt})
+            torch.cuda.synchronize()
+            prefill_walls.append(time.perf_counter() - w0)
+            n_prefill += 1
+        logits_prefill = prefill(params, {"tokens": prompt})
+        n_prefill += 1
+        w0 = time.perf_counter()
+        last, cache = prefill_into_cache(params, cfg, prompt, cache_len)
+        torch.cuda.synchronize()
+        fill_wall = time.perf_counter() - w0
+        n_decode += SERVE_PROMPT
+        # the decode path's logits at the prompt's last position: running the
+        # last prompt token again at its own position rewrites the same K/V
+        _, logits_dec, cache = serve(params, cache, prompt[:, -1:], SERVE_PROMPT - 1)
+        n_decode += 1
+        toks = [last]
+        w0 = time.perf_counter()
+        for i in range(SERVE_STEPS):
+            nxt, step_logits, cache = serve(params, cache, toks[-1][:, None], SERVE_PROMPT + i)
+            toks.append(nxt)
+        torch.cuda.synchronize()
+        decode_wall = time.perf_counter() - w0
+        n_decode += SERVE_STEPS
+        fa_launches, fd_launches = fa.flash_attention.launches, fd.flash_decode.launches
+        # ---- end of the main path ----
+        peak = torch.cuda.max_memory_allocated()
+        print(f"main path: {n_prefill} prefill forwards, {n_decode} decode forwards; "
+              f"flash_attention launches {fa_launches}, flash_decode launches {fd_launches}; "
+              f"peak device memory {peak} bytes", flush=True)
+        if fa_launches != n_layers * n_prefill or fd_launches != n_layers * n_decode:
+            raise SystemExit(f"launches per forward are not {n_layers}: flash_attention "
+                             f"{fa_launches} over {n_prefill}, flash_decode {fd_launches} over "
+                             f"{n_decode}")
+        for name, t, shape in (("prefill B4x2048", logits_long, (SERVE_B, 1, cfg.vocab)),
+                               ("prefill B4x64", logits_prefill, (SERVE_B, 1, cfg.vocab)),
+                               ("decode", logits_dec, (SERVE_B, 1, cfg.vocab)),
+                               ("last decode step", step_logits, (SERVE_B, 1, cfg.vocab))):
+            if tuple(t.shape) != shape or t.dtype != torch.float32 or not torch.isfinite(t).all():
+                raise SystemExit(f"{name} logits malformed: {tuple(t.shape)} {t.dtype}")
+        tokens = torch.stack(toks, 1)
+        if tokens.min() < 0 or tokens.max() >= cfg.vocab:
+            raise SystemExit("decoded tokens out of the vocabulary")
+        a, b = logits_prefill[:, 0], logits_dec[:, 0]
+        gap = ((a - b).abs().max() / a.abs().max()).item()
+        agree = (a.argmax(-1) == b.argmax(-1)).sum().item()
+        print(f"last-position logits, prefill vs prefill_into_cache + one step: max |diff| / "
+              f"max |logit| = {gap:.6f} (tol {SERVE_LOGIT_TOL}); largest logit "
+              f"{a.abs().max().item():.4f}; argmax agrees on {agree} of {SERVE_B}; greedy "
+              f"next token from the cache path equals the prefill's argmax on "
+              f"{(last.long() == a.argmax(-1)).sum().item()} of {SERVE_B}", flush=True)
+        if not gap < SERVE_LOGIT_TOL:
+            raise SystemExit(f"prefill and decode paths disagree: {gap} >= {SERVE_LOGIT_TOL}")
+        prefill_tps = SERVE_B * SERVE_PREFILL / min(prefill_walls)
+        decode_tps = SERVE_B * SERVE_STEPS / decode_wall
+        print(f"prefill {SERVE_B} x {SERVE_PREFILL} tokens: wall_s {prefill_walls} -> "
+              f"{prefill_tps:.1f} tokens/s; prefill_into_cache {SERVE_B} x {SERVE_PROMPT} tokens "
+              f"(one decode step each) {fill_wall:.3f} s; {SERVE_STEPS} decode steps x {SERVE_B} "
+              f"in {decode_wall:.3f} s -> {decode_tps:.1f} tokens/s, "
+              f"{1e3 * decode_wall / SERVE_STEPS:.3f} ms a step; sample {tokens[0, :12].tolist()}",
+              flush=True)
+        out = dict(fa_launches=fa_launches, fd_launches=fd_launches, prefill_tps=prefill_tps,
+                   decode_tps=decode_tps, logit_gap=gap, n_params=n_params, peak_bytes=peak,
+                   prefill_walls=prefill_walls, decode_step_ms=1e3 * decode_wall / SERVE_STEPS)
+        profile_window(lambda: prefill(params, {"tokens": long_prompt}),
+                       f"prefill {SERVE_B} x {SERVE_PREFILL}")
+        pos = SERVE_PROMPT + SERVE_STEPS - 1  # rewrites the last position with its own token
+        profile_window(lambda: serve(params, cache, toks[-2][:, None], pos),
+                       f"decode step at {pos}")
+    del params, cache, logits_long
+    torch.cuda.empty_cache()
+
+    # the smoke configs on the card against the CPU (plain versions), f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in ("chatglm3-6b", "granite-8b", "gemma-7b"):
+        small = smoke_config(arch).scaled(compute_dtype="float32")
+        host = init_params(small, torch.Generator().manual_seed(1), "cpu")
+        runs = []
+        step = make_serve_step(small)
+        for d, p in ((dev, _to(host, dev)), (torch.device("cpu"), host)):
+            toks_in = prompt[:2, :16].remainder(small.vocab).to(d)
+            with torch.inference_mode():
+                lg = make_prefill_step(small)(p, {"tokens": toks_in})
+                last, c = prefill_into_cache(p, small, toks_in, 24)
+                seq = [last]
+                for i in range(8):
+                    nxt, _, c = step(p, c, seq[-1][:, None], 16 + i)
+                    seq.append(nxt)
+            runs.append((lg.cpu(), torch.stack(seq, 1).cpu()))
+        (card_logits, card_tokens), (cpu_logits, cpu_tokens) = runs
+        err = (card_logits - cpu_logits).abs().max().item()
+        same = torch.equal(card_tokens, cpu_tokens)
+        print(f"smoke {arch} f32: card vs CPU prefill logits max |diff| {err:.3e}; "
+              f"greedy tokens equal: {same}")
+        if not (err < 1e-4 and same):
+            raise SystemExit(f"smoke {arch}: the card and the CPU disagree")
+    return out
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -321,6 +679,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.paper_machine import paper_machine
     from repro_torch.core import Simulator
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import sched_score as ss
     from repro_torch.kernels import tile_gemm as tg
     from repro_torch.linalg import tiles
@@ -338,9 +698,10 @@ def main() -> int:
     t0 = phase("build")
     card = card_line()
     print(card)
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        reports = list(pool.map(lambda mod: mod.build(), (ss, tg)))
-    for mod, report in zip((ss, tg), reports):
+    kernel_modules = (ss, tg, fa, fd)
+    with ThreadPoolExecutor(len(kernel_modules)) as pool:  # one nvcc per source, started together
+        reports = list(pool.map(lambda mod: mod.build(), kernel_modules))
+    for mod, report in zip(kernel_modules, reports):
         print(f"{mod._SRC.name}:")
         for line in report.splitlines():
             print(f"  {line.strip()}")
@@ -553,7 +914,19 @@ def main() -> int:
             raise SystemExit(f"{gname}: card and CPU disagree (rel {err})")
     done("linalg", t0)
 
-    # ---- 6. profile ---------------------------------------------------------
+    # ---- 6. attention kernels against their plain versions, and their times --
+    t0 = phase("attention")
+    fa_err, fd_err = attention_check(fa, fd, dev)
+    attn_rows = attention_timing(fa, fd, dev)
+    torch.cuda.empty_cache()
+    done("attention", t0)
+
+    # ---- 7. serve: chatglm3-6b at full width and depth ----------------------
+    t0 = phase("serve")
+    served = serve_phase(fa, fd, dev)
+    done("serve", t0)
+
+    # ---- 8. profile ---------------------------------------------------------
     t0 = phase("profile")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -600,7 +973,7 @@ def main() -> int:
         del a
     done("profile", t0)
 
-    # ---- 5. report ----------------------------------------------------------
+    # ---- 9. report ----------------------------------------------------------
     kernels = [{
         "name": "transfer_matrix",
         "route": "cuda",
@@ -636,6 +1009,28 @@ def main() -> int:
         "shape": head["shape"],
         "timings": gemm_rows,
     })
+    for name, launches, err in (("flash_attention", served["fa_launches"], fa_err),
+                                ("flash_decode", served["fd_launches"], fd_err)):
+        rows = [r for r in attn_rows if r["name"] == name]
+        head = rows[0]  # the serving path's shape
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": {"flash_attention": "src/repro/kernels/flash_attention.py:71",
+                         "flash_decode": "src/repro/kernels/flash_decode.py:65"}[name],
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": head["ms"],
+            "device_ms": head["device_ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "shape": head["label"],
+            "timings": rows,
+        })
+    print(json.dumps({"serve": served}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

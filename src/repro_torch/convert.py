@@ -12,14 +12,21 @@ this package without importing its source:
                 "default_rate": FLOP/s}}, "resources": [(class name,
                 memory id, link group or None), ...], "bandwidth": bytes/s,
                 "latency": s}`` — resource ids are list positions, memory
-                id ``-1`` is host memory.
+                id ``-1`` is host memory;
+  model params  the reference's parameter tree as nested dicts of numpy
+                arrays (``jax.tree.map(np.asarray, params)``), see
+                :func:`params_from_jax`.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Sequence
 
+import numpy as np
+import torch
+
 from .core.dag import DataObject, Mode, TaskGraph
 from .core.machine import LinkModel, MachineModel, Resource, ResourceClass
+from .device import resolve_device
 
 
 def graph_from_spec(tasks: Sequence[Mapping[str, Any]]) -> TaskGraph:
@@ -55,3 +62,38 @@ def machine_from_spec(spec: Mapping[str, Any]) -> MachineModel:
             bandwidth=float(spec["bandwidth"]), latency=float(spec["latency"])
         ),
     )
+
+
+def params_from_jax(tree: Mapping[str, Any], cfg, device="cuda") -> Dict[str, Any]:
+    """The port's parameters from the reference's tree (nested dicts of numpy
+    arrays, as ``repro.models.transformer.init_params`` lays them out) for a
+    dense config ``cfg``: the leading ``n_periods`` axis of the blocks is
+    unstacked into a list of per-layer dicts, and every array is cast to the
+    compute dtype on ``device`` (the reference casts at every call; once
+    gives the same numbers). bf16 numpy arrays (ml_dtypes) widen to f32
+    exactly on the way."""
+    from .models.layers import _dtype
+    from .models.transformer import check_supported
+
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dt = _dtype(cfg.compute_dtype)
+
+    def tensor(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        return torch.from_numpy(np.array(a)).to(device=dev, dtype=dt)
+
+    def layer(sub, i):
+        return {k: layer(v, i) if isinstance(v, Mapping) else tensor(v[i]) for k, v in sub.items()}
+
+    stacked = tree["blocks"]["p0"]
+    out: Dict[str, Any] = {
+        "embed": {"table": tensor(tree["embed"]["table"])},
+        "final_norm": {k: tensor(v) for k, v in tree["final_norm"].items()},
+        "blocks": [layer(stacked, i) for i in range(cfg.n_layers)],
+    }
+    if "lm_head" in tree:
+        out["lm_head"] = tensor(tree["lm_head"])
+    return out

@@ -1,0 +1,169 @@
+"""GQA prefill attention with an online softmax: CUDA kernel + plain version.
+
+The prefill hot spot of the model stack: every attention layer of a
+prompt's forward pass.
+
+Counterpart of ``repro/kernels/flash_attention.py`` and its oracle
+``flash_attention_ref`` in ``repro/kernels/ref.py``:
+
+  * :func:`flash_attention_plain` — ``flash_attention_ref`` in torch: K/V
+    repeated over each group, logits and softmax in f32, the bottom-right
+    causal mask (``tril(k = sk - sq)``), the result cast to q's dtype;
+  * :func:`flash_attention` — the wrapper of the hand-written CUDA kernel
+    ``csrc/flash_attention.cu`` that replaces the Pallas
+    ``flash_attention`` (``repro/kernels/flash_attention.py:71``). A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises.
+
+Layout as the reference's: q ``(hq, sq, d)``, k and v ``(hk, sk, d)`` with
+``hq % hk == 0``, returning ``(hq, sq, d)``. A leading batch dimension is
+also taken (``(B, hq, sq, d)`` and ``(B, hk, sk, d)``), with any strides
+so long as ``d`` has unit stride: the model's ``(B, S, H, d)`` projections
+go in as ``transpose(1, 2)`` views, one launch per layer. The Pallas
+kernel's block sizes (``bq``, ``bk``) and ``interpret`` have no
+counterpart: the CUDA kernel has its own tile and masks ragged ``sq`` and
+``sk`` itself. f32 or bf16, all three alike; ``d <= 256``. A causal call
+with ``sq > sk`` raises: its first rows would see no key, where the
+reference's oracle gives NaN.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from ._build import build_library
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, scale: Optional[float] = None):
+    """``flash_attention_ref`` in torch; also takes a leading batch dim."""
+    hq, sq, d = q.shape[-3:]
+    hk, sk = k.shape[-3], k.shape[-2]
+    group = hq // hk
+    if scale is None:
+        scale = 1.0 / d**0.5
+    k = k.repeat_interleave(group, dim=-3)
+    v = v.repeat_interleave(group, dim=-3)
+    logits = (q.float() @ k.float().transpose(-1, -2)) * scale
+    if causal:
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril(sk - sq)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return (p @ v.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+
+_lib: Optional[ctypes.CDLL] = None
+_build_log = ""
+
+
+def build() -> str:
+    """Build (or reuse) the kernel library from the repo's source and load
+    it; returns the compiler's resource report (``-Xptxas -v``)."""
+    global _lib, _build_log
+    if _lib is not None:
+        return _build_log
+    lib, _build_log = build_library(_SRC)
+    fn = lib.repro_flash_attention
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    _lib = lib
+    return _build_log
+
+
+def _check(q, k, v, causal):
+    if q.dim() not in (3, 4) or k.dim() != q.dim() or v.dim() != q.dim():
+        raise ValueError(
+            f"q, k, v must all be (h, s, d) or all (B, h, s, d), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if k.shape != v.shape:
+        raise ValueError(f"k and v differ in shape: {tuple(k.shape)} vs {tuple(v.shape)}")
+    hq, sq, d = q.shape[-3:]
+    hk, sk, dk = k.shape[-3:]
+    if q.dim() == 4 and k.shape[0] != q.shape[0]:
+        raise ValueError(f"batch sizes differ: q {q.shape[0]}, k {k.shape[0]}")
+    if dk != d or min(hq, hk, sq, sk, d) <= 0 or hq % hk:
+        raise ValueError(
+            f"shapes do not fit: q {tuple(q.shape)}, k {tuple(k.shape)} (need hq % hk == 0 "
+            "and one head dim)"
+        )
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
+    if causal and sq > sk:
+        raise ValueError(f"causal attention with sq {sq} > sk {sk}: rows with no key")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"q, k and v must all be float32 or all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    devices = {t.device for t in (q, k, v)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs lie on several devices: {devices}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if d > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name} needs unit stride along d, got strides {t.stride()}")
+
+
+def _bhs_strides(t):
+    """(batch, head, seq) strides of a 3-D or 4-D operand."""
+    s = t.stride()
+    return (0, *s[:2]) if t.dim() == 3 else s[:3]
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention of ``q`` over ``k``/``v`` (GQA; bottom-right causal mask
+    when ``causal``): the CUDA kernel on CUDA tensors, the plain version on
+    CPU tensors. ``flash_attention.launches`` counts the kernel launches.
+
+    On the card, a 4-D call returns a ``(B, hq, sq, d)`` view of a
+    ``(B, sq, hq, d)`` tensor, so that ``out.transpose(1, 2)`` is
+    contiguous."""
+    _check(q, k, v, causal)
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    hq, sq, d = q.shape[-3:]
+    hk, sk = k.shape[-3], k.shape[-2]
+    if scale is None:
+        scale = 1.0 / d**0.5
+    build()
+    if q.dim() == 4:
+        out = torch.empty((q.shape[0], sq, hq, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    else:
+        out = torch.empty((hq, sq, d), dtype=q.dtype, device=dev)
+    strides = (ctypes.c_longlong * 12)(
+        *_bhs_strides(q), *_bhs_strides(k), *_bhs_strides(v), *_bhs_strides(out)
+    )
+    batch = q.shape[0] if q.dim() == 4 else 1
+    err = _lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch, hq, hk, sq, sk, d,
+        ctypes.cast(strides, ctypes.c_void_p), float(scale), int(bool(causal)),
+        _DTYPE_CODE[q.dtype], dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,153 @@
+"""Model assembly for the dense GQA transformer family: init, cache, forward.
+
+Counterpart of ``repro/models/transformer.py`` for configs whose blocks are
+all attention with a dense MLP (chatglm3-6b, granite-8b, gemma-7b). Any
+other family (MLA, MoE, Mamba / hybrid, xLSTM, encoder-decoder, VLM and
+audio frontends) raises :class:`NotImplementedError`: ``ROADMAP.md`` lists
+them as later slices.
+
+Where the reference differs in form only:
+
+  * its ``scan`` over periods is a plain loop over layers here, and the
+    parameters are a list of per-layer dicts (``convert.params_from_jax``
+    unstacks the reference's leading ``n_periods`` axis);
+  * its ``_cast_floats`` casts every float parameter to the compute dtype
+    on every call; here parameters are held in the compute dtype, cast
+    once when made or converted, which gives the same numbers;
+  * gemma's tied embedding is a one-hot contraction there and a gather
+    here: exactly one term is non-zero, so the two are equal;
+  * ``constrain_batch`` (a no-op on one card) and ``remat`` (which does not
+    matter when serving) are left out;
+  * the cache keeps the reference's structure, ``{"p0": {"k", "v"}}`` with
+    a leading layer axis, and a decode step updates it in place.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from . import attention as attn
+from .layers import _dtype, dense_init, embed_apply, embed_init, mlp_apply, mlp_init, norm_apply, norm_init
+from .rope import rope_table
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is a dense attention-only transformer."""
+    if (
+        cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None
+        or tuple(cfg.block_pattern) != ("attn",) or cfg.enc_layers or cfg.frontend_tokens
+    ):
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} (mla={cfg.mla is not None}, "
+            f"moe={cfg.moe is not None}, blocks {cfg.block_pattern}) is not ported yet; "
+            "the port serves dense attention-only configs (ROADMAP.md, queue 1 item 7)"
+        )
+
+
+# ---------------------------------------------------------------------------
+def block_init(cfg: ModelConfig, gen, dtype, device) -> Dict:
+    d = cfg.d_model
+    return {
+        "norm1": norm_init(cfg.norm, d, dtype, device),
+        "attn": attn.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dtype, device),
+        "norm2": norm_init(cfg.norm, d, dtype, device),
+        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.act, dtype, device),
+    }
+
+
+def block_apply(cfg: ModelConfig, params: Dict, x, *, rope_cos, rope_sin, cache=None, cache_pos=None):
+    """One pre-norm block: attention then the MLP, each residual."""
+    h = norm_apply(cfg.norm, params["norm1"], x)
+    y, _ = attn.attn_apply(
+        params["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+        rope_cos=rope_cos, rope_sin=rope_sin, rope_style=cfg.rope_style, causal=True,
+        cache=cache, cache_pos=cache_pos,
+    )
+    x = x + y
+    h = norm_apply(cfg.norm, params["norm2"], x)
+    return x + mlp_apply(params["mlp"], h, cfg.act)
+
+
+def cache_init(cfg: ModelConfig, B: int, S: int, device="cuda") -> Dict:
+    """Zero KV cache ``{"p0": {"k", "v"}}``, each (n_layers, B, S, Hkv, hd)
+    in the compute dtype."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
+    dt = _dtype(cfg.compute_dtype)
+    return {"p0": {
+        "k": torch.zeros(shape, dtype=dt, device=dev),
+        "v": torch.zeros(shape, dtype=dt, device=dev),
+    }}
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> Dict:
+    """Random parameters with the reference's distribution (not its bits),
+    drawn from ``generator`` on its own device and held on ``device`` in the
+    compute dtype."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dt = _dtype(cfg.compute_dtype)
+    params: Dict = {
+        "embed": embed_init(generator, cfg.vocab, cfg.d_model, dt, dev),
+        "final_norm": norm_init(cfg.norm, cfg.d_model, dt, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab), dt, dev)
+    params["blocks"] = [block_init(cfg, generator, dt, dev) for _ in range(cfg.n_layers)]
+    return params
+
+
+# ---------------------------------------------------------------------------
+def _rope_tables(cfg: ModelConfig, positions):
+    if cfg.rope_style == "none":
+        return None, None
+    rot = cfg.hd // 2 if cfg.rope_style == "half" else cfg.hd
+    return rope_table(positions, rot, cfg.rope_theta)
+
+
+def forward(
+    params: Dict,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    *,
+    cache: Optional[Dict] = None,
+    cache_pos: Optional[int] = None,
+    last_logit_only: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Decoder forward. Returns (f32 logits, cache, aux loss).
+
+    prefill: ``cache=None``, tokens (B, S).
+    decode: the cache from :func:`cache_init` and an int ``cache_pos``;
+    tokens (B, 1); the cache is updated in place and returned.
+    The aux loss is 0 for the dense family (it belongs to MoE).
+    """
+    check_supported(cfg)
+    cdt = _dtype(cfg.compute_dtype)
+    x = embed_apply(params["embed"], tokens).to(cdt)
+    if cfg.name.startswith("gemma"):
+        # the reference multiplies by a weakly typed scalar, i.e. by
+        # sqrt(d) rounded to the compute dtype
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=cdt, device=x.device)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    if cache is not None:
+        positions = positions + int(cache_pos)
+    cos, sin = _rope_tables(cfg, positions)
+    for i, bp in enumerate(params["blocks"]):
+        layer_cache = None
+        if cache is not None:
+            layer_cache = {"k": cache["p0"]["k"][i], "v": cache["p0"]["v"][i]}
+        x = block_apply(cfg, bp, x, rope_cos=cos, rope_sin=sin, cache=layer_cache,
+                        cache_pos=cache_pos)
+    x = norm_apply(cfg.norm, params["final_norm"], x)
+    if last_logit_only:
+        x = x[:, -1:]
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"]["table"].T.to(x.dtype)
+    else:
+        logits = x @ params["lm_head"].to(x.dtype)
+    return logits.float(), cache, torch.zeros((), dtype=torch.float32, device=x.device)

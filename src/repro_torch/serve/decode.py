@@ -1,0 +1,44 @@
+"""Serving: prefill and single-token decode steps.
+
+Counterpart of ``repro/serve/decode.py`` for the dense family (the
+encoder-decoder cross cache waits for that family, ``ROADMAP.md``).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..models.transformer import cache_init, check_supported, forward
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """Prefill returns last-position logits only, (B, 1, V) f32: serving only
+    ever samples from the final position."""
+    check_supported(cfg)
+
+    def prefill_step(params, batch):
+        logits, _, _ = forward(params, cfg, batch["tokens"], last_logit_only=True)
+        return logits
+
+    return prefill_step
+
+
+def make_decode_cache(cfg: ModelConfig, B: int, S: int, device="cuda") -> Dict:
+    """Allocate the zero cache (B sequences of S positions)."""
+    return cache_init(cfg, B, S, device)
+
+
+def make_serve_step(cfg: ModelConfig):
+    """``serve_step(params, cache, tokens, pos) -> (next_token, logits, cache)``:
+    one decode step at the int position ``pos``; the cache is updated in
+    place; the next token is the greedy argmax (int32)."""
+    check_supported(cfg)
+
+    def serve_step(params, cache, tokens, pos):
+        logits, cache, _ = forward(params, cfg, tokens, cache=cache, cache_pos=pos)
+        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        return next_tok, logits, cache
+
+    return serve_step

@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import sched_score as port
 from repro_torch.kernels import tile_gemm
 
@@ -189,3 +191,129 @@ def test_cuda_schedule_replay_equals_cpu(cuda, kernel):
         on_card, on_cpu = (torch.triu(m) * torch.sign(torch.diagonal(m))[:, None] for m in (on_card, on_cpu))
     err = ((on_card - on_cpu).abs().max() / on_cpu.abs().max()).item()
     assert err < 1e-5, err
+
+
+# ---------------------------------------------------------------------------
+# flash_attention (csrc/flash_attention.cu) and flash_decode (csrc/flash_decode.cu)
+
+# tests/test_kernels.py's tolerances: f32 2e-5 (flash_decode 1e-5), bf16 3e-2
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+DECODE_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+def _draw(seed, shapes, dtype):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dtype) for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize(
+    "hq,hk,sq,sk,d",
+    [(4, 4, 128, 128, 128), (4, 2, 128, 128, 128), (8, 1, 128, 256, 128), (4, 2, 128, 128, 256),
+     (4, 2, 100, 100, 64), (6, 3, 37, 130, 32), (32, 2, 1, 9, 128), (4, 4, 65, 65, 256)],
+)
+def test_cuda_flash_attention_matches_plain(cuda, hq, hk, sq, sk, d, causal, dtype):
+    q, k, v = _draw(hq + sq + sk + d, ((hq, sq, d), (hk, sk, d), (hk, sk, d)), dtype)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (hq, sq, d)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_cuda_flash_attention_batched_views(cuda):
+    """The model's call: (B, S, H, d) projections as transpose(1, 2) views;
+    the output's transpose(1, 2) is contiguous."""
+    B, S, hq, hk, d = 2, 300, 32, 2, 128
+    q, k, v = (t.to(cuda) for t in _draw(5, ((B, S, hq, d), (B, S, hk, d), (B, S, hk, d)),
+                                          torch.bfloat16))
+    got = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert got.transpose(1, 2).is_contiguous()
+    want = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+def test_cuda_flash_attention_refusals(cuda):
+    before = fa.flash_attention.launches
+    x = torch.zeros(4, 20, 32, device=cuda)
+    with pytest.raises(ValueError, match="sq 20 > sk 10"):
+        fa.flash_attention(x, x[:2, :10], x[:2, :10])
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        y = x.double()
+        fa.flash_attention(y, y, y)
+    with pytest.raises(ValueError, match="devices"):
+        fa.flash_attention(x, x.cpu(), x.cpu())
+    assert fa.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "B,hq,hk,s,d,length",
+    [(2, 8, 2, 512, 128, 512), (2, 4, 1, 1024, 128, 700), (2, 16, 16, 256, 128, 256),
+     (4, 32, 2, 96, 128, 65), (2, 4, 2, 300, 32, 171), (3, 16, 16, 50, 256, 1)],
+)
+def test_cuda_flash_decode_matches_plain(cuda, B, hq, hk, s, d, length, dtype):
+    q, k, v = _draw(s + length, ((B, hq, d), (B, s, hk, d), (B, s, hk, d)), dtype)
+    want = fd.flash_decode_plain(q, k, v, length)
+    before = fd.flash_decode.launches
+    got = fd.flash_decode(q.to(cuda), k.to(cuda), v.to(cuda), length)
+    torch.cuda.synchronize()
+    assert fd.flash_decode.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, hq, d)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_cuda_flash_decode_refusals(cuda):
+    before = fd.flash_decode.launches
+    q = torch.zeros(2, 8, 32, device=cuda)
+    k = torch.zeros(2, 16, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="outside"):
+        fd.flash_decode(q, k, k, 0)
+    with pytest.raises(ValueError, match="devices"):
+        fd.flash_decode(q, k.cpu(), k.cpu(), 4)
+    assert fd.flash_decode.launches == before
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "granite-8b", "gemma-7b"])
+def test_cuda_serving_equals_cpu(cuda, arch):
+    """The smoke config served on the card (both kernels) equals the CPU run
+    (plain versions) at f32: the same greedy tokens, logits within 1e-4."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.launch.serve import prefill_into_cache
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = smoke_config(arch).scaled(compute_dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(cuda)
+
+    on_card = to(params)
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 9)))
+    out = {}
+    for dev, p in (("cuda", on_card), ("cpu", params)):
+        fa.flash_attention.launches = fd.flash_decode.launches = 0
+        logits = make_prefill_step(cfg)(p, {"tokens": prompt.to(dev)})
+        last, cache = prefill_into_cache(p, cfg, prompt.to(dev), 14)
+        toks = [last]
+        step = make_serve_step(cfg)
+        for i in range(4):
+            nxt, _, cache = step(p, cache, toks[-1][:, None], 9 + i)
+            toks.append(nxt)
+        out[dev] = (logits.cpu(), torch.stack(toks, 1).cpu(),
+                    fa.flash_attention.launches, fd.flash_decode.launches)
+    assert out["cuda"][2] == cfg.n_layers and out["cuda"][3] == 13 * cfg.n_layers
+    assert out["cpu"][2] == out["cpu"][3] == 0
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=1e-4)
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+

@@ -132,6 +132,23 @@ def test_gemm_kernel_source_is_in_the_package():
     assert "sm_90a" in flags and "use_fast_math" not in flags
 
 
+@pytest.mark.parametrize(
+    "module,replaces,entry",
+    [("flash_attention", "flash_attention.py:71", "repro_flash_attention"),
+     ("flash_decode", "flash_decode.py:65", "repro_flash_decode")],
+)
+def test_attention_kernel_sources_are_in_the_package(module, replaces, entry):
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    src = mod._SRC
+    assert src.is_file() and src.is_relative_to(PORT)
+    text = src.read_text()
+    assert replaces in text  # names the TPU kernel it replaces
+    assert f'extern "C" int {entry}' in text
+    assert mod._lib is None or torch.cuda.is_available()  # built at first use, not at import
+
+
 def test_build_helper_needs_nvcc(monkeypatch, tmp_path):
     """The shared nvcc helper raises where there is no compiler."""
     from repro_torch.kernels import _build
