@@ -5,9 +5,9 @@
 Phases (each prints its own lines and its wall time; any failure exits
 non-zero and no phase carries on past its own failure):
 
-  1. build    build the four CUDA kernels from the repo's sources, one nvcc
-              each, started together; print their ptxas reports and the
-              card (name and power limit, from nvidia-smi);
+  1. build    build the six CUDA sources of the four ported kernels from the
+              repo, one nvcc each, started together; print their ptxas
+              reports and the card (name and power limit, from nvidia-smi);
   2. kernel   the transfer-matrix kernel against its plain PyTorch versions
               on seeded inputs (n_pad 8..256, r_pad 1..4, n_u 9/25/30, with
               empty masks, host-only masks and padded reads): the outputs
@@ -40,16 +40,21 @@ non-zero and no phase carries on past its own failure):
               versions on the card and on the CPU: tests/test_kernels.py's
               sweeps at its tolerances, ragged lengths, and the serving
               path's shapes (chatglm3-6b: 32 query heads, 2 KV heads, hd
-              128, bf16); refusals; then their times at those shapes (and
-              decode at a decode_32k-like shape: B 16, S 32 768) beside the
-              plain version, the bound and scaled_dot_product_attention;
+              128, bf16), printing the route each case took (tensor-core
+              "tc" / split-KV "split", or "simt") and checking it against
+              the counters; unaligned views take the SIMT routes; refusals;
+              then their times at those shapes (and decode at a
+              decode_32k-like shape: B 16, S 32 768) beside the plain
+              version, the bound and scaled_dot_product_attention;
   7. serve    chatglm3-6b at full width and depth (6.24e9 random bf16
               parameters from a seeded generator) on the card: prefill of
               4 x 2048 tokens through make_prefill_step; then
               prefill_into_cache on a 64-token prompt and 32 greedy decode
               steps. The two paths' last-position logits on that prompt must
               agree within SERVE_LOGIT_TOL, every logit must be finite, and
-              each kernel must launch 28 times per forward. Prints tokens/s
+              each kernel must launch 28 times per forward, all on its
+              tensor-core route (flash_attention "tc", flash_decode
+              "split"). Prints tokens/s
               and a profile of one prefill and one decode step. Then the
               smoke configs served on the card against the CPU at f32;
   8. profile  one NT 16 Cholesky simulation per strategy and one NT 16
@@ -108,6 +113,10 @@ ATTN_CASES = [
     (None, 2, 1, 77, 45, 128, False), (None, 4, 4, 65, 65, 256, True),
     (SERVE_B, 32, 2, SERVE_PROMPT, SERVE_PROMPT, 128, True),  # the shared prompt
     (SERVE_B, 32, 2, SERVE_PREFILL, SERVE_PREFILL, 128, True),  # the prefill
+    # the tensor-core route's edges: d 64 and 128, sq / sk no multiple of 128
+    # or 64, causal with sk > sq, B > 1 strided views
+    (2, 8, 2, 77, 300, 64, True), (3, 32, 2, 257, 257, 128, True),
+    (2, 6, 3, 200, 65, 64, False), (1, 4, 1, 1, 129, 128, True), (2, 4, 2, 130, 1000, 64, False),
 ]
 DECODE_32K = (16, 32768)  # (B, S) of the decode_32k-like timing and check
 # flash_decode cases: (B, hq, hk, S, hd, length)
@@ -117,6 +126,10 @@ DECODE_CASES = [
     (SERVE_B, 32, 2, SERVE_PROMPT + SERVE_STEPS, 128, 1),  # the serving cache
     (SERVE_B, 32, 2, SERVE_PROMPT + SERVE_STEPS, 128, SERVE_PROMPT + SERVE_STEPS),
     (DECODE_32K[0], 32, 2, DECODE_32K[1], 128, DECODE_32K[1]),
+    # the split route's edges: groups 1, 16 and 32 at lengths 1, a last
+    # split of one position (chunk 64 + 1) and the whole cache
+    *[(2, 2 * group, 2, 700, 128, length) for group in (1, 16, 32) for length in (1, 65, 700)],
+    (1, 24, 1, 130, 16, 130), (2, 4, 4, 64, 256, 33),
 ]
 
 
@@ -370,9 +383,11 @@ def _draw(rng, shape, dtype):
 
 def attention_check(fa, fd, dev):
     """Both attention kernels against their plain versions on the card and
-    on the CPU; returns the largest |kernel - plain on the card| of each."""
+    on the CPU, on every route; returns the largest |kernel - plain on the
+    card| of each, by route."""
     rng = np.random.default_rng(0)
-    fa_err = 0.0
+    fa_err = {}
+    routes = {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = ATTN_TOL[dtype]
         for B, hq, hk, sq, sk, d, causal in ATTN_CASES:
@@ -383,6 +398,8 @@ def attention_check(fa, fd, dev):
                 raw = [_draw(rng, s, dtype) for s in ((B, sq, hq, d), (B, sk, hk, d), (B, sk, hk, d))]
                 host = [t.transpose(1, 2) for t in raw]
                 args = [t.to(dev).transpose(1, 2) for t in raw]
+            route = fa.attention_route(*args)
+            before = fa.flash_attention.launches_tc
             got = fa.flash_attention(*args, causal=causal)
             want_card = fa.flash_attention_plain(*args, causal=causal)
             torch.cuda.synchronize()
@@ -390,6 +407,10 @@ def attention_check(fa, fd, dev):
             shape = tuple(host[0].shape)
             if tuple(got.shape) != shape or got.dtype != dtype or not torch.isfinite(g).all():
                 raise SystemExit(f"flash_attention output malformed at {shape} {dtype}")
+            if fa.flash_attention.launches_tc - before != (route == "tc"):
+                raise SystemExit(f"flash_attention at {shape} {dtype}: the counters disagree "
+                                 f"with the route {route}")
+            routes[route] = routes.get(route, 0) + 1
             wants = [want_card.cpu().float()]
             if B is None or sq <= SERVE_PROMPT:  # the CPU plain run of the big case is slow
                 wants.append(fa.flash_attention_plain(*host, causal=causal).float())
@@ -398,22 +419,33 @@ def attention_check(fa, fd, dev):
                     raise SystemExit(
                         f"flash_attention disagrees with its plain version at {shape} "
                         f"{dtype} causal={causal}: max |diff| {(g - want).abs().max().item()}")
-            fa_err = max(fa_err, (g - wants[0]).abs().max().item())
+            err = (g - wants[0]).abs().max().item()
+            fa_err[route] = max(fa_err.get(route, 0.0), err)
+            print(f"  flash_attention {shape} {str(dtype)[6:]} causal={causal}: route {route}, "
+                  f"max |kernel - plain| {err}")
             del got, want_card, args
     print(f"flash_attention within tol of its plain version (card and CPU) on "
-          f"{2 * len(ATTN_CASES)} cases; max |kernel - plain on the card| {fa_err}")
-    fd_err = 0.0
+          f"{2 * len(ATTN_CASES)} cases, by route {routes}; max |kernel - plain on the card| "
+          f"by route {fa_err}")
+    fd_err = {}
+    routes = {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = DECODE_TOL[dtype]
         for B, hq, hk, S, hd, length in DECODE_CASES:
             host = [_draw(rng, s, dtype) for s in ((B, hq, hd), (B, S, hk, hd), (B, S, hk, hd))]
             args = [t.to(dev) for t in host]
+            route = fd.decode_route(*args)
+            before = fd.flash_decode.launches_split
             got = fd.flash_decode(*args, length)
             want_card = fd.flash_decode_plain(*args, length)
             torch.cuda.synchronize()
             g = got.cpu().float()
             if tuple(got.shape) != (B, hq, hd) or got.dtype != dtype or not torch.isfinite(g).all():
                 raise SystemExit(f"flash_decode output malformed at {(B, hq, hk, S, hd)} {dtype}")
+            if fd.flash_decode.launches_split - before != (route == "split"):
+                raise SystemExit(f"flash_decode at {(B, hq, hk, S, hd)} {dtype}: the counters "
+                                 f"disagree with the route {route}")
+            routes[route] = routes.get(route, 0) + 1
             wants = [want_card.cpu().float()]
             if S <= 4096:
                 wants.append(fd.flash_decode_plain(*host, length).float())
@@ -423,10 +455,34 @@ def attention_check(fa, fd, dev):
                         f"flash_decode disagrees with its plain version at "
                         f"{(B, hq, hk, S, hd, length)} {dtype}: max |diff| "
                         f"{(g - want).abs().max().item()}")
-            fd_err = max(fd_err, (g - wants[0]).abs().max().item())
+            err = (g - wants[0]).abs().max().item()
+            fd_err[route] = max(fd_err.get(route, 0.0), err)
+            splits = fd.decode_splits(B, hk, length)[1] if route == "split" else None
+            print(f"  flash_decode {(B, hq, hk, S, hd)} length {length} {str(dtype)[6:]}: route "
+                  f"{route}" + (f" ({splits} splits)" if splits else "")
+                  + f", max |kernel - plain| {err}")
             del got, want_card, args
     print(f"flash_decode within tol of its plain version (card and CPU) on "
-          f"{2 * len(DECODE_CASES)} cases; max |kernel - plain on the card| {fd_err}")
+          f"{2 * len(DECODE_CASES)} cases, by route {routes}; max |kernel - plain on the card| "
+          f"by route {fd_err}")
+    # unaligned bf16 views take the SIMT routes, by the counters
+    raw = [_draw(rng, s, torch.bfloat16).to(dev) for s in ((8, 96, 136), (2, 96, 136))]
+    q, kv = (t[..., 1:129] for t in raw)
+    before = (fa.flash_attention.launches, fa.flash_attention.launches_tc)
+    got = fa.flash_attention(q, kv, kv)
+    err = (got.float() - fa.flash_attention_plain(q, kv, kv).float()).abs().max().item()
+    if (fa.attention_route(q, kv, kv) != "simt" or err > ATTN_TOL[torch.bfloat16]
+            or (fa.flash_attention.launches, fa.flash_attention.launches_tc) != (before[0] + 1, before[1])):
+        raise SystemExit(f"flash_attention on an unaligned view: not the SIMT route, or wrong ({err})")
+    cache = _draw(rng, (2, 96, 2, 136), torch.bfloat16).to(dev)[..., 1:129]
+    qd = _draw(rng, (2, 32, 136), torch.bfloat16).to(dev)[..., 1:129]
+    before = (fd.flash_decode.launches, fd.flash_decode.launches_split)
+    got = fd.flash_decode(qd, cache, cache, 90)
+    err = (got.float() - fd.flash_decode_plain(qd, cache, cache, 90).float()).abs().max().item()
+    if (fd.decode_route(qd, cache, cache) != "simt" or err > DECODE_TOL[torch.bfloat16]
+            or (fd.flash_decode.launches, fd.flash_decode.launches_split) != (before[0] + 1, before[1])):
+        raise SystemExit(f"flash_decode on an unaligned view: not the SIMT route, or wrong ({err})")
+    print("unaligned bf16 views: both took the SIMT route and agree with the plain versions")
     x = torch.zeros(4, 20, 32, device=dev)
     must_refuse("causal sq > sk", lambda: fa.flash_attention(x, x[:2, :10], x[:2, :10]),
                 fa.flash_attention)
@@ -453,6 +509,7 @@ def attention_timing(fa, fd, dev):
     flops = 4 * d * pairs * B * hq
     nbytes = 2 * (2 * B * S * hq * d + 2 * B * S * hk * d)
     cases = [("flash_attention", f"prefill B{B} S{S} hq{hq} hk{hk} d{d} bf16 causal", flops, nbytes,
+              {"route": fa.attention_route(q, k, v)},
               lambda: fa.flash_attention(q, k, v),
               lambda: fa.flash_attention_plain(q, k, v),
               lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True))]
@@ -465,11 +522,13 @@ def attention_timing(fa, fd, dev):
         cases.append((
             "flash_decode", f"{label} B{B} S{S} hq{hq} hk{hk} d{d} bf16 length {S}",
             4 * B * hq * S * d, 2 * (2 * B * hq * d + 2 * B * S * hk * d),
+            {"route": fd.decode_route(qd, kc, vc), "n_split": fd.decode_splits(B, hk, S)[1],
+             "chunk": fd.decode_splits(B, hk, S)[0]},
             lambda qd=qd, kc=kc, vc=vc, S=S: fd.flash_decode(qd, kc, vc, S),
             lambda qd=qd, kc=kc, vc=vc, S=S: fd.flash_decode_plain(qd, kc, vc, S),
             lambda q4=q4, k4=k4, v4=v4: F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True),
         ))
-    for name, label, flops, nbytes, kernel, plain, library in cases:
+    for name, label, flops, nbytes, extra, kernel, plain, library in cases:
         ms, device_ms = time_ms(kernel, reps=20), graph_ms(kernel, reps=10)
         plain_ms = time_ms(plain, reps=5)
         library_ms, library_device_ms = time_ms(library, reps=20), graph_ms(library, reps=10)
@@ -480,11 +539,11 @@ def attention_timing(fa, fd, dev):
             "library_ms": library_ms, "library_device_ms": library_device_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "flop": flops, "bytes": nbytes,
+            "flop": flops, "bytes": nbytes, **extra,
         }
         row["share_of_bound"] = row["bound_ms"] / device_ms
         rows.append(row)
-        print(f"{name} {label}: kernel {ms:.6f} ms per call ({device_ms:.6f} ms on the device, "
+        print(f"{name} {label} {extra}: kernel {ms:.6f} ms per call ({device_ms:.6f} ms on the device, "
               f"from a CUDA graph), plain {plain_ms:.6f} ms, SDPA {library_ms:.6f} ms "
               f"({library_device_ms:.6f}), bound {row['bound_ms']:.6f} ms ({row['bound_by']}: "
               f"{flops} flop, {nbytes} bytes), {flops / device_ms / 1e9:.3f} TFLOP/s and "
@@ -560,8 +619,8 @@ def serve_phase(fa, fd, dev):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         # ---- the main path, counted from here ----
-        fa.flash_attention.launches = 0
-        fd.flash_decode.launches = 0
+        fa.flash_attention.launches = fa.flash_attention.launches_tc = 0
+        fd.flash_decode.launches = fd.flash_decode.launches_split = 0
         n_prefill = n_decode = 0
         prefill_walls = []
         for _ in range(2):
@@ -590,15 +649,21 @@ def serve_phase(fa, fd, dev):
         decode_wall = time.perf_counter() - w0
         n_decode += SERVE_STEPS
         fa_launches, fd_launches = fa.flash_attention.launches, fd.flash_decode.launches
+        fa_tc, fd_split = fa.flash_attention.launches_tc, fd.flash_decode.launches_split
         # ---- end of the main path ----
         peak = torch.cuda.max_memory_allocated()
         print(f"main path: {n_prefill} prefill forwards, {n_decode} decode forwards; "
-              f"flash_attention launches {fa_launches}, flash_decode launches {fd_launches}; "
+              f"flash_attention launches {fa_launches} (tensor-core route {fa_tc}), "
+              f"flash_decode launches {fd_launches} (split route {fd_split}); "
               f"peak device memory {peak} bytes", flush=True)
         if fa_launches != n_layers * n_prefill or fd_launches != n_layers * n_decode:
             raise SystemExit(f"launches per forward are not {n_layers}: flash_attention "
                              f"{fa_launches} over {n_prefill}, flash_decode {fd_launches} over "
                              f"{n_decode}")
+        if fa_tc != n_layers * n_prefill or fd_split != n_layers * n_decode:
+            raise SystemExit(f"the serving path left the tensor-core routes: flash_attention "
+                             f"tc {fa_tc} of {fa_launches}, flash_decode split {fd_split} of "
+                             f"{fd_launches}")
         for name, t, shape in (("prefill B4x2048", logits_long, (SERVE_B, 1, cfg.vocab)),
                                ("prefill B4x64", logits_prefill, (SERVE_B, 1, cfg.vocab)),
                                ("decode", logits_dec, (SERVE_B, 1, cfg.vocab)),
@@ -626,7 +691,8 @@ def serve_phase(fa, fd, dev):
               f"in {decode_wall:.3f} s -> {decode_tps:.1f} tokens/s, "
               f"{1e3 * decode_wall / SERVE_STEPS:.3f} ms a step; sample {tokens[0, :12].tolist()}",
               flush=True)
-        out = dict(fa_launches=fa_launches, fd_launches=fd_launches, prefill_tps=prefill_tps,
+        out = dict(fa_launches=fa_launches, fd_launches=fd_launches, fa_launches_tc=fa_tc,
+                   fd_launches_split=fd_split, prefill_tps=prefill_tps,
                    decode_tps=decode_tps, logit_gap=gap, n_params=n_params, peak_bytes=peak,
                    prefill_walls=prefill_walls, decode_step_ms=1e3 * decode_wall / SERVE_STEPS)
         profile_window(lambda: prefill(params, {"tokens": long_prompt}),
@@ -683,6 +749,7 @@ def main() -> int:
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import sched_score as ss
     from repro_torch.kernels import tile_gemm as tg
+    from repro_torch.kernels._build import build_library
     from repro_torch.linalg import tiles
     from repro_torch.linalg.cholesky import cholesky_graph
     from repro_torch.linalg.execute import execute_graph, execute_schedule
@@ -699,12 +766,15 @@ def main() -> int:
     card = card_line()
     print(card)
     kernel_modules = (ss, tg, fa, fd)
-    with ThreadPoolExecutor(len(kernel_modules)) as pool:  # one nvcc per source, started together
-        reports = list(pool.map(lambda mod: mod.build(), kernel_modules))
-    for mod, report in zip(kernel_modules, reports):
-        print(f"{mod._SRC.name}:")
+    sources = [src for mod in kernel_modules for src in mod.SOURCES]
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
+        reports = list(pool.map(lambda src: build_library(src)[1], sources))
+    for src, report in zip(sources, reports):
+        print(f"{src.name}:")
         for line in report.splitlines():
             print(f"  {line.strip()}")
+    for mod in kernel_modules:  # loads the libraries just built
+        mod.build()
     done("build", t0)
 
     # ---- 2. kernel against its plain versions ------------------------------
@@ -1009,18 +1079,25 @@ def main() -> int:
         "shape": head["shape"],
         "timings": gemm_rows,
     })
-    for name, launches, err in (("flash_attention", served["fa_launches"], fa_err),
-                                ("flash_decode", served["fd_launches"], fd_err)):
+    for name, launches, err, kernel_route, source, launches_route in (
+            ("flash_attention", served["fa_launches"], fa_err, "tc", "flash_attention_sm90.cu",
+             served["fa_launches_tc"]),
+            ("flash_decode", served["fd_launches"], fd_err, "split", "flash_decode_split.cu",
+             served["fd_launches_split"])):
         rows = [r for r in attn_rows if r["name"] == name]
         head = rows[0]  # the serving path's shape
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "kernel_route": kernel_route,
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "simt_source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": {"flash_attention": "src/repro/kernels/flash_attention.py:71",
                          "flash_decode": "src/repro/kernels/flash_decode.py:65"}[name],
             "launches": launches,
-            "max_abs_err": err,
+            f"launches_{kernel_route}": launches_route,
+            "max_abs_err": max(err.values()),
+            "max_abs_err_by_route": err,
             "ms": head["ms"],
             "device_ms": head["device_ms"],
             "plain_ms": head["plain_ms"],
@@ -1028,6 +1105,7 @@ def main() -> int:
             "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "shape": head["label"],
+            **{key: head[key] for key in ("n_split", "chunk") if key in head},
             "timings": rows,
         })
     print(json.dumps({"serve": served}))

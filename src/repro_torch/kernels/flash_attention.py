@@ -1,4 +1,4 @@
-"""GQA prefill attention with an online softmax: CUDA kernel + plain version.
+"""GQA prefill attention with an online softmax: CUDA kernels + plain version.
 
 The prefill hot spot of the model stack: every attention layer of a
 prompt's forward pass.
@@ -9,11 +9,25 @@ Counterpart of ``repro/kernels/flash_attention.py`` and its oracle
   * :func:`flash_attention_plain` — ``flash_attention_ref`` in torch: K/V
     repeated over each group, logits and softmax in f32, the bottom-right
     causal mask (``tril(k = sk - sq)``), the result cast to q's dtype;
-  * :func:`flash_attention` — the wrapper of the hand-written CUDA kernel
-    ``csrc/flash_attention.cu`` that replaces the Pallas
-    ``flash_attention`` (``repro/kernels/flash_attention.py:71``). A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises.
+  * :func:`flash_attention` — the wrapper of two hand-written CUDA kernels
+    that replace the Pallas ``flash_attention``
+    (``repro/kernels/flash_attention.py:71``). A CPU tensor takes the plain
+    version; a CUDA tensor launches a kernel or raises.
+
+Routes, chosen by :func:`attention_route` before any launch (never by
+catching a failure):
+
+  * ``"tc"`` — ``csrc/flash_attention_sm90.cu``, bf16 on the tensor cores
+    (wgmma fed by TMA): q, k and v all bf16; ``d`` 64 or 128; every
+    operand's base 16-byte aligned and its batch, head and seq strides
+    multiples of 8 elements (a batch of one excepted), as TMA needs;
+  * ``"simt"`` — ``csrc/flash_attention.cu`` on the CUDA cores in f32:
+    everything else, f32 (no TF32), ``d`` 32 or 256 and unaligned views
+    included.
+
+``flash_attention.launches`` counts every call that launched a kernel (one
+per layer of a prefill forward); ``flash_attention.launches_tc`` those that
+took the tensor-core route.
 
 Layout as the reference's: q ``(hq, sq, d)``, k and v ``(hk, sk, d)`` with
 ``hq % hk == 0``, returning ``(hq, sq, d)``. A leading batch dimension is
@@ -21,10 +35,10 @@ also taken (``(B, hq, sq, d)`` and ``(B, hk, sk, d)``), with any strides
 so long as ``d`` has unit stride: the model's ``(B, S, H, d)`` projections
 go in as ``transpose(1, 2)`` views, one launch per layer. The Pallas
 kernel's block sizes (``bq``, ``bk``) and ``interpret`` have no
-counterpart: the CUDA kernel has its own tile and masks ragged ``sq`` and
-``sk`` itself. f32 or bf16, all three alike; ``d <= 256``. A causal call
-with ``sq > sk`` raises: its first rows would see no key, where the
-reference's oracle gives NaN.
+counterpart: the CUDA kernels have their own tiles and mask ragged ``sq``
+and ``sk`` themselves. f32 or bf16, all three alike; ``d <= 256``. A
+causal call with ``sq > sk`` raises: its first rows would see no key,
+where the reference's oracle gives NaN.
 """
 from __future__ import annotations
 
@@ -37,6 +51,9 @@ import torch
 from ._build import build_library
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_SRC_TC = Path(__file__).resolve().parent / "csrc" / "flash_attention_sm90.cu"
+SOURCES = (_SRC, _SRC_TC)
+TC_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 
@@ -62,24 +79,43 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale: Optional[float
 # the CUDA kernel
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_tc: Optional[ctypes.CDLL] = None
 _build_log = ""
 
 
 def build() -> str:
-    """Build (or reuse) the kernel library from the repo's source and load
-    it; returns the compiler's resource report (``-Xptxas -v``)."""
-    global _lib, _build_log
-    if _lib is not None:
+    """Build (or reuse) both kernel libraries from the repo's sources and
+    load them; returns the compiler's resource reports (``-Xptxas -v``)."""
+    global _lib, _lib_tc, _build_log
+    if _lib is not None and _lib_tc is not None:
         return _build_log
-    lib, _build_log = build_library(_SRC)
-    fn = lib.repro_flash_attention
-    fn.argtypes = (
+    lib, log = build_library(_SRC)
+    lib_tc, log_tc = build_library(_SRC_TC)
+    args = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float]
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 2
     )
-    fn.restype = ctypes.c_int
-    _lib = lib
+    lib.repro_flash_attention.argtypes = args + [ctypes.c_int, ctypes.c_void_p]
+    lib.repro_flash_attention.restype = ctypes.c_int
+    lib_tc.repro_flash_attention_sm90.argtypes = args + [ctypes.c_void_p]
+    lib_tc.repro_flash_attention_sm90.restype = ctypes.c_int
+    _lib, _lib_tc = lib, lib_tc
+    _build_log = "\n".join(x for x in (log, log_tc) if x)
     return _build_log
+
+
+def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``"tc"`` or ``"simt"`` for a call that passes :func:`_check`: a pure
+    function of dtype, shape, strides and alignment (the module docstring
+    states the rule)."""
+    if not all(t.dtype == torch.bfloat16 for t in (q, k, v)) or q.shape[-1] not in TC_HEAD_DIMS:
+        return "simt"
+    batch = q.shape[0] if q.dim() == 4 else 1
+    for t in (q, k, v):
+        strides = _bhs_strides(t)[1:] if batch == 1 else _bhs_strides(t)  # one: no batch stride
+        if t.data_ptr() % 16 or t.stride(-1) != 1 or any(s % 8 for s in strides):
+            return "simt"
+    return "tc"
 
 
 def _check(q, k, v, causal):
@@ -131,7 +167,9 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention of ``q`` over ``k``/``v`` (GQA; bottom-right causal mask
     when ``causal``): the CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors. ``flash_attention.launches`` counts the kernel launches.
+    CPU tensors, by the route of :func:`attention_route`.
+    ``flash_attention.launches`` counts the calls that launched a kernel,
+    ``flash_attention.launches_tc`` those on the tensor-core route.
 
     On the card, a 4-D call returns a ``(B, hq, sq, d)`` view of a
     ``(B, sq, hq, d)`` tensor, so that ``out.transpose(1, 2)`` is
@@ -147,6 +185,7 @@ def flash_attention(
     if scale is None:
         scale = 1.0 / d**0.5
     build()
+    route = attention_route(q, k, v)
     if q.dim() == 4:
         out = torch.empty((q.shape[0], sq, hq, d), dtype=q.dtype, device=dev).transpose(1, 2)
     else:
@@ -155,15 +194,21 @@ def flash_attention(
         *_bhs_strides(q), *_bhs_strides(k), *_bhs_strides(v), *_bhs_strides(out)
     )
     batch = q.shape[0] if q.dim() == 4 else 1
-    err = _lib.repro_flash_attention(
+    args = (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch, hq, hk, sq, sk, d,
         ctypes.cast(strides, ctypes.c_void_p), float(scale), int(bool(causal)),
-        _DTYPE_CODE[q.dtype], dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "tc":
+        err = _lib_tc.repro_flash_attention_sm90(*args, dev.index, stream)
+    else:
+        err = _lib.repro_flash_attention(*args, _DTYPE_CODE[q.dtype], dev.index, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention {route} kernel launch failed: error {err}")
     flash_attention.launches += 1
+    flash_attention.launches_tc += route == "tc"
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0

@@ -41,6 +41,7 @@ import torch
 from ._build import NVCC_FLAGS, build_library  # noqa: F401  (NVCC_FLAGS: this kernel's flags)
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "sched_score.cu"
+SOURCES = (_SRC,)
 
 
 def _hop_fold(

@@ -34,6 +34,7 @@ import torch
 from ._build import build_library
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "tile_gemm.cu"
+SOURCES = (_SRC,)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -317,3 +317,182 @@ def test_cuda_serving_equals_cpu(cuda, arch):
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=1e-4)
     assert torch.equal(out["cuda"][1], out["cpu"][1])
 
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core routes: flash_attention "tc" (csrc/flash_attention_sm90.cu)
+# and flash_decode "split" (csrc/flash_decode_split.cu), at the same bf16
+# tolerance (3e-2) against the plain versions
+
+
+def _bshd(seed, B, sq, sk, hq, hk, d, device):
+    """The model's layout: (B, S, H, d) projections as (B, H, S, d) views."""
+    q, k, v = _draw(seed, ((B, sq, hq, d), (B, sk, hk, d), (B, sk, hk, d)), torch.bfloat16)
+    return [t.to(device).transpose(1, 2) for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize(
+    "B,hq,hk,sq,sk,causal",
+    [(1, 4, 4, 128, 128, True), (2, 8, 2, 100, 100, True), (2, 8, 2, 77, 300, True),
+     (1, 4, 1, 1, 129, True), (2, 6, 3, 200, 65, False), (3, 32, 2, 257, 257, True),
+     (2, 4, 2, 130, 1000, False)],
+)
+def test_cuda_flash_attention_tc_matches_plain(cuda, B, hq, hk, sq, sk, causal, d):
+    """Ragged sq and sk (no multiple of 128 or 64), causal with sk > sq,
+    strided (B, S, H, d) views: all on the tensor-core route."""
+    q, k, v = _bshd(B * 7 + sq + sk + d, B, sq, sk, hq, hk, d, cuda)
+    assert fa.attention_route(q, k, v) == "tc"
+    before, before_tc = fa.flash_attention.launches, fa.flash_attention.launches_tc
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert fa.flash_attention.launches_tc == before_tc + 1
+    assert got.shape == (B, hq, sq, d) and got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_cuda_flash_attention_tc_three_dim(cuda, d):
+    """The reference's 3-D call (a batch of one) on the tensor-core route."""
+    q, k, v = (t.to(cuda) for t in _draw(d, ((8, 300, d), (2, 300, d), (2, 300, d)), torch.bfloat16))
+    before_tc = fa.flash_attention.launches_tc
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_tc == before_tc + 1
+    want = fa.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize(
+    "case", ["f32", "unaligned", "d32", "d256"],
+)
+def test_cuda_flash_attention_simt_route(cuda, case):
+    """An f32 call, a view whose base is not 16-byte aligned, and head dims
+    the tensor-core kernel does not take: the SIMT route, by the counters."""
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    d = {"d32": 32, "d256": 256}.get(case, 128)
+    q, k, v = (t.to(cuda) for t in _draw(3, ((4, 96, d + 8), (2, 96, d + 8), (2, 96, d + 8)), dtype))
+    sl = slice(1, d + 1) if case == "unaligned" else slice(0, d)
+    q, k, v = q[..., sl], k[..., sl], v[..., sl]
+    assert fa.attention_route(q, k, v) == "simt"
+    before, before_tc = fa.flash_attention.launches, fa.flash_attention.launches_tc
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert fa.flash_attention.launches_tc == before_tc
+    want = fa.flash_attention_plain(q, k, v)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _cache(seed, B, hq, hk, S, d, device, dtype=torch.bfloat16):
+    return [t.to(device) for t in _draw(seed, ((B, hq, d), (B, S, hk, d), (B, S, hk, d)), dtype)]
+
+
+def _decode_cases():
+    cases = []
+    for group in (1, 16, 32):
+        hk = 2
+        S = 700
+        chunk, _ = fd.decode_splits(2, hk, S)
+        for length in sorted({1, chunk + 1, S}):
+            cases.append((2, group * hk, hk, S, 128, length))
+    return cases + [(4, 32, 2, 96, 128, 96), (3, 8, 1, 300, 64, 171), (2, 4, 4, 64, 256, 33),
+                    (1, 24, 1, 130, 16, 130)]
+
+
+@pytest.mark.parametrize("B,hq,hk,S,d,length", _decode_cases())
+def test_cuda_flash_decode_split_matches_plain(cuda, B, hq, hk, S, d, length):
+    """Lengths 1, chunk + 1 and S with groups 1, 16 and 32, and ragged
+    shapes: all on the split route."""
+    q, k, v = _cache(S + length + hq, B, hq, hk, S, d, cuda)
+    assert fd.decode_route(q, k, v) == "split"
+    before, before_split = fd.flash_decode.launches, fd.flash_decode.launches_split
+    got = fd.flash_decode(q, k, v, length)
+    want = fd.flash_decode_plain(q, k, v, length)
+    torch.cuda.synchronize()
+    assert fd.flash_decode.launches == before + 1
+    assert fd.flash_decode.launches_split == before_split + 1
+    assert got.shape == (B, hq, d) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+def test_cuda_flash_decode_split_reads_strided_layer(cuda):
+    """The model's call: q a view of the projection, the cache one layer of
+    a (L, B, S, Hkv, hd) tensor."""
+    L, B, S, hq, hk, d = 3, 4, 96, 32, 2, 128
+    rng = np.random.default_rng(11)
+    cache = torch.from_numpy(rng.standard_normal((2, L, B, S, hk, d)).astype(np.float32))
+    cache = cache.to(torch.bfloat16).to(cuda)
+    proj = torch.from_numpy(rng.standard_normal((B, 1, hq * d)).astype(np.float32))
+    q = proj.to(torch.bfloat16).to(cuda).view(B, 1, hq, d)[:, 0]
+    k, v = cache[0, 1], cache[1, 1]
+    assert fd.decode_route(q, k, v) == "split"
+    got = fd.flash_decode(q, k, v, 70)
+    want = fd.flash_decode_plain(q, k, v, 70)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("case", ["f32", "unaligned", "group64", "hd24"])
+def test_cuda_flash_decode_simt_route(cuda, case):
+    """An f32 call, an unaligned view, a group over 32 and a head dim that
+    is no multiple of 16: the SIMT route, by the counters."""
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    hq, hk = (64, 1) if case == "group64" else (16, 2)
+    d = 24 if case == "hd24" else 128
+    q, k, v = _cache(5, 2, hq, hk, 200, d + 8, cuda, dtype)
+    sl = slice(1, d + 1) if case == "unaligned" else slice(0, d)
+    q, k, v = q[..., sl], k[..., sl], v[..., sl]
+    assert fd.decode_route(q, k, v) == "simt"
+    before, before_split = fd.flash_decode.launches, fd.flash_decode.launches_split
+    got = fd.flash_decode(q, k, v, 150)
+    torch.cuda.synchronize()
+    assert fd.flash_decode.launches == before + 1
+    assert fd.flash_decode.launches_split == before_split
+    want = fd.flash_decode_plain(q, k, v, 150)
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_cuda_tensor_core_routes_replay_in_a_graph(cuda):
+    """Both new kernels captured in one CUDA graph: replays equal eager."""
+    q, k, v = _bshd(21, 2, 300, 300, 8, 2, 128, cuda)
+    qd, kc, vc = _cache(22, 4, 32, 2, 96, 128, cuda)
+    eager = (fa.flash_attention(q, k, v), fd.flash_decode(qd, kc, vc, 80))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture stream
+        fa.flash_attention(q, k, v)
+        fd.flash_decode(qd, kc, vc, 80)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before_tc, before_split = fa.flash_attention.launches_tc, fd.flash_decode.launches_split
+    with torch.cuda.graph(graph):
+        outs = (fa.flash_attention(q, k, v), fd.flash_decode(qd, kc, vc, 80))
+    assert fa.flash_attention.launches_tc == before_tc + 1
+    assert fd.flash_decode.launches_split == before_split + 1
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, eager):
+            assert torch.equal(got, want)
+
+
+def test_cuda_tensor_core_routes_refusals_launch_nothing(cuda):
+    counts = lambda: (fa.flash_attention.launches, fa.flash_attention.launches_tc,  # noqa: E731
+                      fd.flash_decode.launches, fd.flash_decode.launches_split)
+    before = counts()
+    x = torch.zeros(2, 4, 20, 128, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="sq 20 > sk 10"):
+        fa.flash_attention(x, x[:, :2, :10], x[:, :2, :10])
+    with pytest.raises(ValueError, match="batch sizes differ"):
+        fa.flash_attention(x, x[:1], x[:1])
+    q = torch.zeros(2, 32, 128, dtype=torch.bfloat16, device=cuda)
+    c = torch.zeros(2, 64, 2, 128, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="outside"):
+        fd.flash_decode(q, c, c, 65)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        fd.flash_decode(q, c.float(), c.float(), 4)
+    assert counts() == before

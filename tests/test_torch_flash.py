@@ -195,3 +195,124 @@ def test_flash_decode_smem_formula_fits_chatglm():
     assert fd.smem_bytes(16, 128) == 4 * (2 * 16 * 128 + 32 * 129 + 32 * 128 + 16 * 32 + 48)
     assert fd.smem_bytes(16, 128) <= fd.MAX_SMEM_BYTES
     assert fd.smem_bytes(1, 256) <= fd.MAX_SMEM_BYTES
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core routes' host side: the split planner, the route rules,
+# and the split-then-combine arithmetic
+
+
+@pytest.mark.parametrize("batch", [1, 2, 4, 16, 64])
+@pytest.mark.parametrize("hkv", [1, 2, 8])
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 96, 700, 4097, 32768])
+def test_decode_splits_cover_every_position_once(batch, hkv, length):
+    chunk, n_split = fd.decode_splits(batch, hkv, length)
+    assert chunk % fd.TILE == 0 and chunk > 0
+    tiles = chunk // fd.TILE
+    assert tiles & (tiles - 1) == 0  # a power of two
+    starts = range(0, n_split * chunk, chunk)
+    covered = [p for s in starts for p in range(s, min(s + chunk, length))]
+    assert covered == list(range(length))  # every position in exactly one split
+    assert all(s < length for s in starts)  # no split is empty
+    # about two blocks per SM where the length allows it, never one tile more
+    if n_split * batch * hkv < 2 * fd.N_SM:
+        assert chunk == fd.TILE
+
+
+def test_decode_splits_at_the_serving_shapes():
+    """chatglm3-6b: the serving step (B 4, 2 KV heads, cache 96) and the
+    decode_32k-like shape (B 16, S 32 768)."""
+    assert fd.decode_splits(4, 2, 96) == (64, 2)  # 16 blocks
+    chunk, n_split = fd.decode_splits(16, 2, 32768)
+    assert (chunk, n_split) == (2048, 16) and n_split * 16 * 2 == 512
+    with pytest.raises(ValueError, match="positive"):
+        fd.decode_splits(4, 2, 0)
+
+
+def _t(shape, dtype=torch.bfloat16, offset=0, width=None):
+    """A CPU tensor of ``shape`` whose last dim is cut from rows of
+    ``width`` starting ``offset`` elements in (alignment and strides)."""
+    width = width or shape[-1]
+    base = torch.zeros((*shape[:-1], width + offset), dtype=dtype)
+    return base[..., offset:offset + shape[-1]]
+
+
+@pytest.mark.parametrize(
+    "q,k,route",
+    [
+        (_t((4, 256, 2, 128)).transpose(1, 2), _t((4, 256, 2, 128)).transpose(1, 2), "tc"),
+        (_t((32, 100, 64)), _t((2, 100, 64)), "tc"),
+        (_t((1, 32, 9, 128)), _t((1, 2, 9, 128)), "tc"),
+        (_t((32, 100, 64), torch.float32), _t((2, 100, 64), torch.float32), "simt"),
+        (_t((8, 64, 32)), _t((2, 64, 32)), "simt"),
+        (_t((8, 64, 256)), _t((2, 64, 256)), "simt"),
+        (_t((8, 64, 128), offset=1), _t((2, 64, 128)), "simt"),
+        (_t((8, 64, 128)), _t((2, 64, 128), width=132), "simt"),
+        (_t((2, 8, 64, 64)), _t((2, 2, 64, 64), width=68), "simt"),
+    ],
+    ids=["bshd-views", "3d-d64", "batch1", "f32", "d32", "d256", "unaligned-q",
+         "seq-stride-132", "strided-k"],
+)
+def test_attention_route_rule(q, k, route):
+    assert fa.attention_route(q, k, k) == route
+
+
+def test_attention_route_batch_of_one_ignores_its_stride():
+    q = torch.zeros((2, 8, 64, 64), dtype=torch.bfloat16)[:1]
+    k = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16).as_strided((1, 2, 64, 64), (3, 4096, 64, 1))
+    assert fa.attention_route(q, k, k) == "tc"
+
+
+@pytest.mark.parametrize(
+    "q,k,route",
+    [
+        (_t((4, 32, 128)), _t((4, 96, 2, 128)), "split"),
+        (_t((4, 1, 4096))[:, 0].view(4, 32, 128), _t((4, 96, 2, 128)), "split"),
+        (_t((2, 8, 64)), _t((2, 50, 8, 64)), "split"),
+        (_t((2, 64, 256)), _t((2, 50, 2, 256)), "split"),
+        (_t((2, 24, 16)), _t((2, 50, 1, 16)), "split"),
+        (_t((4, 32, 128), torch.float32), _t((4, 96, 2, 128), torch.float32), "simt"),
+        (_t((2, 64, 128)), _t((2, 50, 1, 128)), "simt"),
+        (_t((2, 8, 24)), _t((2, 50, 2, 24)), "simt"),
+        (_t((2, 8, 272)), _t((2, 50, 2, 272)), "simt"),
+        (_t((4, 32, 128), offset=8), _t((4, 96, 2, 128)), "split"),
+        (_t((4, 32, 128), offset=4), _t((4, 96, 2, 128)), "simt"),
+        (_t((4, 32, 128)), _t((4, 96, 2, 128), width=132), "simt"),
+    ],
+    ids=["serving", "projection-view", "group4-hd64", "hd256", "group24-hd16", "f32",
+         "group64", "hd24", "hd272", "aligned-offset", "unaligned-q", "row-stride-132"],
+)
+def test_decode_route_rule(q, k, route):
+    assert fd.decode_route(q, k, k) == route
+
+
+def test_split_smem_formula_fits_every_head_dim():
+    assert fd.split_smem_bytes(128) == 2 * 136 * (16 + 6 * 64)
+    assert all(fd.split_smem_bytes(hd) <= fd.MAX_SMEM_BYTES for hd in range(16, 257, 16))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize(
+    "B,hq,hk,s,d,length",
+    [(2, 8, 2, 512, 128, 512), (2, 4, 1, 1024, 128, 700), (4, 32, 2, 96, 128, 65),
+     (3, 16, 16, 50, 256, 1), (2, 32, 1, 300, 64, 129), (1, 8, 1, 33, 64, 33)],
+)
+def test_flash_decode_split_plain_matches_reference(B, hq, hk, s, d, length, dtype):
+    """The split-then-combine arithmetic at the planner's splits against the
+    Pallas kernel (interpret mode) where it takes the shape and the ``ref.py``
+    oracle everywhere: length 1, a last split of one position (65 and 129 at
+    a chunk of 64) and ragged lengths."""
+    rng = np.random.default_rng(s * 3 + length)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng, sh, dtype) for sh in ((B, hq, d), (B, s, hk, d), (B, s, hk, d))
+    )
+    chunk, n_split = fd.decode_splits(B, hk, length)
+    assert (n_split - 1) * chunk < length <= n_split * chunk
+    got = fd.flash_decode_split_plain(qt, kt, vt, length)
+    assert got.dtype == TDT[dtype] and got.shape == (B, hq, d)
+    tol = 3e-2 if dtype == "bf16" else 1e-5
+    wants = [flash_decode_ref(qj, kj, vj, length)]
+    if s % 256 == 0:  # the Pallas kernel's own block (bk 256) must divide S
+        wants.append(jax_flash_decode(qj, kj, vj, length, bk=256, interpret=True))
+    for want in wants:
+        np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)

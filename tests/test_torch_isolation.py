@@ -149,6 +149,24 @@ def test_attention_kernel_sources_are_in_the_package(module, replaces, entry):
     assert mod._lib is None or torch.cuda.is_available()  # built at first use, not at import
 
 
+@pytest.mark.parametrize(
+    "module,attr,replaces,entry",
+    [("flash_attention", "_SRC_TC", "flash_attention.py:71", "repro_flash_attention_sm90"),
+     ("flash_decode", "_SRC_SPLIT", "flash_decode.py:65", "repro_flash_decode_split")],
+)
+def test_tensor_core_kernel_sources_are_in_the_package(module, attr, replaces, entry):
+    """The tensor-core routes' sources sit beside the SIMT ones, are built
+    with them, and name the TPU kernel they replace."""
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    src = getattr(mod, attr)
+    assert src.is_file() and src.is_relative_to(PORT) and src in mod.SOURCES
+    text = src.read_text()
+    assert replaces in text
+    assert f'extern "C" int {entry}' in text
+
+
 def test_build_helper_needs_nvcc(monkeypatch, tmp_path):
     """The shared nvcc helper raises where there is no compiler."""
     from repro_torch.kernels import _build
