@@ -25,9 +25,16 @@ non-zero and no phase carries on past its own failure):
               and on the CPU, over shapes (64,64,64) .. (1024,512,1024) x
               {f32, bf16} x alpha {-1, 1, 0.5} x trans_b, at the reference's
               TOL (atol TOL*sqrt(k), rtol TOL; 2e-4 f32, 5e-2 bf16), with
-              TF32 off; matmul likewise; a non-tiling shape and an f64 CUDA
-              tensor must raise; then its time at the linalg path's three
-              shapes beside the plain version, torch.addmm and the bound;
+              TF32 off, launches_split moving as each plan splits k or not;
+              matmul likewise; split plans whose last split is one stage or
+              ragged (GEMM_SPLIT_EDGES); views misaligned by one element with
+              an odd row stride must give their contiguous copies' bits; two
+              calls and a CUDA-graph replay must give equal bits; a
+              non-tiling shape, an f64 CUDA tensor and mixed types must raise
+              and launch nothing; then its plan and time at the linalg
+              path's three shapes beside the plain version, torch.addmm
+              (torch.mm for matmul) and the bound, and its ptxas
+              registers, spills and shared memory;
   5. linalg   tile Cholesky, LU and QR of an 8192^2 f32 matrix (tile 512,
               NT 16) on the card: HEFT and DADA(0.5)+CP schedule the DAG on
               paper_machine(8) (scores on the card), execute_graph runs it
@@ -35,7 +42,10 @@ non-zero and no phase carries on past its own failure):
               Each replay must equal program order exactly, the residual
               must be within tests/test_linalg.py's bound, and gemm_update
               must launch once per GEMM-shaped task (680 / 1 240 / 1 360);
-              then execute_graph at NT 4 on the card against the CPU;
+              then execute_graph at NT 4 on the card against the CPU; then
+              an NT 16 execution per factorization under torch.profiler
+              (twice; the second is read): device busy time, idle share and
+              gemm_update's share;
   6. attention  flash_attention and flash_decode against their plain
               versions on the card and on the CPU: tests/test_kernels.py's
               sweeps at its tolerances, ragged lengths, and the serving
@@ -57,9 +67,8 @@ non-zero and no phase carries on past its own failure):
               "split"). Prints tokens/s
               and a profile of one prefill and one decode step. Then the
               smoke configs served on the card against the CPU at f32;
-  8. profile  one NT 16 Cholesky simulation per strategy and one NT 16
-              execution per factorization under torch.profiler: device
-              busy time against wall time, and the kernels that take it;
+  8. profile  one NT 16 Cholesky simulation per strategy under
+              torch.profiler: device busy time against wall time;
   9. report   a JSON line of every ported kernel, then the last line
               ``{"ok": true, "device": {...}}``.
 
@@ -78,6 +87,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parent
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -85,6 +96,11 @@ H100_FP64_FLOPS = 34e12  # H100 SXM data sheet, f64 outside the tensor cores
 H100_FP32_FLOPS = 67e12  # f32 outside the tensor cores (the f32 contract forbids TF32)
 H100_BF16_FLOPS = 989e12  # bf16 tensor cores, dense
 GEMM_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # tests/test_kernels.py:21
+# gemm_update plans the planner does not pick, launched as they are:
+# (m, n, k, (bm, bn, n_split, k_chunk)); the last split one 16-deep stage,
+# or ragged, on ragged m, n and k
+GEMM_SPLIT_EDGES = [(64, 64, 528, (64, 64, 5, 128)), (130, 70, 528, (64, 64, 5, 128)),
+                    (130, 70, 100, (64, 64, 2, 64)), (77, 45, 33, (64, 64, 3, 16))]
 # tile size, NT, and the GEMM-shaped task kinds of each factorization
 LINALG_N, LINALG_TILE = 8192, 512
 GEMM_KINDS = {"cholesky": ("syrk", "gemm"), "lu": ("ssssm",), "qr": ("ormqr", "tsmqr")}
@@ -148,6 +164,25 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_table(report: str):
+    """Registers, spills and static shared memory of each kernel in an
+    ``nvcc -Xptxas -v`` report."""
+    rows, cur = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            cur = {"function": line.split("'")[1]}
+            rows.append(cur)
+        elif cur is not None and "spill stores" in line:
+            words = line.replace(",", " ").split()
+            cur["spill_stores"] = int(words[words.index("spill") - 2])
+            cur["spill_loads"] = int(words[len(words) - 1 - words[::-1].index("spill") - 2])
+        elif cur is not None and "Used" in line and "registers" in line:
+            words = line.replace(",", " ").split()
+            cur["registers"] = int(words[words.index("registers") - 1])
+            cur["smem_bytes"] = int(words[words.index("smem") - 2]) if "smem" in words else 0
+    return rows
 
 
 def full_case(rng, n_pad, r_pad, n_u):
@@ -254,8 +289,12 @@ def gemm_check(tg, dev):
                     for sh in ((m, n), (m, k), (n, k) if trans_b else (k, n))
                 ]
                 c, a, b = (t.to(dev) for t in host)
+                splits = tg.gemm_plan(m, n, k)[2] > 1
                 for alpha in (-1.0, 1.0, 0.5):
+                    before = tg.gemm_update.launches_split
                     got = tg.gemm_update(c, a, b, alpha=alpha, trans_b=trans_b)
+                    if tg.gemm_update.launches_split - before != splits:
+                        raise SystemExit(f"gemm_update.launches_split did not follow the plan at {(m, n, k)}")
                     plain_card = tg.gemm_update_plain(c, a, b, alpha=alpha, trans_b=trans_b)
                     plain_cpu = tg.gemm_update_plain(*host, alpha=alpha, trans_b=trans_b)
                     torch.cuda.synchronize()
@@ -284,19 +323,82 @@ def gemm_check(tg, dev):
         f"max |kernel - plain on the card|: f32 {max_err[torch.float32]}, "
         f"bf16 {max_err[torch.bfloat16]}"
     )
+    # plans the planner does not pick: the last split one stage, or ragged
+    n_edge = 0
+    for m, n, k, plan in GEMM_SPLIT_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = GEMM_TOL[dtype]
+            for trans_b in (False, True):
+                host = [
+                    torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dtype)
+                    for sh in ((m, n), (m, k), (n, k) if trans_b else (k, n))
+                ]
+                got = tg._launch(*(t.to(dev) for t in host), alpha=0.5, trans_b=trans_b, plan=plan)
+                g = got.cpu().float()
+                want = tg.gemm_update_plain(*host, alpha=0.5, trans_b=trans_b).float()
+                if ((g - want).abs() > tol * k ** 0.5 + tol * want.abs()).any():
+                    raise SystemExit(f"gemm_update disagrees with its plain version at {(m, n, k)} "
+                                     f"{dtype} plan {plan} trans_b={trans_b}")
+                max_err[dtype] = max(max_err[dtype], (g - want).abs().max().item())
+                n_edge += 1
+    # views one element off a 16-byte boundary with an odd row stride give
+    # the bits of their contiguous copies
+    n_views = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        whole = torch.from_numpy(rng.standard_normal((1200, 1201)).astype(np.float32)).to(dtype).to(dev)
+        for m, n, k in ((512, 512, 512), (100, 72, 384)):
+            for trans_b in (False, True):
+                c, a = whole[1:1 + m, 1:1 + n], whole[3:3 + m, 5:5 + k]
+                b = whole[600:600 + (n if trans_b else k), 601:601 + (k if trans_b else n)]
+                got = tg.gemm_update(c, a, b, trans_b=trans_b)
+                want = tg.gemm_update(c.contiguous(), a.contiguous(), b.contiguous(), trans_b=trans_b)
+                if not torch.equal(got, want):
+                    raise SystemExit(f"a misaligned view differs from its contiguous copy at {(m, n, k)} "
+                                     f"{dtype} trans_b={trans_b}")
+                n_views += 1
+    # two calls give equal bits; a CUDA-graph replay equals eager
+    for m, n, k, trans_b in ((512, 512, 512, True), (1024, 512, 1024, False)):
+        c, a, b = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dev)
+                   for sh in ((m, n), (m, k), (n, k) if trans_b else (k, n)))
+        first = tg.gemm_update(c, a, b, trans_b=trans_b)
+        if not torch.equal(first, tg.gemm_update(c, a, b, trans_b=trans_b)):
+            raise SystemExit(f"two gemm_update calls differ at {(m, n, k)}")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            tg.gemm_update(c, a, b, trans_b=trans_b)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = tg.gemm_update(c, a, b, trans_b=trans_b)
+        replayed.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(replayed, first):
+            raise SystemExit(f"gemm_update's CUDA-graph replay differs from eager at {(m, n, k)}")
+    print(f"gemm_update: {n_edge} split-edge cases within TOL; {n_views} misaligned odd-stride views "
+          f"equal to their contiguous copies; two calls and a CUDA-graph replay bit-equal")
+    splits_before = tg.gemm_update.launches_split
     y = torch.zeros(100, 100, device=dev)
     must_refuse("a non-tiling shape", lambda: tg.gemm_update(y, y, y, bm=64, bn=64, bk=64),
                 tg.gemm_update)
     x = torch.zeros(64, 64, dtype=torch.float64, device=dev)
     must_refuse("an f64 CUDA tensor", lambda: tg.gemm_update(x, x, x), tg.gemm_update)
+    z = torch.zeros(512, 512, device=dev)
+    must_refuse("mixed types at a splitting shape", lambda: tg.gemm_update(z, z.bfloat16(), z),
+                tg.gemm_update)
+    if tg.gemm_update.launches_split != splits_before:
+        raise SystemExit("gemm_update counted a split launch while refusing")
     return {str(dt).replace("torch.", ""): err for dt, err in max_err.items()}
 
 
 def gemm_timing(tg, dev):
-    """Kernel, plain-version and torch.addmm times at the linalg path's
-    shapes; returns one row per (shape, dtype)."""
+    """Kernel, plain-version and library times at the linalg path's shapes;
+    returns one row per (shape, dtype). gemm_update is set beside
+    torch.addmm; matmul (no C, as tsmqr calls it) beside torch.mm, and its
+    bound counts no read of C."""
     cases = [("syrk/gemm", 512, 512, 512, True, -1.0), ("ssssm", 512, 512, 512, False, -1.0),
-             ("tsmqr (matmul)", 1024, 512, 1024, False, 1.0)]
+             ("tsmqr (matmul)", 1024, 512, 1024, False, None)]
     rows = []
     rng = np.random.default_rng(2)
     for label, m, n, k, trans_b, alpha in cases:
@@ -305,43 +407,59 @@ def gemm_timing(tg, dev):
             b = torch.from_numpy(
                 rng.standard_normal((n, k) if trans_b else (k, n)).astype(np.float32)
             ).to(dtype).to(dev)
-            if alpha == 1.0:  # matmul: C = 0, as it launches the kernel
-                c = torch.zeros((m, n), dtype=dtype, device=dev)
+            plan = tg.gemm_plan(m, n, k)
+            if alpha is None:  # matmul: A @ B, no C
+                kernel = lambda: tg.matmul(a, b)  # noqa: E731
+                plain = lambda: tg.matmul_plain(a, b)  # noqa: E731
+                library = lambda: torch.mm(a, b)  # noqa: E731
+                library_name, c_reads = "torch.mm", 0
             else:
                 c = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)).to(dtype).to(dev)
-            bt = b.T if trans_b else b
-            kernel = lambda: tg.gemm_update(c, a, b, alpha=alpha, trans_b=trans_b)  # noqa: E731
-            ms = time_ms(kernel)
-            device_ms = graph_ms(kernel)
-            plain = lambda: tg.gemm_update_plain(c, a, b, alpha=alpha, trans_b=trans_b)  # noqa: E731
-            library = lambda: torch.addmm(c, a, bt, alpha=alpha)  # noqa: E731
+                bt = b.T if trans_b else b
+                kernel = lambda: tg.gemm_update(c, a, b, alpha=alpha, trans_b=trans_b)  # noqa: E731
+                plain = lambda: tg.gemm_update_plain(c, a, b, alpha=alpha, trans_b=trans_b)  # noqa: E731
+                library = lambda: torch.addmm(c, a, bt, alpha=alpha)  # noqa: E731
+                library_name, c_reads = "torch.addmm", m * n
+            ms, device_ms = time_ms(kernel), graph_ms(kernel)
             plain_ms, plain_device_ms = time_ms(plain), graph_ms(plain)
             library_ms, library_device_ms = time_ms(library), graph_ms(library)
             flops = 2 * m * n * k
-            nbytes = (2 * m * n + m * k + k * n) * c.element_size()
+            nbytes = (c_reads + m * n + m * k + k * n) * a.element_size()
             peak = H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
             ops_ms = flops / peak * 1e3
             bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
             bound_ms = max(ops_ms, bytes_ms)
             row = {
                 "label": label, "shape": [m, n, k], "trans_b": trans_b, "alpha": alpha,
+                "plan": {"bm": plan[0], "bn": plan[1], "n_split": plan[2], "k_chunk": plan[3],
+                         "blocks": -(-m // plan[0]) * -(-n // plan[1]) * plan[2]},
                 "dtype": str(dtype).replace("torch.", ""), "ms": ms, "device_ms": device_ms,
-                "plain_ms": plain_ms, "plain_device_ms": plain_device_ms,
+                "plain_ms": plain_ms, "plain_device_ms": plain_device_ms, "library": library_name,
                 "library_ms": library_ms, "library_device_ms": library_device_ms, "bound_ms": bound_ms,
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "tflops": flops / device_ms / 1e9, "share_of_bound": bound_ms / device_ms,
             }
             rows.append(row)
             print(
-                f"gemm_update {label} (m,n,k)={(m, n, k)} {row['dtype']}: kernel {ms:.6f} ms "
+                f"gemm_update {label} (m,n,k)={(m, n, k)} {row['dtype']} plan {row['plan']}: kernel {ms:.6f} ms "
                 f"per call ({device_ms:.6f} ms on the device, from a CUDA graph), plain "
-                f"{plain_ms:.6f} ms ({plain_device_ms:.6f}), torch.addmm {library_ms:.6f} ms "
+                f"{plain_ms:.6f} ms ({plain_device_ms:.6f}), {library_name} {library_ms:.6f} ms "
                 f"({library_device_ms:.6f}), bound {bound_ms:.6f} ms "
                 f"({row['bound_by']}: {flops} flop, {nbytes} bytes), {row['tflops']:.3f} TFLOP/s "
                 f"on the device, {100 * row['share_of_bound']:.2f} % of the bound",
                 flush=True,
             )
     return rows
+
+
+def device_time(prof):
+    """Device time of a torch.profiler run: the total (us) and each
+    kernel's, largest first."""
+    by_name = {
+        e.key: e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA
+    }
+    return sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1])
 
 
 def residual(kind, a, m) -> float:
@@ -566,21 +684,16 @@ def _leaves(tree):
 def profile_window(fn, label):
     """``fn`` under torch.profiler (twice: the first run warms the profiler
     up); prints wall, device busy time, idle share and the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             w0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - w0
-    by_name = {e.key: e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA}
-    busy_us = sum(by_name.values())
+    busy_us, top = device_time(prof)
     print(f"profile {label}: wall_s={wall:.6f} device_busy_s={busy_us / 1e6:.6f} "
           f"device_idle_share={1.0 - busy_us / 1e6 / wall:.4f}", flush=True)
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    for name, us in top[:8]:
         print(f"  {us / 1e6:.6f} s  {100 * us / busy_us:.1f} %  {name[:110]}")
 
 
@@ -775,6 +888,11 @@ def main() -> int:
             print(f"  {line.strip()}")
     for mod in kernel_modules:  # loads the libraries just built
         mod.build()
+    gemm_ptxas = ptxas_table(reports[sources.index(tg._SRC)])
+    if not gemm_ptxas:
+        raise SystemExit("no ptxas report for tile_gemm.cu")
+    for row in gemm_ptxas:
+        print(f"gemm ptxas: {row}")
     done("build", t0)
 
     # ---- 2. kernel against its plain versions ------------------------------
@@ -907,6 +1025,7 @@ def main() -> int:
     torch.cuda.synchronize()
     gemm_launches = {}  # per execution, by factorization
     gemm_total = 0  # over every execution of the phase
+    gemm_split_total = 0  # of those, the calls whose plan split k
     for gname, build in builders.items():
         graph = build(nt, LINALG_TILE)
         n_gemm = sum(t.kind in GEMM_KINDS[gname] for t in graph.tasks)
@@ -934,6 +1053,7 @@ def main() -> int:
         reference = None
         for label, res in runs:
             tg.gemm_update.launches = 0
+            tg.gemm_update.launches_split = 0
             torch.cuda.synchronize()
             w0 = time.perf_counter()
             if res is None:
@@ -950,6 +1070,7 @@ def main() -> int:
             if launches != n_gemm:
                 raise SystemExit(f"{gname} {label}: {launches} gemm_update launches, want {n_gemm}")
             print(f"  execute {label}: wall_s={wall:.3f} gemm launches={launches} "
+                  f"(split k: {tg.gemm_update.launches_split}) "
                   f"gemm GFLOP/s over the wall={gemm_flops / wall / 1e9:.1f}", flush=True)
             if reference is None:
                 reference = m
@@ -958,6 +1079,7 @@ def main() -> int:
                                  f"(max |diff| {(m - reference).abs().max().item()})")
             gemm_launches[gname] = launches
             gemm_total += launches
+            gemm_split_total += tg.gemm_update.launches_split
         err = residual(gname, a, reference)
         dense = dense_residual(gname, a)
         bound = RESIDUAL_BOUND[gname] if dense < RESIDUAL_BOUND[gname] else 4 * dense
@@ -982,6 +1104,31 @@ def main() -> int:
               + (" (R up to row signs)" if gname == "qr" else ""))
         if not err < 1e-5:
             raise SystemExit(f"{gname}: card and CPU disagree (rel {err})")
+    # gemm_update's share of each factorization's device time, profiled
+    gemm_share = {}
+    for gname, build in builders.items():
+        graph = build(nt, LINALG_TILE)
+        a = gens[gname](LINALG_N, seed=0)
+        for _ in range(2):  # the first run warms the profiler up; the last is read
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                w0 = time.perf_counter()
+                execute_graph(graph, tiles.split_tiles(a, LINALG_TILE))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - w0
+        busy_us, top = device_time(prof)
+        gemm_us = sum(us for name, us in top if "gemm_update" in name)
+        gemm_share[gname] = {"device_busy_s": busy_us / 1e6, "gemm_update_s": gemm_us / 1e6,
+                             "gemm_update_share": gemm_us / busy_us, "wall_s": wall}
+        print(
+            f"profile execute {gname} NT={nt} program order wall_s={wall:.3f} "
+            f"device_busy_s={busy_us / 1e6:.6f} device_idle_share="
+            f"{1.0 - busy_us / 1e6 / wall:.4f} gemm_update_s={gemm_us / 1e6:.6f} "
+            f"gemm_update_share={gemm_us / busy_us:.4f}",
+            flush=True,
+        )
+        for name, us in top[:6]:
+            print(f"  {us / 1e6:.6f} s  {100 * us / busy_us:.1f} %  {name[:110]}")
+        del a
     done("linalg", t0)
 
     # ---- 6. attention kernels against their plain versions, and their times --
@@ -998,16 +1145,6 @@ def main() -> int:
 
     # ---- 8. profile ---------------------------------------------------------
     t0 = phase("profile")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_time(prof):
-        by_name = {
-            e.key: e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-        }
-        return sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1])
-
     for spec in specs:
         for _ in range(2):  # the first run warms the profiler up; the last is read
             sim = Simulator(cholesky_graph(16, 512), machine, resolve(spec), seed=0)
@@ -1023,24 +1160,6 @@ def main() -> int:
             f"{1.0 - busy_us / 1e6 / wall:.4f}",
             flush=True,
         )
-    for gname, build in builders.items():
-        graph = build(nt, LINALG_TILE)
-        a = gens[gname](LINALG_N, seed=0)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            w0 = time.perf_counter()
-            execute_graph(graph, tiles.split_tiles(a, LINALG_TILE))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - w0
-        busy_us, top = device_time(prof)
-        print(
-            f"profile execute {gname} NT={nt} program order wall_s={wall:.3f} "
-            f"device_busy_s={busy_us / 1e6:.6f} device_idle_share="
-            f"{1.0 - busy_us / 1e6 / wall:.4f}",
-            flush=True,
-        )
-        for name, us in top[:6]:
-            print(f"  {us / 1e6:.6f} s  {100 * us / busy_us:.1f} %  {name[:110]}")
-        del a
     done("profile", t0)
 
     # ---- 9. report ----------------------------------------------------------
@@ -1067,6 +1186,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/tile_gemm.cu",
         "replaces": "src/repro/kernels/tile_gemm.py:53",
         "launches": gemm_total,
+        "launches_split": gemm_split_total,
         "launches_per_execution": gemm_launches,
         "max_abs_err": max(gemm_max_err.values()),
         "max_abs_err_by_dtype": gemm_max_err,
@@ -1076,8 +1196,12 @@ def main() -> int:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
+        "library_device_ms": head["library_device_ms"],
         "shape": head["shape"],
+        "plan": head["plan"],
         "timings": gemm_rows,
+        "ptxas": gemm_ptxas,
+        "device_share_nt16": gemm_share,
     })
     for name, launches, err, kernel_route, source, launches_route in (
             ("flash_attention", served["fa_launches"], fa_err, "tc", "flash_attention_sm90.cu",

@@ -129,8 +129,8 @@ def test_cuda_gemm_update_matches_plain(cuda, m, n, k, trans_b, dtype):
 @pytest.mark.parametrize("m,n,k", [(100, 100, 100), (8, 24, 40), (200, 72, 136)])
 def test_cuda_gemm_update_ragged_edges(cuda, m, n, k):
     """Shapes that tile under their own block sizes but are not multiples
-    of the kernel's 64 x 64 x 16 tile: the edges load zeros and skip
-    their stores."""
+    of the kernel's 64 x 64 block tile and 16-deep stage: the edges load
+    zeros and skip their stores."""
     rng = np.random.default_rng(k)
     c, a, b = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in ((m, n), (m, k), (k, n)))
     got = tile_gemm.gemm_update(c.to(cuda), a.to(cuda), b.to(cuda), alpha=0.5, bm=m, bn=n, bk=k)
@@ -157,6 +157,124 @@ def test_cuda_gemm_update_refuses_f64_and_non_tiling(cuda):
     with pytest.raises(ValueError, match="tile evenly"):
         tile_gemm.gemm_update(y, y, y, bm=64, bn=64, bk=64)
     assert tile_gemm.gemm_update.launches == before
+
+
+def _gemm_operands(seed, m, n, k, trans_b, dtype):
+    rng = np.random.default_rng(seed)
+    return [
+        torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(dtype)
+        for sh in ((m, n), (m, k), (n, k) if trans_b else (k, n))
+    ]
+
+
+def _assert_gemm_close(got, want, k, dtype):
+    tol = GEMM_TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol * k ** 0.5, rtol=tol)
+
+
+# (m, n, k): the main path's shapes and others whose plan splits k, then
+# shapes whose plan does not
+SPLIT_SHAPES = [(512, 512, 512), (1024, 512, 1024), (128, 128, 512), (256, 128, 384), (100, 72, 384)]
+WHOLE_SHAPES = [(64, 64, 64), (128, 128, 128), (2048, 1024, 256), (100, 100, 100)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("m,n,k", SPLIT_SHAPES + WHOLE_SHAPES)
+def test_cuda_gemm_update_plans(cuda, m, n, k, trans_b, dtype):
+    """Split and whole-k plans against the plain version; launches counts
+    the call, launches_split counts it when its plan splits k."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c, a, b = _gemm_operands(m * n + k, m, n, k, trans_b, dtype)
+    n_split = tile_gemm.gemm_plan(m, n, k)[2]
+    assert (n_split > 1) == ((m, n, k) in SPLIT_SHAPES)
+    before = (tile_gemm.gemm_update.launches, tile_gemm.gemm_update.launches_split)
+    got = tile_gemm.gemm_update(c.to(cuda), a.to(cuda), b.to(cuda), alpha=-1.0, trans_b=trans_b)
+    torch.cuda.synchronize()
+    assert (tile_gemm.gemm_update.launches, tile_gemm.gemm_update.launches_split) == (
+        before[0] + 1, before[1] + (n_split > 1))
+    assert got.dtype == dtype and got.shape == (m, n)
+    _assert_gemm_close(got, tile_gemm.gemm_update_plain(c, a, b, alpha=-1.0, trans_b=trans_b), k, dtype)
+    split = tile_gemm.gemm_update_split_plain(c, a, b, alpha=-1.0, trans_b=trans_b, n_split=n_split)
+    _assert_gemm_close(got, split, k, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("m,n,k,plan", [
+    (64, 64, 528, (64, 64, 5, 128)),     # the last split is one 16-deep stage
+    (130, 70, 528, (64, 64, 5, 128)),    # and ragged m, n
+    (130, 70, 100, (64, 64, 2, 64)),     # ragged k: the last split is 36 deep
+    (77, 45, 33, (64, 64, 3, 16)),       # ragged everything, a split a stage
+])
+def test_cuda_gemm_update_split_edges(cuda, m, n, k, plan, trans_b, dtype):
+    """Plans that leave the last split a single stage or a ragged one, on
+    ragged m, n and k (plans the planner does not pick, launched as they
+    are)."""
+    c, a, b = _gemm_operands(k, m, n, k, trans_b, dtype)
+    got = tile_gemm._launch(c.to(cuda), a.to(cuda), b.to(cuda), alpha=0.5, trans_b=trans_b, plan=plan)
+    _assert_gemm_close(got, tile_gemm.gemm_update_plain(c, a, b, alpha=0.5, trans_b=trans_b), k, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("shape", [(512, 512, 512), (128, 128, 128)])
+def test_cuda_gemm_update_misaligned_views_give_the_contiguous_bits(cuda, shape, trans_b, dtype):
+    """Views one element off a 16-byte boundary, with an odd row stride,
+    take the kernel's narrow copies and give the bits of their contiguous
+    copies."""
+    m, n, k = shape
+    rng = np.random.default_rng(7)
+    whole = torch.from_numpy(rng.standard_normal((1200, 1201)).astype(np.float32)).to(dtype).to(cuda)
+    assert whole.stride(0) % 2 == 1
+    c = whole[1:1 + m, 1:1 + n]
+    a = whole[3:3 + m, 5:5 + k]
+    b = whole[600:600 + (n if trans_b else k), 601:601 + (k if trans_b else n)]
+    got = tile_gemm.gemm_update(c, a, b, trans_b=trans_b)
+    want = tile_gemm.gemm_update(c.contiguous(), a.contiguous(), b.contiguous(), trans_b=trans_b)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,n,k,trans_b", [(512, 512, 512, True), (1024, 512, 1024, False)])
+def test_cuda_gemm_update_is_deterministic_and_graph_capturable(cuda, m, n, k, trans_b):
+    """Two calls give equal bits, and a CUDA-graph replay equals eager."""
+    c, a, b = (t.to(cuda) for t in _gemm_operands(0, m, n, k, trans_b, torch.float32))
+    first = tile_gemm.gemm_update(c, a, b, trans_b=trans_b)
+    assert torch.equal(first, tile_gemm.gemm_update(c, a, b, trans_b=trans_b))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tile_gemm.gemm_update(c, a, b, trans_b=trans_b)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = tile_gemm.gemm_update(c, a, b, trans_b=trans_b)
+    replayed.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, first)
+
+
+def test_cuda_gemm_update_refusals_launch_nothing(cuda):
+    """Refusals at a shape whose plan would split k move neither counter."""
+    x = torch.zeros(512, 512, device=cuda)
+    before = (tile_gemm.gemm_update.launches, tile_gemm.gemm_update.launches_split)
+    for call, match in [
+        (lambda: tile_gemm.gemm_update(x, x.bfloat16(), x), "float32"),
+        (lambda: tile_gemm.gemm_update(x, x, x.T), "unit column stride"),
+        (lambda: tile_gemm.gemm_update(x, x, x.cpu()), "devices"),
+        (lambda: tile_gemm.gemm_update(x, x, x[:384], trans_b=False), "chain"),
+    ]:
+        with pytest.raises(ValueError, match=match):
+            call()
+    assert (tile_gemm.gemm_update.launches, tile_gemm.gemm_update.launches_split) == before
+
+
+def test_cuda_matmul_launches_with_no_c(cuda):
+    """matmul passes no C (the kernel reads zero) and matches A @ B."""
+    _, a, b = _gemm_operands(5, 512, 512, 512, False, torch.float32)
+    got = tile_gemm.matmul(a.to(cuda), b.to(cuda))
+    _assert_gemm_close(got, tile_gemm.matmul_plain(a, b), 512, torch.float32)
 
 
 @pytest.mark.parametrize("kernel", ["cholesky", "lu", "qr"])

@@ -163,3 +163,98 @@ def test_other_devices_are_refused():
     x = torch.zeros(64, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         port.gemm_update(x, x, x)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch plan and its split-K arithmetic (no card needed)
+
+# syrk / gemm / ssssm / ormqr, and tsmqr
+MAIN_PATH_SHAPES = [(512, 512, 512), (1024, 512, 1024)]
+
+
+@pytest.mark.parametrize("k", [1, 16, 64, 100, 128, 256, 384, 512, 528, 1024, 4096])
+@pytest.mark.parametrize("m,n", [(64, 64), (100, 72), (128, 128), (512, 512), (1024, 512), (4096, 4096)])
+def test_gemm_plan_invariants(m, n, k):
+    """Every k covered once by non-empty chunks of whole stages, chunks cut
+    as the split plain version cuts them, at most two blocks per SM once k
+    is split, and the same plan for every call."""
+    plans = {port.gemm_plan(m, n, k) for _ in range(2)}
+    assert len(plans) == 1
+    bm, bn, n_split, k_chunk = plans.pop()
+    assert (bm, bn) == port.TILE
+    assert k_chunk % port.STAGE_K == 0 and k_chunk > 0
+    assert k_chunk == port.split_chunk(k, n_split)
+    starts = range(0, n_split * k_chunk, k_chunk)
+    covered = [kk for s in starts for kk in range(s, min(k, s + k_chunk))]
+    assert covered == list(range(k))  # each k once, in order, no empty split
+    assert all(s < k for s in starts)
+    if n_split > 1:
+        assert k_chunk >= port.MIN_K_CHUNK
+        assert -(-m // bm) * -(-n // bn) * n_split <= 2 * port.N_SM
+
+
+@pytest.mark.parametrize("m,n,k", MAIN_PATH_SHAPES)
+def test_gemm_plan_fills_the_card_at_the_main_path_shapes(m, n, k):
+    """syrk / gemm / ssssm / ormqr (512^3) and tsmqr (1024 x 512 x 1024):
+    one to two waves of the 132 SMs."""
+    bm, bn, n_split, k_chunk = port.gemm_plan(m, n, k)
+    blocks = -(-m // bm) * -(-n // bn) * n_split
+    assert 128 <= blocks <= 264
+    assert n_split > 1
+
+
+@pytest.mark.parametrize("m,n,n_split,want", [(512, 512, 1, 0), (512, 512, 4, 4 * 512 * 512),
+                                              (1024, 512, 2, 2 * 1024 * 512), (100, 72, 3, 3 * 7200)])
+def test_workspace_elems(m, n, n_split, want):
+    """One f32 (m, n) partial per split, none without a split."""
+    assert port.workspace_elems(m, n, n_split) == want
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("m,n,k", [(64, 64, 256), (256, 128, 384), (128, 128, 512)])
+def test_split_plain_at_the_planner_splits_matches_reference(m, n, k, trans_b, dtype):
+    """The split-then-combine arithmetic at the planner's split count is
+    within the reference's TOL of its interpret-mode kernel and oracle."""
+    n_split = port.gemm_plan(m, n, k)[2]
+    assert n_split > 1
+    rng = np.random.default_rng(m + n + k + trans_b)
+    jc, tc = _pair(rng, (m, n), dtype)
+    ja, ta = _pair(rng, (m, k), dtype)
+    jb, tb = _pair(rng, (n, k) if trans_b else (k, n), dtype)
+    got = port.gemm_update_split_plain(tc, ta, tb, alpha=-1.0, trans_b=trans_b, n_split=n_split)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (m, n)
+    _close(got, jax_gemm_update(jc, ja, jb, alpha=-1.0, trans_b=trans_b, interpret=True), dtype, k)
+    _close(got, gemm_update_ref(jc, ja, jb, alpha=-1.0, trans_b=trans_b), dtype, k)
+
+
+def test_split_plain_sums_the_partials_in_split_order():
+    """One split is the plain version bit for bit; more splits are the
+    per-chunk f32 products summed 0, 1, .., S - 1 before C enters."""
+    rng = np.random.default_rng(3)
+    c, a, b = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((32, 48), (32, 528), (528, 48)))
+    assert torch.equal(port.gemm_update_split_plain(c, a, b, alpha=0.5, n_split=1),
+                       port.gemm_update_plain(c, a, b, alpha=0.5))
+    kc = port.split_chunk(528, 3)
+    parts = [a[:, s:s + kc] @ b[s:s + kc] for s in range(0, 528, kc)]
+    want = c + 0.5 * ((parts[0] + parts[1]) + parts[2])
+    assert torch.equal(port.gemm_update_split_plain(c, a, b, alpha=0.5, n_split=3), want)
+
+
+def test_split_plain_refuses_an_empty_split():
+    x = torch.zeros(16, 32)
+    with pytest.raises(ValueError, match="non-empty splits"):
+        port.gemm_update_split_plain(torch.zeros(16, 16), x, x, trans_b=True, n_split=3)
+
+
+def test_matmul_takes_no_c_and_counts_nothing_on_the_cpu():
+    """matmul hands gemm_update a None C; on the CPU that is a zero C, so
+    its result is the plain version's with C = 0."""
+    rng = np.random.default_rng(4)
+    a, b = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in ((64, 96), (96, 32)))
+    before = (port.gemm_update.launches, port.gemm_update.launches_split)
+    got = port.gemm_update(None, a, b, alpha=1.0)
+    assert torch.equal(got, port.gemm_update_plain(torch.zeros(64, 32), a, b, alpha=1.0))
+    assert torch.equal(port.matmul(a, b), got)
+    assert (port.gemm_update.launches, port.gemm_update.launches_split) == before
