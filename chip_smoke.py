@@ -8,11 +8,20 @@ non-zero and no phase carries on past its own failure):
   1. build    build the six CUDA sources of the four ported kernels from the
               repo, one nvcc each, started together; print their ptxas
               reports and the card (name and power limit, from nvidia-smi);
-  2. kernel   the transfer-matrix kernel against its plain PyTorch versions
-              on seeded inputs (n_pad 8..256, r_pad 1..4, n_u 9/25/30, with
-              empty masks, host-only masks and padded reads): the outputs
-              must be exactly equal; then the kernel's and the plain
-              version's times at the main path's widest shape;
+  2. kernel   the fused activation scorer (score_activation) against its
+              plain version over the same packed buffer, on the card and on
+              the CPU, over n 1..256, n_u 9/25/30/40, every one of the 29
+              flag combinations, tasks without reads or accesses, masks 0
+              and host-only masks: every output must be exactly equal
+              (torch.equal). Then, at the main path's widest activation
+              (n 128, LU NT 64, DADA+CP's call): ms per score_matrices call
+              from Python (copies and sync included, card and CPU), the
+              kernel's ms and its device ms from a CUDA-graph replay on
+              pre-staged buffers, the plain version's ms and the bound.
+              Then the standalone transfer-matrix kernel against its plain
+              versions on seeded inputs (n_pad 8..256, r_pad 1..4, n_u
+              9/25/30, with empty masks, host-only masks and padded reads),
+              exactly equal, and its times at the widest shape;
   3. main     HEFT and DADA(0.5)+CP on the paper machine with 8 GPUs over
               the Cholesky, LU and QR tile DAGs at NT 16 (tile 512, the
               paper's shape) and NT 64 (the reference's scaling size), every
@@ -20,7 +29,9 @@ non-zero and no phase carries on past its own failure):
               Cholesky run per strategy at min_wide=32. Each run's
               (makespan, bytes, transfers, busy, intervals) must equal the
               port's own device="cpu" run, every task must run once, and
-              every run must have launched the kernel;
+              every activation scored on the card must be exactly one fused
+              launch (the standalone transfer kernel none); prints wall and
+              score ms per scored activation on the card and the CPU;
   4. gemm     the gemm_update kernel against its plain version on the card
               and on the CPU, over shapes (64,64,64) .. (1024,512,1024) x
               {f32, bf16} x alpha {-1, 1, 0.5} x trans_b, at the reference's
@@ -37,7 +48,7 @@ non-zero and no phase carries on past its own failure):
               registers, spills and shared memory;
   5. linalg   tile Cholesky, LU and QR of an 8192^2 f32 matrix (tile 512,
               NT 16) on the card: HEFT and DADA(0.5)+CP schedule the DAG on
-              paper_machine(8) (scores on the card), execute_graph runs it
+              paper_machine(8) (scores on the card, fused launches), execute_graph runs it
               in program order and execute_schedule replays each schedule.
               Each replay must equal program order exactly, the residual
               must be within tests/test_linalg.py's bound, and gemm_update
@@ -68,7 +79,11 @@ non-zero and no phase carries on past its own failure):
               and a profile of one prefill and one decode step. Then the
               smoke configs served on the card against the CPU at f32;
   8. profile  one NT 16 Cholesky simulation per strategy under
-              torch.profiler: device busy time against wall time;
+              torch.profiler (twice with one strategy object; the second is
+              read): device busy time against wall time, and per scored
+              activation the kernel launches (must be 1) and memcpy calls
+              (must be 2), with no other kernel, memcpy or memset on the
+              card;
   9. report   a JSON line of every ported kernel, then the last line
               ``{"ok": true, "device": {...}}``.
 
@@ -205,6 +220,81 @@ def full_case(rng, n_pad, r_pad, n_u):
     masks[pad, r_pad - 1] = 0  # padded reads
     per_read[pad, r_pad - 1] = 0.0
     return masks, per_read, np.asarray(shifts, dtype=np.int64), np.asarray(host, dtype=bool)
+
+
+def flag_combinations():
+    """Every valid combination of score_activation's six flags (29)."""
+    out = []
+    for x in ("none", "max", "max+bias", "rows", "rows+bias"):
+        for s in ("none", "s", "s+accel"):
+            for c in (False, True):
+                if x != "none" or s != "none" or c:
+                    out.append(dict(want_x=x != "none", x_rows=x.startswith("rows"),
+                                    want_bias="bias" in x, want_s=s != "none",
+                                    accel_only=s == "s+accel", want_c=c))
+    return out
+
+
+def activation_case(ss, rng, n, n_u, n_res, host, flags):
+    """A seeded packed activation: (layout, packed input, machine buffer) as
+    int64 numpy arrays. Masks over the host bit and n_u memory shifts up to
+    62, data that exists nowhere (mask 0), host-only data, reads of size 0,
+    task 0 without reads and task 1 without affinity accesses."""
+    shifts = np.sort(rng.choice(np.arange(1, ss.MAX_SHIFT + 1), n_u - host, replace=False))
+    if host:
+        shifts = np.concatenate([[0], shifts])
+    host_col = shifts == 0
+    col_of = rng.permutation(np.concatenate([np.arange(n_u), rng.integers(0, n_u, n_res - n_u)]))
+    machine = ss.pack_machine(n_res, latency=1.5e-5, bandwidth=1.2e10, mem_shift=shifts,
+                              host_col=host_col, col_of=col_of, accel_res=~host_col[col_of])
+    bits = np.concatenate([[0], shifts[shifts > 0]]).astype(np.int64)
+
+    def csr(max_per_row, empty_row):
+        counts = rng.integers(0, max_per_row + 1, n)
+        counts[min(empty_row, n - 1)] = 0
+        indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        pick = rng.random((indptr[-1], len(bits))) < 0.3
+        masks = (pick * (np.int64(1) << bits)).sum(axis=1).astype(np.int64)
+        masks[::5] = 0
+        masks[1::7] = 1
+        return indptr, masks, rng.integers(1, 1 << 22, len(masks)).astype(np.float64)
+
+    reads = writes = None
+    if flags["want_x"]:
+        reads = csr(4, 0)
+        reads[2][::6] = 0.0  # reads of size 0
+    if flags["want_s"]:
+        writes = csr(3, 1)
+    bias = None
+    if flags["want_bias"]:
+        bias = rng.random((n, n_res)) * 1e-3
+        bias[rng.random((n, n_res)) < 0.5] = 0.0
+    layout = ss.score_layout(ss.ScoreSpec(
+        n=n, nnz_r=len(reads[1]) if reads else 0, nnz_w=len(writes[1]) if writes else 0,
+        n_u=n_u, n_res=n_res, **flags))
+    packed = np.zeros(layout.n_in, dtype=np.int64)
+    ss.pack_activation(packed, layout, reads=reads, writes=writes,
+                       p_cpu=rng.random(n) if flags["want_c"] else None,
+                       p_gpu=rng.random(n) * 0.1 if flags["want_c"] else None, x_bias=bias)
+    return layout, packed, machine
+
+
+def launch_counts(prof):
+    """Device kernels and memcpys of a torch.profiler run, and the runtime
+    calls that issued them."""
+    out = dict(kernels=0, memcpy=0, memset=0, launch_calls=0, memcpy_calls=0, sync_calls=0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kind = "memcpy" if e.key.startswith("Memcpy") else (
+                "memset" if e.key.startswith("Memset") else "kernels")
+            out[kind] += e.count
+        elif e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            out["launch_calls"] += e.count
+        elif e.key.startswith("cudaMemcpy"):
+            out["memcpy_calls"] += e.count
+        elif e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            out["sync_calls"] += e.count
+    return out
 
 
 def time_ms(fn, reps=200):
@@ -895,9 +985,92 @@ def main() -> int:
         print(f"gemm ptxas: {row}")
     done("build", t0)
 
-    # ---- 2. kernel against its plain versions ------------------------------
+    # ---- 2. kernels against their plain versions -----------------------------
     t0 = phase("kernel")
+    machine = paper_machine(8)
+    score_max_err, n_score = 0.0, 0
     rng = np.random.default_rng(0)
+    for n in (1, 37, 128, 256):
+        for n_u, n_res, host in ((9, 14, True), (25, 29, False), (30, 34, True), (40, 47, True)):
+            for flags in flag_combinations():
+                layout, packed, mach = activation_case(ss, rng, n, n_u, n_res, host, flags)
+                cpu_args = (torch.from_numpy(packed), layout, torch.from_numpy(mach))
+                card_args = (cpu_args[0].to(dev), layout, cpu_args[2].to(dev))
+                got = ss.score_activation(*card_args)
+                plain_card = ss.score_activation_plain(*card_args)
+                plain_cpu = ss.score_activation_plain(*cpu_args)
+                torch.cuda.synchronize()
+                g = got.cpu()
+                if g.shape != (layout.n_out,) or not torch.isfinite(g).all():
+                    raise SystemExit(f"score_activation output malformed at {layout.spec}")
+                for want in (plain_card.cpu(), plain_cpu):
+                    if not torch.equal(g, want):
+                        raise SystemExit(f"score_activation disagrees with its plain version at "
+                                         f"{layout.spec}: max |diff| {(g - want).abs().max().item()}")
+                score_max_err = max(score_max_err, (g - plain_cpu).abs().max().item())
+                n_score += 1
+    print(f"score_activation exactly equal to its plain version (card and CPU) on {n_score} cases "
+          f"(max |err| {score_max_err})")
+    # the main path's widest activation: n 128 ready tasks of LU NT 64 on
+    # paper_machine(8), every third datum moved to a GPU, DADA+CP's call
+    lu_sim = Simulator(lu_graph(64, 512), machine, resolve("dada?alpha=0.5&use_cp=1"), seed=0)
+    for k, name in enumerate(lu_sim.arrays.data_names):
+        if k % 3 == 0:
+            lu_sim.residency.write(name, k % 8)
+        elif k % 3 == 1:
+            lu_sim.residency.add_copy(name, (k + 1) % 8)
+    tids = list(range(128))
+    score_kwargs = dict(
+        p_cpu=lu_sim.predictor(machine.cpus[0].cls).times(np.asarray(tids)).tolist(),
+        p_gpu=lu_sim.predictor(machine.gpus[0].cls).times(np.asarray(tids)).tolist(),
+        use_cp=True, affinity="accel_write",
+    )
+    backends = {"cuda": lu_sim.strategy.backend, "cpu": resolve("dada?alpha=0.5&use_cp=1", device="cpu").backend}
+    calls = {d: be.score_matrices(lu_sim, tids, machine.resources, **score_kwargs) for d, be in backends.items()}
+    for key, want in calls["cpu"].items():
+        got = calls["cuda"][key]
+        same = np.array_equal(got, want) if isinstance(want, np.ndarray) else got == want
+        if not same:
+            raise SystemExit(f"score_matrices on the card differs from the CPU in {key}")
+    call_ms = {}
+    for d, be in backends.items():
+        for _ in range(20):
+            be.score_matrices(lu_sim, tids, machine.resources, **score_kwargs)
+        reps = 500 if d == "cuda" else 100
+        w0 = time.perf_counter()
+        for _ in range(reps):
+            be.score_matrices(lu_sim, tids, machine.resources, **score_kwargs)
+        call_ms[d] = (time.perf_counter() - w0) / reps * 1e3
+    w0 = time.perf_counter()  # the host part alone: gathers and packing
+    for _ in range(500):
+        backends["cuda"].pack(lu_sim, tids, machine.resources, **score_kwargs)
+    pack_ms = (time.perf_counter() - w0) / 500 * 1e3
+    layout, packed, mach = backends["cuda"].pack(lu_sim, tids, machine.resources, **score_kwargs)
+    d_in = packed.to(dev)
+    d_out = torch.empty(layout.n_out, dtype=torch.float64, device=dev)
+    score_ms = time_ms(lambda: ss.score_activation(d_in, layout, mach, out=d_out))
+    score_plain_ms = time_ms(lambda: ss.score_activation_plain(d_in, layout, mach), reps=50)
+    score_device_ms = graph_ms(lambda: ss.score_activation(d_in, layout, mach, out=d_out))
+    if not torch.equal(d_out, ss.score_activation_plain(d_in, layout, mach)):
+        raise SystemExit("score_activation disagrees with its plain version at the widest activation")
+    spec = layout.spec
+    score_shape = dict(n=spec.n, nnz_r=spec.nnz_r, nnz_w=spec.nnz_w, n_u=spec.n_u, n_res=spec.n_res)
+    score_bytes = 8 * (layout.n_in + layout.n_mach + layout.n_out)
+    # f64 operations: per read and memory a division, two additions and a
+    # product; per access and memory an addition; per entry a bias and C
+    score_ops = 4 * spec.nnz_r * spec.n_u + spec.nnz_w * spec.n_u + 2 * spec.n * spec.n_res
+    score_bytes_ms = score_bytes / H100_HBM_BYTES_PER_S * 1e3
+    score_ops_ms = score_ops / H100_FP64_FLOPS * 1e3
+    score_bound_ms = max(score_bytes_ms, score_ops_ms)
+    print(
+        f"score_activation at {score_shape}: score_matrices {call_ms['cuda']:.6f} ms per call on the "
+        f"card (copies and sync included; of which gathering and packing on the host "
+        f"{pack_ms:.6f} ms; CPU backend {call_ms['cpu']:.6f} ms); kernel "
+        f"{score_ms:.6f} ms per launch ({score_device_ms:.6f} ms on the device, from a CUDA graph), "
+        f"plain {score_plain_ms:.6f} ms, bound {score_bound_ms:.3e} ms ({score_bytes} bytes, "
+        f"{score_ops} flop)"
+    )
+    del lu_sim, backends, calls
     max_err = 0.0
     n_cases = 0
     for n_pad in (8, 64, 128, 256):
@@ -945,6 +1118,7 @@ def main() -> int:
         f"per call ({device_ms:.6f} ms on the device, from a CUDA graph), "
         f"plain {plain_ms:.6f} ms, bound {bound_ms:.3e} ms ({nbytes} bytes, {flops} flop)"
     )
+    xfer_kernel_phase_launches = ss.transfer_matrix.launches
     done("kernel", t0)
 
     # ---- 3. main path -------------------------------------------------------
@@ -953,16 +1127,16 @@ def main() -> int:
     specs = ("heft", "dada?alpha=0.5&use_cp=1")
     runs = [(g, nt, s, 1) for nt in (16, 64) for g in builders for s in specs]
     runs += [("cholesky", 64, s, 32) for s in specs]
-    machine = paper_machine(8)
     total_launches = 0
+    main_rows = []
     for gname, nt, spec, min_wide in runs:
         results = {}
         for device in ("cuda", "cpu"):
             graph = builders[gname](nt, 512)
             strategy = resolve(spec, device=device, min_wide=min_wide)
-            # activations and host time spent scoring, counted here only
-            activations = [0]
-            score_s = [0.0]
+            # activations, scored activations and host time spent scoring,
+            # counted here only
+            activations, scored, score_s = [0], [0], [0.0]
             place = strategy.place
             score = strategy.backend.score_matrices
 
@@ -970,44 +1144,57 @@ def main() -> int:
                 activations[0] += 1
                 place(sim, ready, src)
 
-            def timed(*args, score=score, score_s=score_s, **kwargs):
+            def timed(*args, score=score, score_s=score_s, scored=scored, **kwargs):
                 s0 = time.perf_counter()
                 out = score(*args, **kwargs)
                 score_s[0] += time.perf_counter() - s0
+                scored[0] += 1
                 return out
 
             strategy.place = counted
             strategy.backend.score_matrices = timed
             sim = Simulator(graph, machine, strategy, seed=0)
+            ss.score_activation.launches = 0
             ss.transfer_matrix.launches = 0
             w0 = time.perf_counter()
             res = sim.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - w0
-            launches = ss.transfer_matrix.launches
-            results[device] = (res, activations[0], launches, wall, score_s[0])
-        res, acts, launches, wall, score_wall = results["cuda"]
-        cpu_res, cpu_acts, cpu_launches, cpu_wall, cpu_score = results["cpu"]
+            results[device] = (res, activations[0], scored[0], ss.score_activation.launches,
+                               ss.transfer_matrix.launches, wall, score_s[0])
+        res, acts, n_scored, launches, xfer, wall, score_wall = results["cuda"]
+        cpu_res, cpu_acts, cpu_scored, cpu_launches, cpu_xfer, cpu_wall, cpu_score = results["cpu"]
         n_tasks = len(builders[gname](nt, 512))
+        row = dict(graph=gname, nt=nt, strategy=res.strategy, min_wide=min_wide, activations=acts,
+                   scored=n_scored, launches=launches, wall_s=wall, score_s=score_wall,
+                   score_ms_per_act=score_wall / max(n_scored, 1) * 1e3, cpu_wall_s=cpu_wall,
+                   cpu_score_s=cpu_score, cpu_score_ms_per_act=cpu_score / max(cpu_scored, 1) * 1e3)
+        main_rows.append(row)
         print(
             f"run graph={gname} NT={nt} strategy={res.strategy} min_wide={min_wide} "
-            f"tasks={n_tasks} activations={acts} launches={launches} "
+            f"tasks={n_tasks} activations={acts} scored={n_scored} launches={launches} "
             f"makespan={res.makespan!r} total_bytes={res.total_bytes} "
-            f"wall_s={wall:.3f} score_s={score_wall:.3f} "
-            f"cpu_wall_s={cpu_wall:.3f} cpu_score_s={cpu_score:.3f}",
+            f"wall_s={wall:.6f} score_s={score_wall:.6f} "
+            f"score_ms_per_act={row['score_ms_per_act']:.6f} "
+            f"cpu_wall_s={cpu_wall:.6f} cpu_score_s={cpu_score:.6f} "
+            f"cpu_score_ms_per_act={row['cpu_score_ms_per_act']:.6f}",
             flush=True,
         )
         if sorted(iv.tid for iv in res.intervals) != list(range(n_tasks)):
             raise SystemExit("not every task ran exactly once")
         if not (math.isfinite(res.makespan) and res.makespan > 0 and res.total_bytes > 0):
             raise SystemExit("makespan or bytes out of range")
-        if fingerprint(res) != fingerprint(cpu_res) or acts != cpu_acts:
+        if fingerprint(res) != fingerprint(cpu_res) or (acts, n_scored) != (cpu_acts, cpu_scored):
             raise SystemExit(f"{gname} NT={nt} {spec}: card run differs from the CPU run")
-        if cpu_launches != 0:
-            raise SystemExit("the CPU run launched the kernel")
-        if launches == 0:
-            raise SystemExit(f"{gname} NT={nt} {spec}: no kernel launch on the main path")
+        if cpu_launches or cpu_xfer:
+            raise SystemExit("the CPU run launched a kernel")
+        if n_scored == 0 or launches != n_scored:
+            raise SystemExit(f"{gname} NT={nt} {spec}: {launches} fused launches for {n_scored} "
+                             f"activations scored on the card")
+        if xfer:
+            raise SystemExit(f"{gname} NT={nt} {spec}: the standalone transfer kernel ran on the main path")
         total_launches += launches
+    print(f"main path: {total_launches} fused launches, one per activation scored on the card")
     done("main", t0)
 
     # ---- 4. gemm kernel against its plain version, and its times ------------
@@ -1040,15 +1227,15 @@ def main() -> int:
               f"(numpy, seed 0); {len(graph)} tasks, {n_gemm} GEMM-shaped ({gemm_flops:.4e} flop)")
         schedules = {}
         for spec in specs:
-            ss.transfer_matrix.launches = 0
+            ss.score_activation.launches = 0
             w0 = time.perf_counter()
             schedules[spec] = Simulator(build(nt, LINALG_TILE), machine, resolve(spec), seed=0).run()
             torch.cuda.synchronize()
             print(f"  schedule {schedules[spec].strategy}: makespan={schedules[spec].makespan!r} "
-                  f"transfer launches={ss.transfer_matrix.launches} "
+                  f"score_activation launches={ss.score_activation.launches} "
                   f"wall_s={time.perf_counter() - w0:.3f}")
-            if ss.transfer_matrix.launches == 0:
-                raise SystemExit(f"{gname} {spec}: no transfer kernel launch while scheduling")
+            if ss.score_activation.launches == 0:
+                raise SystemExit(f"{gname} {spec}: no score_activation launch while scheduling")
         runs = [("program order", None)] + [(schedules[s].strategy, schedules[s]) for s in specs]
         reference = None
         for label, res in runs:
@@ -1145,30 +1332,77 @@ def main() -> int:
 
     # ---- 8. profile ---------------------------------------------------------
     t0 = phase("profile")
+    launch_structure = {}
     for spec in specs:
+        strategy = resolve(spec)  # one object for both runs: its buffers are warm in the second
+        score = strategy.backend.score_matrices
+        scored = [0]
+
+        def counted(*args, score=score, scored=scored, **kwargs):
+            scored[0] += 1
+            return score(*args, **kwargs)
+
+        strategy.backend.score_matrices = counted
         for _ in range(2):  # the first run warms the profiler up; the last is read
-            sim = Simulator(cholesky_graph(16, 512), machine, resolve(spec), seed=0)
+            scored[0] = 0
+            sim = Simulator(cholesky_graph(16, 512), machine, strategy, seed=0)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 w0 = time.perf_counter()
                 res = sim.run()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - w0
         busy_us, _ = device_time(prof)
+        counts = launch_counts(prof)
+        per_act = {k: v / scored[0] for k, v in counts.items()}
+        launch_structure[res.strategy] = dict(
+            scored=scored[0], wall_s=wall, device_busy_s=busy_us / 1e6,
+            device_idle_share=1.0 - busy_us / 1e6 / wall, counts=counts, per_activation=per_act)
         print(
-            f"profile graph=cholesky NT=16 strategy={res.strategy} wall_s={wall:.3f} "
+            f"profile graph=cholesky NT=16 strategy={res.strategy} wall_s={wall:.6f} "
             f"device_busy_s={busy_us / 1e6:.6f} device_idle_share="
-            f"{1.0 - busy_us / 1e6 / wall:.4f}",
+            f"{1.0 - busy_us / 1e6 / wall:.4f} scored={scored[0]} counts={counts} "
+            f"per_activation={ {k: round(v, 4) for k, v in per_act.items()} }",
             flush=True,
         )
+        # the runtime calls are counted exactly; the device-side trace may
+        # drop a few records, but must show no other device work
+        if (counts["launch_calls"], counts["memcpy_calls"]) != (scored[0], 2 * scored[0]) or not (
+                counts["kernels"] <= scored[0] and counts["memcpy"] <= 2 * scored[0]
+                and counts["memset"] == 0):
+            raise SystemExit(f"{res.strategy}: want one kernel and two memcpys per scored activation, "
+                             f"got {counts} over {scored[0]}")
     done("profile", t0)
 
     # ---- 9. report ----------------------------------------------------------
     kernels = [{
+        "name": "score_activation",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sched_score.cu",
+        "replaces": "src/repro/kernels/sched_score.py:121",
+        "replaces_with_it": "src/repro/core/backend.py:446 (_build_matrix_fn)",
+        "launches": total_launches,
+        "exact": score_max_err == 0.0,
+        "max_abs_err": score_max_err,
+        "cases": n_score,
+        "ms": score_ms,
+        "device_ms": score_device_ms,
+        "score_matrices_ms": call_ms["cuda"],
+        "pack_ms": pack_ms,
+        "cpu_score_matrices_ms": call_ms["cpu"],
+        "plain_ms": score_plain_ms,
+        "bound_ms": score_bound_ms,
+        "bound_by": "bytes" if score_bytes_ms >= score_ops_ms else "operations",
+        "library_ms": None,
+        "shape": score_shape,
+        "main_runs": main_rows,
+        "launch_structure_cholesky_nt16": launch_structure,
+    }, {
         "name": "transfer_matrix",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/sched_score.cu",
         "replaces": "src/repro/kernels/sched_score.py:121",
-        "launches": total_launches,
+        "launches": xfer_kernel_phase_launches,
+        "launches_counted_in": "kernel phase (the main path runs score_activation)",
         "exact": max_err == 0.0,
         "max_abs_err": max_err,
         "ms": kernel_ms,

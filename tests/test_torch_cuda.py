@@ -92,12 +92,187 @@ def test_cuda_simulation_equals_cpu(cuda, spec):
         return (res.makespan, res.total_bytes, res.n_transfers, sorted(res.busy.items()),
                 [(iv.tid, iv.rid, iv.start, iv.end) for iv in res.intervals])
 
+    strategy = resolve(spec)
+    score = strategy.backend.score_matrices
+    scored = [0]
+
+    def counted(*args, **kwargs):
+        scored[0] += 1
+        return score(*args, **kwargs)
+
+    strategy.backend.score_matrices = counted
+    port.score_activation.launches = 0
     port.transfer_matrix.launches = 0
-    on_card = run_simulation(qr_graph(6, 256), paper_machine(8), resolve(spec), seed=7)
-    launches = port.transfer_matrix.launches
+    on_card = run_simulation(qr_graph(6, 256), paper_machine(8), strategy, seed=7)
+    launches = port.score_activation.launches
     on_cpu = run_simulation(qr_graph(6, 256), paper_machine(8), resolve(spec, device="cpu"), seed=7)
     assert fingerprint(on_card) == fingerprint(on_cpu)
-    assert (launches > 0) == ("heft" in spec or "use_cp" in spec)
+    # every activation scored on the card is one fused launch, DADA
+    # without +CP included; the standalone transfer kernel is off the path
+    assert launches == scored[0] > 0
+    assert port.transfer_matrix.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# score_activation: one activation in one launch (csrc/sched_score.cu)
+
+LATENCY, BANDWIDTH = 1.5e-5, 1.2e10  # a PCIe-like link
+
+
+def activation_case(seed, n, n_u, n_res, *, want_x=True, x_rows=False, want_bias=False,
+                    want_s=True, accel_only=False, want_c=True, host=True):
+    """A seeded packed activation: (layout, packed input, machine buffer),
+    both int64 numpy arrays. Masks over the host bit and ``n_u`` memory
+    shifts up to 62 (no host column when ``host`` is False), with data
+    that exists nowhere, host-only data, reads of size 0, task 0 without
+    reads and task 1 without affinity accesses."""
+    rng = np.random.default_rng(seed)
+    n_dev = n_u - 1 if host else n_u
+    shifts = np.sort(rng.choice(np.arange(1, port.MAX_SHIFT + 1), n_dev, replace=False))
+    if host:
+        shifts = np.concatenate([[0], shifts])
+    host_col = shifts == 0
+    col_of = rng.permutation(np.concatenate([np.arange(n_u), rng.integers(0, n_u, n_res - n_u)]))
+    machine = port.pack_machine(
+        n_res, latency=LATENCY, bandwidth=BANDWIDTH, mem_shift=shifts, host_col=host_col,
+        col_of=col_of, accel_res=~host_col[col_of],
+    )
+    bits = np.concatenate([[0], shifts[shifts > 0]]).astype(np.int64)
+
+    def csr(max_per_row, empty_row):
+        counts = rng.integers(0, max_per_row + 1, n)
+        counts[min(empty_row, n - 1)] = 0
+        indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        pick = rng.random((indptr[-1], len(bits))) < 0.3
+        masks = (pick * (np.int64(1) << bits)).sum(axis=1).astype(np.int64)
+        masks[::5] = 0  # data that exists nowhere
+        masks[1::7] = 1  # host-only copies
+        return indptr, masks
+
+    reads = writes = None
+    if want_x:
+        indptr, masks = csr(4, 0)
+        sizes = rng.integers(0, 1 << 22, len(masks)).astype(np.float64)
+        sizes[::6] = 0.0
+        reads = (indptr, masks, sizes)
+    if want_s:
+        indptr, masks = csr(3, 1)
+        writes = (indptr, masks, rng.integers(1, 1 << 22, len(masks)).astype(np.float64))
+    bias = None
+    if want_bias:
+        bias = rng.random((n, n_res)) * 1e-3
+        bias[rng.random((n, n_res)) < 0.5] = 0.0
+    layout = port.score_layout(port.ScoreSpec(
+        n=n, nnz_r=len(reads[1]) if reads else 0, nnz_w=len(writes[1]) if writes else 0,
+        n_u=n_u, n_res=n_res, want_x=want_x, x_rows=x_rows, want_bias=want_bias,
+        want_s=want_s, accel_only=accel_only, want_c=want_c,
+    ))
+    packed = np.zeros(layout.n_in, dtype=np.int64)
+    port.pack_activation(
+        packed, layout, reads=reads, writes=writes,
+        p_cpu=rng.random(n) if want_c else None, p_gpu=rng.random(n) * 0.1 if want_c else None,
+        x_bias=bias,
+    )
+    return layout, packed, machine
+
+
+def flag_combinations():
+    """Every valid combination of the spec's six flags (29)."""
+    out = []
+    for x in ("none", "max", "max+bias", "rows", "rows+bias"):
+        for s in ("none", "s", "s+accel"):
+            for c in (False, True):
+                if x == "none" and s == "none" and not c:
+                    continue
+                out.append(dict(
+                    want_x=x != "none", x_rows=x.startswith("rows"), want_bias="bias" in x,
+                    want_s=s != "none", accel_only=s == "s+accel", want_c=c,
+                ))
+    return out
+
+
+FLAGS = flag_combinations()
+# (n, n_u, n_res, host): paper_machine(8) (9 memories, 14 resources), the
+# scaled-machine width, a wide all-GPU machine and n_u above a warp
+ACTIVATION_SHAPES = [(1, 9, 14, True), (128, 9, 14, True), (40, 25, 29, False),
+                     (256, 30, 34, True), (37, 40, 47, True), (5, 63, 70, True)]
+
+
+def _flag_id(f):
+    return "-".join(k for k, v in f.items() if v)
+
+
+@pytest.mark.parametrize("flags", FLAGS, ids=_flag_id)
+@pytest.mark.parametrize("shape", [ACTIVATION_SHAPES[1], ACTIVATION_SHAPES[4]], ids=lambda s: f"n{s[0]}-u{s[1]}")
+def test_cuda_score_activation_equals_plain_every_flag(cuda, shape, flags):
+    n, n_u, n_res, host = shape
+    layout, packed, machine = activation_case(n + n_u, n, n_u, n_res, host=host, **flags)
+    cpu_in, cpu_mach = torch.from_numpy(packed), torch.from_numpy(machine)
+    want = port.score_activation_plain(cpu_in, layout, cpu_mach)
+    before = port.score_activation.launches
+    got = port.score_activation(cpu_in.to(cuda), layout, cpu_mach.to(cuda))
+    plain_card = port.score_activation_plain(cpu_in.to(cuda), layout, cpu_mach.to(cuda))
+    torch.cuda.synchronize()
+    assert port.score_activation.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(plain_card.cpu(), want)
+
+
+@pytest.mark.parametrize("shape", ACTIVATION_SHAPES, ids=lambda s: f"n{s[0]}-u{s[1]}-r{s[2]}")
+def test_cuda_score_activation_equals_plain_every_shape(cuda, shape):
+    n, n_u, n_res, host = shape
+    for k, flags in enumerate((FLAGS[-1], dict(want_x=True, x_rows=True))):
+        layout, packed, machine = activation_case(k, n, n_u, n_res, host=host, **flags)
+        args = (torch.from_numpy(packed), layout, torch.from_numpy(machine))
+        want = port.score_activation_plain(*args)
+        out = torch.full((layout.n_out,), float("nan"), dtype=torch.float64, device=cuda)
+        got = port.score_activation(args[0].to(cuda), layout, args[2].to(cuda), out=out)
+        assert got.data_ptr() == out.data_ptr()
+        assert torch.equal(got.cpu(), want)
+
+
+def test_cuda_score_activation_rejects_mixed_devices(cuda):
+    layout, packed, machine = activation_case(0, 8, 9, 14)
+    before = port.score_activation.launches
+    with pytest.raises(ValueError, match="devices"):
+        port.score_activation(torch.from_numpy(packed).to(cuda), layout, torch.from_numpy(machine))
+    assert port.score_activation.launches == before
+
+
+@pytest.mark.parametrize("spec", ["heft", "dada?alpha=0.5&use_cp=1", "dada?alpha=0.5", "dada?alpha=0"])
+def test_cuda_score_matrices_is_one_launch(cuda, spec):
+    """Each score_matrices call on the card launches the fused kernel once
+    and equals the CPU backend's call bit for bit."""
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.core import Simulator
+    from repro_torch.linalg.qr import qr_graph
+    from repro_torch.sched import resolve
+
+    sims = {
+        dev: Simulator(qr_graph(6, 256), paper_machine(8), resolve(spec, device=dev), seed=7)
+        for dev in ("cuda", "cpu")
+    }
+    for sim in sims.values():  # every third datum moved to a device memory
+        for k, name in enumerate(sim.arrays.data_names):
+            if k % 3 == 0:
+                sim.residency.write(name, k % 8)
+    tids = list(range(40))
+    kwargs = dict(use_cp=True, x_rows=True) if spec == "heft" else dict(
+        p_cpu=[1.0 + t for t in tids], p_gpu=[0.5 + t for t in tids],
+        use_cp="use_cp" in spec, affinity="accel_write" if "0.5" in spec else None,
+    )
+    calls = {}
+    for dev, sim in sims.items():
+        before = port.score_activation.launches
+        calls[dev] = sim.strategy.backend.score_matrices(sim, tids, sim.machine.resources, **kwargs)
+        assert port.score_activation.launches == before + (dev == "cuda")
+    for key, want in calls["cpu"].items():
+        got = calls["cuda"][key]
+        assert (got is None) == (want is None)
+        if isinstance(want, np.ndarray):
+            assert np.array_equal(got, want)
+        else:
+            assert got == want
 
 
 # ---------------------------------------------------------------------------
