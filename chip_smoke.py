@@ -5,7 +5,7 @@
 Phases (each prints its own lines and its wall time; any failure exits
 non-zero and no phase carries on past its own failure):
 
-  1. build    build the six CUDA sources of the four ported kernels from the
+  1. build    build the seven CUDA sources of the ported kernels from the
               repo, one nvcc each, started together; print their ptxas
               reports and the card (name and power limit, from nvidia-smi);
   2. kernel   the fused activation scorer (score_activation) against its
@@ -22,17 +22,35 @@ non-zero and no phase carries on past its own failure):
               versions on seeded inputs (n_pad 8..256, r_pad 1..4, n_u
               9/25/30, with empty masks, host-only masks and padded reads),
               exactly equal, and its times at the widest shape;
-  3. main     HEFT and DADA(0.5)+CP on the paper machine with 8 GPUs over
+  3. place    the placement kernels (dada_place: DADA's λ search;
+              heft_select: HEFT's EFT scan) against their plain versions on
+              seeded packed activations (tests/_place_cases.py, the card
+              tests' builder): n 1 / 3 / 37 / 128 / 256 on CPU+GPU,
+              GPU-only and CPU-only machines (2..130 resources), α 0 / 0.5 /
+              1, ±CP, ±area bound, max_iters 1 and 30, values on a 1/8 grid
+              (ties), empty affinity rows, finish times a few ulps apart
+              (HEFT's 1e-15 rule): every placement buffer must be equal bit
+              for bit (torch.equal), λ and the finish times ==. Then at the
+              main path's widest activation (n 128, LU NT 64): each kernel's
+              ms per launch, device ms from a CUDA-graph replay, the plain
+              version's ms on the host, a whole place_dada / place_heft call
+              (card and CPU), the bound, and the ptxas registers, shared
+              memory and spills of sched_place.cu;
+  4. main     HEFT and DADA(0.5)+CP on the paper machine with 8 GPUs over
               the Cholesky, LU and QR tile DAGs at NT 16 (tile 512, the
               paper's shape) and NT 64 (the reference's scaling size), every
-              activation scored on the card (min_wide=1), plus one NT 64
-              Cholesky run per strategy at min_wide=32. Each run's
+              activation scored and placed on the card (min_wide=1), plus
+              one NT 64 Cholesky run per strategy at min_wide=32. Each run's
               (makespan, bytes, transfers, busy, intervals) must equal the
-              port's own device="cpu" run, every task must run once, and
-              every activation scored on the card must be exactly one fused
-              launch (the standalone transfer kernel none); prints wall and
-              score ms per scored activation on the card and the CPU;
-  4. gemm     the gemm_update kernel against its plain version on the card
+              port's own device="cpu" run, every task must run once, every
+              activation placed on the card must be exactly one fused
+              scoring launch and one placement launch (the standalone
+              transfer kernel none), and the plain searches must run only
+              for the activations narrower than min_wide; prints wall s
+              beside PR 18's, the ms per placed activation on the card and
+              the CPU, and the full garbage collections (count, seconds)
+              inside each timed run;
+  5. gemm     the gemm_update kernel against its plain version on the card
               and on the CPU, over shapes (64,64,64) .. (1024,512,1024) x
               {f32, bf16} x alpha {-1, 1, 0.5} x trans_b, at the reference's
               TOL (atol TOL*sqrt(k), rtol TOL; 2e-4 f32, 5e-2 bf16), with
@@ -46,7 +64,7 @@ non-zero and no phase carries on past its own failure):
               path's three shapes beside the plain version, torch.addmm
               (torch.mm for matmul) and the bound, and its ptxas
               registers, spills and shared memory;
-  5. linalg   tile Cholesky, LU and QR of an 8192^2 f32 matrix (tile 512,
+  6. linalg   tile Cholesky, LU and QR of an 8192^2 f32 matrix (tile 512,
               NT 16) on the card: HEFT and DADA(0.5)+CP schedule the DAG on
               paper_machine(8) (scores on the card, fused launches), execute_graph runs it
               in program order and execute_schedule replays each schedule.
@@ -57,7 +75,7 @@ non-zero and no phase carries on past its own failure):
               an NT 16 execution per factorization under torch.profiler
               (twice; the second is read): device busy time, idle share and
               gemm_update's share;
-  6. attention  flash_attention and flash_decode against their plain
+  7. attention  flash_attention and flash_decode against their plain
               versions on the card and on the CPU: tests/test_kernels.py's
               sweeps at its tolerances, ragged lengths, and the serving
               path's shapes (chatglm3-6b: 32 query heads, 2 KV heads, hd
@@ -67,7 +85,7 @@ non-zero and no phase carries on past its own failure):
               then their times at those shapes (and decode at a
               decode_32k-like shape: B 16, S 32 768) beside the plain
               version, the bound and scaled_dot_product_attention;
-  7. serve    chatglm3-6b at full width and depth (6.24e9 random bf16
+  8. serve    chatglm3-6b at full width and depth (6.24e9 random bf16
               parameters from a seeded generator) on the card: prefill of
               4 x 2048 tokens through make_prefill_step; then
               prefill_into_cache on a 64-token prompt and 32 greedy decode
@@ -78,13 +96,13 @@ non-zero and no phase carries on past its own failure):
               "split"). Prints tokens/s
               and a profile of one prefill and one decode step. Then the
               smoke configs served on the card against the CPU at f32;
-  8. profile  one NT 16 Cholesky simulation per strategy under
+  9. profile  one NT 16 Cholesky simulation per strategy under
               torch.profiler (twice with one strategy object; the second is
-              read): device busy time against wall time, and per scored
-              activation the kernel launches (must be 1) and memcpy calls
+              read): device busy time against wall time, and per placed
+              activation the kernel launches (must be 2) and memcpy calls
               (must be 2), with no other kernel, memcpy or memset on the
               card;
-  9. report   a JSON line of every ported kernel, then the last line
+ 10. report   a JSON line of every ported kernel, then the last line
               ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits 2 without printing a result when there is
@@ -92,6 +110,7 @@ none. Imports nothing of JAX and nothing of the ``repro`` package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -149,6 +168,25 @@ ATTN_CASES = [
     (2, 8, 2, 77, 300, 64, True), (3, 32, 2, 257, 257, 128, True),
     (2, 6, 3, 200, 65, 64, False), (1, 4, 1, 1, 129, 128, True), (2, 4, 2, 130, 1000, 64, False),
 ]
+# placement cases: resource classes by position (True: accelerator):
+# paper_machine(8) (4 CPUs, 8 GPUs), a wide GPU-only machine, two CPUs, one
+# of each, and a wide interleaved machine (the DADA kernel's lanes hold 1,
+# 2 and 8 rids each)
+PLACE_MACHINES = {"paper": [False] * 4 + [True] * 8, "gpu40": [True] * 40, "cpu2": [False] * 2,
+                  "cpu1gpu1": [False, True], "mixed130": [i % 3 != 0 for i in range(130)]}
+PLACE_N = (1, 3, 37, 128, 256)
+# the card's wall s of each main-path run in PR 18's final run (PERF.md §5),
+# by (graph, NT, strategy, min_wide): printed beside this run's for the
+# reader, never put in the kernels line
+PR18_WALL_S = {
+    ("cholesky", 16, "heft", 1): 0.061, ("cholesky", 16, "dada(0.5)+cp", 1): 0.081,
+    ("lu", 16, "heft", 1): 0.066, ("lu", 16, "dada(0.5)+cp", 1): 0.261,
+    ("qr", 16, "heft", 1): 0.129, ("qr", 16, "dada(0.5)+cp", 1): 0.132,
+    ("cholesky", 64, "heft", 1): 1.394, ("cholesky", 64, "dada(0.5)+cp", 1): 1.947,
+    ("lu", 64, "heft", 1): 2.351, ("lu", 64, "dada(0.5)+cp", 1): 3.205,
+    ("qr", 64, "heft", 1): 8.284, ("qr", 64, "dada(0.5)+cp", 1): 12.413,
+    ("cholesky", 64, "heft", 32): 1.233, ("cholesky", 64, "dada(0.5)+cp", 32): 2.049,
+}
 DECODE_32K = (16, 32768)  # (B, S) of the decode_32k-like timing and check
 # flash_decode cases: (B, hq, hk, S, hd, length)
 DECODE_CASES = [
@@ -162,6 +200,21 @@ DECODE_CASES = [
     *[(2, 2 * group, 2, 700, 128, length) for group in (1, 16, 32) for length in (1, 65, 700)],
     (1, 24, 1, 130, 16, 130), (2, 4, 4, 64, 256, 33),
 ]
+
+
+# full garbage collections (generation 2) since the start, and the seconds
+# they paused the program
+GC_FULL = {"count": 0, "s": 0.0, "start": 0.0}
+
+
+def _on_gc(stage, info):
+    if info["generation"] != 2:
+        return
+    if stage == "start":
+        GC_FULL["start"] = time.perf_counter()
+    else:
+        GC_FULL["count"] += 1
+        GC_FULL["s"] += time.perf_counter() - GC_FULL["start"]
 
 
 def phase(name):
@@ -277,6 +330,54 @@ def activation_case(ss, rng, n, n_u, n_res, host, flags):
                        p_cpu=rng.random(n) if flags["want_c"] else None,
                        p_gpu=rng.random(n) * 0.1 if flags["want_c"] else None, x_bias=bias)
     return layout, packed, machine
+
+
+def place_check(sp, dev):
+    """Both placement kernels against their plain versions over the case
+    matrix (seeded activations of ``tests/_place_cases.py``, packed as the
+    backend packs them); returns (cases, max |kernel - plain| over λ, loads
+    and finish times)."""
+    from _place_cases import dada_case, heft_case, packed_dada, packed_heft
+
+    n_cases, max_err = 0, 0.0
+    cases = []
+    for n in PLACE_N:
+        for accel in PLACE_MACHINES.values():
+            for alpha in (0.0, 0.5, 1.0):
+                for use_cp in (False, True):
+                    for area_bound in (False, True):
+                        for max_iters in (1, 30):
+                            cases.append(("dada", packed_dada(dada_case(
+                                len(cases), n=n, accel=accel, alpha=alpha, use_cp=use_cp,
+                                area_bound=area_bound, max_iters=max_iters))))
+        for n_res in (2, 14, 40, 70):
+            for _ in range(4):
+                cases.append(("heft", packed_heft(heft_case(len(cases), n=n, n_res=n_res))))
+    for kind, (layout, buf, scores) in cases:
+        kernel = sp.dada_place if kind == "dada" else sp.heft_select
+        want_t = kernel(buf, scores, layout)
+        before = kernel.launches
+        got_t = kernel(buf.to(dev), scores.to(dev), layout)
+        torch.cuda.synchronize()
+        if kernel.launches != before + 1:
+            raise SystemExit(f"{kernel.__name__} did not count its launch")
+        got_t = got_t.cpu()
+        want, got = sp.read_placement(want_t.numpy(), layout), sp.read_placement(got_t.numpy(), layout)
+        exact = torch.equal(got_t, want_t) and got.rids == want.rids
+        if kind == "dada":
+            exact = exact and got.lam == want.lam and got.loads == want.loads and got.status == want.status
+            if want.status != sp.STATUS_OK:
+                raise SystemExit(f"dada_place: λ = upper infeasible at {layout.spec}")
+            diffs = [abs(got.lam - want.lam)] + [abs(a - b) for a, b in zip(got.loads, want.loads)]
+        else:
+            exact = exact and got.efts == want.efts
+            diffs = [abs(a - b) for a, b in zip(got.efts, want.efts)]
+        if not exact:
+            raise SystemExit(f"{kernel.__name__} disagrees with its plain version at {layout.spec}: "
+                             f"{got} vs {want}"[:2000])
+        max_err = max([max_err] + diffs)
+        n_cases += 1
+    return n_cases, max_err
 
 
 def launch_counts(prof):
@@ -946,10 +1047,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))  # _place_cases: the seeded placement cases
     from repro_torch.configs.paper_machine import paper_machine
     from repro_torch.core import Simulator
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import sched_place as sp
     from repro_torch.kernels import sched_score as ss
     from repro_torch.kernels import tile_gemm as tg
     from repro_torch.kernels._build import build_library
@@ -962,13 +1065,14 @@ def main() -> int:
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    gc.callbacks.append(_on_gc)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     # ---- 1. build ----------------------------------------------------------
     t0 = phase("build")
     card = card_line()
     print(card)
-    kernel_modules = (ss, tg, fa, fd)
+    kernel_modules = (ss, sp, tg, fa, fd)
     sources = [src for mod in kernel_modules for src in mod.SOURCES]
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         reports = list(pool.map(lambda src: build_library(src)[1], sources))
@@ -983,6 +1087,11 @@ def main() -> int:
         raise SystemExit("no ptxas report for tile_gemm.cu")
     for row in gemm_ptxas:
         print(f"gemm ptxas: {row}")
+    place_ptxas = ptxas_table(reports[sources.index(sp._SRC)])
+    if not place_ptxas:
+        raise SystemExit("no ptxas report for sched_place.cu")
+    for row in place_ptxas:
+        print(f"place ptxas: {row}")
     done("build", t0)
 
     # ---- 2. kernels against their plain versions -----------------------------
@@ -1070,7 +1179,7 @@ def main() -> int:
         f"plain {score_plain_ms:.6f} ms, bound {score_bound_ms:.3e} ms ({score_bytes} bytes, "
         f"{score_ops} flop)"
     )
-    del lu_sim, backends, calls
+    del backends, calls
     max_err = 0.0
     n_cases = 0
     for n_pad in (8, 64, 128, 256):
@@ -1121,89 +1230,203 @@ def main() -> int:
     xfer_kernel_phase_launches = ss.transfer_matrix.launches
     done("kernel", t0)
 
-    # ---- 3. main path -------------------------------------------------------
+    # ---- 3. placement kernels against their plain versions, and their times --
+    t0 = phase("place")
+    place_cases, place_max_err = place_check(sp, dev)
+    print(f"dada_place and heft_select exactly equal to their plain versions on {place_cases} cases "
+          f"(max |err| {place_max_err})")
+    place_rows = {}
+    for name, spec in (("dada_place", "dada?alpha=0.5&use_cp=1"), ("heft_select", "heft")):
+        # the main path's widest activation again (n 128, LU NT 64), with
+        # the strategy's own host preamble
+        strategy, cpu_strategy = resolve(spec), resolve(spec, device="cpu")
+        res = machine.resources
+        if name == "dada_place":
+            p_cpu, p_gpu, section = strategy.preamble(lu_sim, tids)
+            pspec = sp.PlaceSpec("dada", len(tids), len(res), n_cpu=len(machine.cpus),
+                                 n_gpu=len(machine.gpus))
+            score_kw = dict(p_cpu=p_cpu, p_gpu=p_gpu, use_cp=True, affinity="accel_write")
+            call_kw = dict(score_kw, area_bound=False, **section)
+        else:
+            scan = strategy.preamble(lu_sim, tids)
+            pspec = sp.PlaceSpec("heft", len(tids), len(res), n_cls=len(scan["durations"]))
+            score_kw = dict(use_cp=True, x_rows=True)
+            call_kw = scan
+        layout, packed, mach = strategy.backend.pack(lu_sim, tids, res, place=pspec, **score_kw)
+        if name == "dada_place":
+            sp.pack_dada(packed.numpy(), layout, tids=tids, **section)
+        else:
+            sp.pack_heft(packed.numpy(), layout, **scan)
+        kernel = getattr(sp, name)
+        cpu_in = packed.clone()
+        cpu_scores = ss.score_activation(cpu_in[:layout.score.n_in], layout.score, mach.cpu())
+        d_in = cpu_in.to(dev)
+        d_scores = ss.score_activation(d_in[:layout.score.n_in], layout.score, mach)
+        d_out = torch.empty(layout.n_out, dtype=torch.int64, device=dev)
+        want = kernel(cpu_in, cpu_scores, layout)
+        kernel(d_in, d_scores, layout, out=d_out)
+        if not torch.equal(d_out.cpu(), want):
+            raise SystemExit(f"{name} disagrees with its plain version at the widest activation")
+        ms = time_ms(lambda: kernel(d_in, d_scores, layout, out=d_out))
+        device_ms = graph_ms(lambda: kernel(d_in, d_scores, layout, out=d_out))
+        w0 = time.perf_counter()
+        for _ in range(20):
+            kernel(cpu_in, cpu_scores, layout)
+        plain_ms = (time.perf_counter() - w0) / 20 * 1e3
+        call = {}  # a whole place_dada / place_heft call, card and CPU
+        method = "place_dada" if name == "dada_place" else "place_heft"
+        for d, st in (("cuda", strategy), ("cpu", cpu_strategy)):
+            fn = getattr(st.backend, method)
+            for _ in range(20):
+                fn(lu_sim, tids, res, **call_kw)
+            reps = 300 if d == "cuda" else 50
+            w0 = time.perf_counter()
+            for _ in range(reps):
+                got = fn(lu_sim, tids, res, **call_kw)
+            call[d] = (time.perf_counter() - w0) / reps * 1e3
+            if got != sp.read_placement(want.numpy(), layout):
+                raise SystemExit(f"{method} on {d} differs from the plain placement")
+        n, n_res = len(tids), len(res)
+        got = sp.read_placement(want.numpy(), layout)
+        # bytes: the scorer outputs read (C, S, the row maxima; X for HEFT),
+        # the class durations and the section read, the placement written;
+        # operations (f64, compares counted): per probe and task one addition
+        # and one compare per candidate resource, plus the preference scan
+        # and the bound (DADA); three additions and two compares per task and
+        # resource (HEFT)
+        sec = layout.n_in - layout.score.n_in
+        if name == "dada_place":
+            nbytes = 8 * (2 * n * n_res + n + 2 * n + sec + layout.n_out)
+            ops = (got.iters + 1) * 2 * n * n_res + n * n_res + n
+        else:
+            nbytes = 8 * (n * n_res + sec + layout.n_out)
+            ops = 5 * n * n_res
+        bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / H100_FP64_FLOPS * 1e3
+        place_rows[name] = dict(
+            n=n, n_res=n_res, iters=getattr(got, "iters", None), ms=ms, device_ms=device_ms,
+            plain_ms=plain_ms, call_ms=call["cuda"], cpu_call_ms=call["cpu"],
+            bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bytes=nbytes, flop=ops, smem_bytes=layout.spec.smem_bytes,
+            ptxas=[r for r in place_ptxas if name.split("_")[0] in r["function"]],
+        )
+        print(f"{name} at n={n} n_res={n_res} (LU NT 64, {spec}): kernel {ms:.6f} ms per launch "
+              f"({device_ms:.6f} ms on the device, from a CUDA graph), plain {plain_ms:.6f} ms on "
+              f"the host; a whole {method} call {call['cuda']:.6f} ms on the card, "
+              f"{call['cpu']:.6f} ms with device='cpu'; bound {place_rows[name]['bound_ms']:.3e} ms "
+              f"({nbytes} bytes, {ops} flop); probes {place_rows[name]['iters']}; "
+              f"dynamic smem {layout.spec.smem_bytes} B; ptxas {place_rows[name]['ptxas']}")
+    del lu_sim, tids
+    done("place", t0)
+
+    # ---- 4. main path -------------------------------------------------------
     t0 = phase("main")
     builders = {"cholesky": cholesky_graph, "lu": lu_graph, "qr": qr_graph}
     specs = ("heft", "dada?alpha=0.5&use_cp=1")
     runs = [(g, nt, s, 1) for nt in (16, 64) for g in builders for s in specs]
     runs += [("cholesky", 64, s, 32) for s in specs]
     total_launches = 0
+    place_launches = {"dada_place": 0, "heft_select": 0}
     main_rows = []
     for gname, nt, spec, min_wide in runs:
         results = {}
         for device in ("cuda", "cpu"):
             graph = builders[gname](nt, 512)
             strategy = resolve(spec, device=device, min_wide=min_wide)
-            # activations, scored activations and host time spent scoring,
-            # counted here only
-            activations, scored, score_s = [0], [0], [0.0]
+            # activations, activations placed on the device and host time
+            # spent in those calls, counted here only
+            activations, placed, place_s = [0], [0], [0.0]
             place = strategy.place
-            score = strategy.backend.score_matrices
+            method = "place_heft" if spec == "heft" else "place_dada"
+            backend_place = getattr(strategy.backend, method)
 
             def counted(sim, ready, src, place=place, activations=activations):
                 activations[0] += 1
                 place(sim, ready, src)
 
-            def timed(*args, score=score, score_s=score_s, scored=scored, **kwargs):
+            def timed(*args, fn=backend_place, place_s=place_s, placed=placed, **kwargs):
                 s0 = time.perf_counter()
-                out = score(*args, **kwargs)
-                score_s[0] += time.perf_counter() - s0
-                scored[0] += 1
+                out = fn(*args, **kwargs)
+                place_s[0] += time.perf_counter() - s0
+                placed[0] += 1
                 return out
 
             strategy.place = counted
-            strategy.backend.score_matrices = timed
+            setattr(strategy.backend, method, timed)
             sim = Simulator(graph, machine, strategy, seed=0)
-            ss.score_activation.launches = 0
-            ss.transfer_matrix.launches = 0
+            ss.score_activation.launches = ss.transfer_matrix.launches = 0
+            sp.dada_place.launches = sp.heft_select.launches = 0
+            plain0 = sp.dada_place_plain.calls + sp.heft_select_plain.calls
+            gc0 = dict(GC_FULL)
             w0 = time.perf_counter()
             res = sim.run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - w0
-            results[device] = (res, activations[0], scored[0], ss.score_activation.launches,
-                               ss.transfer_matrix.launches, wall, score_s[0])
-        res, acts, n_scored, launches, xfer, wall, score_wall = results["cuda"]
-        cpu_res, cpu_acts, cpu_scored, cpu_launches, cpu_xfer, cpu_wall, cpu_score = results["cpu"]
+            results[device] = dict(
+                res=res, acts=activations[0], placed=placed[0], wall=wall, place_s=place_s[0],
+                score_launches=ss.score_activation.launches, xfer=ss.transfer_matrix.launches,
+                dada=sp.dada_place.launches, heft=sp.heft_select.launches,
+                plain=sp.dada_place_plain.calls + sp.heft_select_plain.calls - plain0,
+                gc_full=GC_FULL["count"] - gc0["count"], gc_full_s=GC_FULL["s"] - gc0["s"],
+            )
+        card, cpu = results["cuda"], results["cpu"]
+        res, n_placed = card["res"], card["placed"]
         n_tasks = len(builders[gname](nt, 512))
-        row = dict(graph=gname, nt=nt, strategy=res.strategy, min_wide=min_wide, activations=acts,
-                   scored=n_scored, launches=launches, wall_s=wall, score_s=score_wall,
-                   score_ms_per_act=score_wall / max(n_scored, 1) * 1e3, cpu_wall_s=cpu_wall,
-                   cpu_score_s=cpu_score, cpu_score_ms_per_act=cpu_score / max(cpu_scored, 1) * 1e3)
+        launches = card["dada"] + card["heft"]
+        row = dict(graph=gname, nt=nt, strategy=res.strategy, min_wide=min_wide,
+                   activations=card["acts"], placed=n_placed, score_launches=card["score_launches"],
+                   place_launches=launches, plain_calls=card["plain"], wall_s=card["wall"],
+                   place_s=card["place_s"], place_ms_per_act=card["place_s"] / max(n_placed, 1) * 1e3,
+                   gc_full=card["gc_full"], gc_full_s=card["gc_full_s"], cpu_wall_s=cpu["wall"],
+                   cpu_place_s=cpu["place_s"],
+                   cpu_place_ms_per_act=cpu["place_s"] / max(cpu["placed"], 1) * 1e3,
+                   cpu_gc_full=cpu["gc_full"], cpu_gc_full_s=cpu["gc_full_s"])
         main_rows.append(row)
+        pr18 = PR18_WALL_S.get((gname, nt, res.strategy, min_wide))
         print(
             f"run graph={gname} NT={nt} strategy={res.strategy} min_wide={min_wide} "
-            f"tasks={n_tasks} activations={acts} scored={n_scored} launches={launches} "
-            f"makespan={res.makespan!r} total_bytes={res.total_bytes} "
-            f"wall_s={wall:.6f} score_s={score_wall:.6f} "
-            f"score_ms_per_act={row['score_ms_per_act']:.6f} "
-            f"cpu_wall_s={cpu_wall:.6f} cpu_score_s={cpu_score:.6f} "
-            f"cpu_score_ms_per_act={row['cpu_score_ms_per_act']:.6f}",
+            f"tasks={n_tasks} activations={card['acts']} placed={n_placed} "
+            f"score_launches={card['score_launches']} place_launches={launches} "
+            f"plain_calls={card['plain']} makespan={res.makespan!r} total_bytes={res.total_bytes} "
+            f"wall_s={card['wall']:.6f} (PR 18: {pr18}) place_s={card['place_s']:.6f} "
+            f"place_ms_per_act={row['place_ms_per_act']:.6f} gc_full={card['gc_full']} "
+            f"gc_full_s={card['gc_full_s']:.6f} cpu_wall_s={cpu['wall']:.6f} "
+            f"cpu_place_ms_per_act={row['cpu_place_ms_per_act']:.6f} cpu_gc_full={cpu['gc_full']} "
+            f"cpu_gc_full_s={cpu['gc_full_s']:.6f}",
             flush=True,
         )
         if sorted(iv.tid for iv in res.intervals) != list(range(n_tasks)):
             raise SystemExit("not every task ran exactly once")
         if not (math.isfinite(res.makespan) and res.makespan > 0 and res.total_bytes > 0):
             raise SystemExit("makespan or bytes out of range")
-        if fingerprint(res) != fingerprint(cpu_res) or (acts, n_scored) != (cpu_acts, cpu_scored):
+        if fingerprint(res) != fingerprint(cpu["res"]) or (card["acts"], n_placed) != (
+                cpu["acts"], cpu["placed"]):
             raise SystemExit(f"{gname} NT={nt} {spec}: card run differs from the CPU run")
-        if cpu_launches or cpu_xfer:
+        if cpu["score_launches"] or cpu["xfer"] or cpu["dada"] or cpu["heft"]:
             raise SystemExit("the CPU run launched a kernel")
-        if n_scored == 0 or launches != n_scored:
-            raise SystemExit(f"{gname} NT={nt} {spec}: {launches} fused launches for {n_scored} "
-                             f"activations scored on the card")
-        if xfer:
+        if n_placed == 0 or not card["score_launches"] == launches == n_placed:
+            raise SystemExit(f"{gname} NT={nt} {spec}: {card['score_launches']} scoring and "
+                             f"{launches} placement launches for {n_placed} activations placed on "
+                             f"the card")
+        if card["plain"] != card["acts"] - n_placed:
+            raise SystemExit(f"{gname} NT={nt} {spec}: {card['plain']} plain searches for "
+                             f"{card['acts'] - n_placed} activations narrower than min_wide")
+        if card["xfer"]:
             raise SystemExit(f"{gname} NT={nt} {spec}: the standalone transfer kernel ran on the main path")
-        total_launches += launches
-    print(f"main path: {total_launches} fused launches, one per activation scored on the card")
+        total_launches += card["score_launches"]
+        place_launches["dada_place"] += card["dada"]
+        place_launches["heft_select"] += card["heft"]
+    print(f"main path: {total_launches} fused scoring launches and {sum(place_launches.values())} "
+          f"placement launches ({place_launches}), one of each per activation placed on the card")
     done("main", t0)
 
-    # ---- 4. gemm kernel against its plain version, and its times ------------
+    # ---- 5. gemm kernel against its plain version, and its times ------------
     t0 = phase("gemm")
     gemm_max_err = gemm_check(tg, dev)
     gemm_rows = gemm_timing(tg, dev)
     done("gemm", t0)
 
-    # ---- 5. linalg: the tile factorizations executed on the card -------------
+    # ---- 6. linalg: the tile factorizations executed on the card -------------
     t0 = phase("linalg")
     gens = {"cholesky": tiles.random_spd, "lu": tiles.random_dd, "qr": tiles.random_dense}
     nt = LINALG_N // LINALG_TILE
@@ -1318,33 +1541,34 @@ def main() -> int:
         del a
     done("linalg", t0)
 
-    # ---- 6. attention kernels against their plain versions, and their times --
+    # ---- 7. attention kernels against their plain versions, and their times --
     t0 = phase("attention")
     fa_err, fd_err = attention_check(fa, fd, dev)
     attn_rows = attention_timing(fa, fd, dev)
     torch.cuda.empty_cache()
     done("attention", t0)
 
-    # ---- 7. serve: chatglm3-6b at full width and depth ----------------------
+    # ---- 8. serve: chatglm3-6b at full width and depth ----------------------
     t0 = phase("serve")
     served = serve_phase(fa, fd, dev)
     done("serve", t0)
 
-    # ---- 8. profile ---------------------------------------------------------
+    # ---- 9. profile ---------------------------------------------------------
     t0 = phase("profile")
     launch_structure = {}
     for spec in specs:
         strategy = resolve(spec)  # one object for both runs: its buffers are warm in the second
-        score = strategy.backend.score_matrices
-        scored = [0]
+        method = "place_heft" if spec == "heft" else "place_dada"
+        fn = getattr(strategy.backend, method)
+        placed = [0]
 
-        def counted(*args, score=score, scored=scored, **kwargs):
-            scored[0] += 1
-            return score(*args, **kwargs)
+        def counted(*args, fn=fn, placed=placed, **kwargs):
+            placed[0] += 1
+            return fn(*args, **kwargs)
 
-        strategy.backend.score_matrices = counted
+        setattr(strategy.backend, method, counted)
         for _ in range(2):  # the first run warms the profiler up; the last is read
-            scored[0] = 0
+            placed[0] = 0
             sim = Simulator(cholesky_graph(16, 512), machine, strategy, seed=0)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 w0 = time.perf_counter()
@@ -1353,27 +1577,27 @@ def main() -> int:
                 wall = time.perf_counter() - w0
         busy_us, _ = device_time(prof)
         counts = launch_counts(prof)
-        per_act = {k: v / scored[0] for k, v in counts.items()}
+        per_act = {k: v / placed[0] for k, v in counts.items()}
         launch_structure[res.strategy] = dict(
-            scored=scored[0], wall_s=wall, device_busy_s=busy_us / 1e6,
+            placed=placed[0], wall_s=wall, device_busy_s=busy_us / 1e6,
             device_idle_share=1.0 - busy_us / 1e6 / wall, counts=counts, per_activation=per_act)
         print(
             f"profile graph=cholesky NT=16 strategy={res.strategy} wall_s={wall:.6f} "
             f"device_busy_s={busy_us / 1e6:.6f} device_idle_share="
-            f"{1.0 - busy_us / 1e6 / wall:.4f} scored={scored[0]} counts={counts} "
+            f"{1.0 - busy_us / 1e6 / wall:.4f} placed={placed[0]} counts={counts} "
             f"per_activation={ {k: round(v, 4) for k, v in per_act.items()} }",
             flush=True,
         )
         # the runtime calls are counted exactly; the device-side trace may
         # drop a few records, but must show no other device work
-        if (counts["launch_calls"], counts["memcpy_calls"]) != (scored[0], 2 * scored[0]) or not (
-                counts["kernels"] <= scored[0] and counts["memcpy"] <= 2 * scored[0]
-                and counts["memset"] == 0):
-            raise SystemExit(f"{res.strategy}: want one kernel and two memcpys per scored activation, "
-                             f"got {counts} over {scored[0]}")
+        n2 = 2 * placed[0]
+        if (counts["launch_calls"], counts["memcpy_calls"]) != (n2, n2) or not (
+                counts["kernels"] <= n2 and counts["memcpy"] <= n2 and counts["memset"] == 0):
+            raise SystemExit(f"{res.strategy}: want two kernels and two memcpys per placed "
+                             f"activation, got {counts} over {placed[0]}")
     done("profile", t0)
 
-    # ---- 9. report ----------------------------------------------------------
+    # ---- 10. report ----------------------------------------------------------
     kernels = [{
         "name": "score_activation",
         "route": "cuda",
@@ -1394,8 +1618,27 @@ def main() -> int:
         "bound_by": "bytes" if score_bytes_ms >= score_ops_ms else "operations",
         "library_ms": None,
         "shape": score_shape,
-        "main_runs": main_rows,
         "launch_structure_cholesky_nt16": launch_structure,
+    }, {
+        "name": "place",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sched_place.cu",
+        "replaces": "src/repro/core/backend.py:633 / :877 (jitted, not Pallas)",
+        "replaces_with_it": "src/repro/core/dada.py:452-490 (try_build at the searched λ)",
+        "launches": sum(place_launches.values()),
+        "launches_by_kernel": place_launches,
+        "exact": place_max_err == 0.0,
+        "max_abs_err": place_max_err,
+        "cases": place_cases,
+        "ms": place_rows["dada_place"]["ms"],
+        "device_ms": place_rows["dada_place"]["device_ms"],
+        "plain_ms": place_rows["dada_place"]["plain_ms"],
+        "bound_ms": place_rows["dada_place"]["bound_ms"],
+        "bound_by": place_rows["dada_place"]["bound_by"],
+        "library_ms": None,
+        "shape": "n 128, LU NT 64, DADA(0.5)+CP's call (heft_select: HEFT's call)",
+        "by_kernel": place_rows,
+        "main_runs": main_rows,
     }, {
         "name": "transfer_matrix",
         "route": "cuda",

@@ -19,6 +19,17 @@ device-to-host copy and one synchronisation per activation. On the CPU
 the same packed buffer goes through the kernel's plain version. Every
 entry is bit-equal to ``repro``'s numpy path: the same IEEE operations in
 the same order.
+
+The strategies call :meth:`TorchScoringBackend.place_dada` and
+:meth:`TorchScoringBackend.place_heft` instead (counterparts of the
+reference's ``dada_lambda_search`` and ``heft_select``): the same
+buffer carries a placement section after the scorer's (see
+:mod:`repro_torch.kernels.sched_place`), the placement kernel runs right
+after the scorer on the same stream and reads its output where it lies,
+and only the placement comes back: one copy in, two launches, one copy
+out, one synchronisation. With ``device="cpu"`` they score as
+``score_matrices`` does and run the placement's plain versions over the
+host values.
 """
 from __future__ import annotations
 
@@ -28,12 +39,27 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.sched_place import (
+    DadaPlacement,
+    HeftPlacement,
+    PlaceLayout,
+    PlaceSpec,
+    launch_placement,
+    pack_dada,
+    pack_heft,
+    dada_place_plain,
+    heft_select_plain,
+    place_layout,
+    place_spec,
+    read_placement,
+)
 from ..kernels.sched_score import (
-    ScoreSpec,
+    launch_score,
     pack_activation,
     pack_machine,
     score_activation,
     score_layout,
+    score_spec,
     unpack_outputs,
 )
 from .affinity import affinity_csr_source
@@ -60,7 +86,8 @@ def _grown(buf: Optional[torch.Tensor], k: int, **kwargs) -> torch.Tensor:
 
 
 class TorchScoringBackend:
-    """The scoring matrices of HEFT and DADA, computed on ``device``.
+    """The scoring matrices and the placements of HEFT and DADA, computed
+    on ``device``.
 
     Takes and returns host data (numpy arrays and lists). On the card the
     backend owns its staging buffers: a pinned host buffer and a device
@@ -71,6 +98,7 @@ class TorchScoringBackend:
         self.device = resolve_device(device)
         self._machine_cache: Dict[tuple, tuple] = {}
         self._host_in = self._host_out = self._dev_in = self._dev_out = None
+        self._host_in_np = self._host_out_np = None  # numpy views, cheaper to slice
 
     def _machine(self, resources, transfer_model):
         """(n_u, the machine buffer on the device): the activation-invariant
@@ -97,11 +125,17 @@ class TorchScoringBackend:
         """Grow the owned buffers to hold ``n_in`` input and ``n_out``
         output slots (on the CPU only the input buffer, not pinned)."""
         on_card = self.device.type == "cuda"
-        self._host_in = _grown(self._host_in, n_in, dtype=torch.int64, pin_memory=on_card)
+        host_in = self._host_in
+        self._host_in = _grown(host_in, n_in, dtype=torch.int64, pin_memory=on_card)
+        if self._host_in is not host_in:
+            self._host_in_np = self._host_in.numpy()
         if on_card:
+            host_out = self._host_out
             self._dev_in = _grown(self._dev_in, n_in, dtype=torch.int64, device=self.device)
-            self._host_out = _grown(self._host_out, n_out, dtype=torch.float64, pin_memory=True)
+            self._host_out = _grown(host_out, n_out, dtype=torch.float64, pin_memory=True)
             self._dev_out = _grown(self._dev_out, n_out, dtype=torch.float64, device=self.device)
+            if self._host_out is not host_out:
+                self._host_out_np = self._host_out.numpy()
 
     def pack(
         self,
@@ -115,12 +149,15 @@ class TorchScoringBackend:
         affinity: Optional[str] = None,
         x_rows: bool = False,
         x_bias: Optional[np.ndarray] = None,
+        place: Optional[PlaceSpec] = None,
     ):
         """Gather one activation's CSR rows on the host and pack them into
         the host staging buffer. Returns ``(layout, packed, machine)``: the
         activation's :class:`ScoreLayout`, a view of the staging buffer
         holding it (valid until the next call) and the machine buffer on
-        the device. The arguments are :meth:`score_matrices`'s."""
+        the device. The arguments are :meth:`score_matrices`'s. With
+        ``place``, the layout is that placement's :class:`PlaceLayout` and
+        ``packed`` leaves its section, after the scorer's, to the caller."""
         n_u, machine = self._machine(resources, sim.transfer_model)
         arr = sim.arrays
         residency = sim.residency
@@ -142,17 +179,20 @@ class TorchScoringBackend:
             writes = (w_indptr, residency.mask_of_ids(w_ids), w_weights)
         want_c = p_cpu is not None
         want_bias = use_cp and x_bias is not None
-        layout = score_layout(ScoreSpec(
+        layout = score_layout(score_spec(
             n=len(tids), nnz_r=len(reads[1]) if use_cp else 0,
             nnz_w=len(writes[1]) if writes is not None else 0,
             n_u=n_u, n_res=len(resources),
             want_x=use_cp, x_rows=use_cp and x_rows, want_bias=want_bias,
             want_s=writes is not None, accel_only=accel_only, want_c=want_c,
         ))
-        self._staging(layout.n_in, layout.n_out)
+        score = layout
+        if place is not None:
+            layout = place_layout(place, score.spec)
+        self._staging(layout.n_in, score.n_out + (layout.n_out if place is not None else 0))
         packed = self._host_in[:layout.n_in]
         pack_activation(
-            packed.numpy(), layout, reads=reads, writes=writes,
+            self._host_in_np[:score.n_in], score, reads=reads, writes=writes,
             p_cpu=p_cpu if want_c else None, p_gpu=p_gpu if want_c else None,
             x_bias=x_bias if want_bias else None,
         )
@@ -193,3 +233,68 @@ class TorchScoringBackend:
             X_rowmax=got["X_max"].tolist() if got["X_max"] is not None else None,
             S_np=got["S"],
         )
+
+    def _place(self, layout: PlaceLayout, packed: torch.Tensor, machine: torch.Tensor):
+        """Score and place one packed activation on the card: one copy in,
+        ``score_activation`` and the placement kernel on the same stream,
+        one copy of the placement back, one synchronisation. The launches
+        go through the kernels' pointer-level entries: these buffers are
+        sized to the layout by ``pack``."""
+        score = layout.score
+        n_scores, n_placed = score.n_out, layout.n_out
+        stream = torch.cuda.current_stream(self.device)
+        index, handle = self.device.index or 0, stream.cuda_stream
+        self._dev_in[:layout.n_in].copy_(packed, non_blocking=True)
+        in_ptr, out_ptr = self._dev_in.data_ptr(), self._dev_out.data_ptr()
+        launch_score(in_ptr, machine.data_ptr(), out_ptr, score, index, handle)
+        launch_placement(in_ptr, out_ptr, out_ptr + 8 * n_scores, layout, index, handle)
+        self._host_out[:n_placed].copy_(self._dev_out[n_scores:n_scores + n_placed],
+                                        non_blocking=True)
+        # the one synchronisation: the placement is on the host, and both
+        # staging buffers are free for the next call
+        stream.synchronize()
+        return read_placement(self._host_out_np[:n_placed].view(np.int64), layout)
+
+    def place_dada(self, sim, tids: Sequence[int], resources, *, p_cpu, p_gpu, use_cp: bool,
+                   affinity: Optional[str], area_bound: bool, cpu_rids, gpu_rids,
+                   **section) -> DadaPlacement:
+        """DADA's placement of one activation, scored and searched on the
+        device (counterpart of ``dada_lambda_search`` and the ``try_build``
+        after it): the cost matrix from ``p_cpu`` / ``p_gpu`` and, with
+        ``use_cp``, the transfers; the affinity matrix of ``affinity``
+        (None: no affinity phase); the rest of the section as
+        :func:`~repro_torch.kernels.sched_place.pack_dada` takes it. With
+        ``device="cpu"``: the scorer's plain version, then the search's,
+        over the host values (no section to pack)."""
+        if self.device.type == "cpu":
+            m = self.score_matrices(sim, tids, resources, p_cpu=p_cpu, p_gpu=p_gpu,
+                                    use_cp=use_cp, affinity=affinity)
+            return dada_place_plain(C=m["C"], S=m["S_np"], x_max=m["X_rowmax"], p_cpu=p_cpu,
+                                    p_gpu=p_gpu, tids=tids, area_bound=area_bound,
+                                    cpu_rids=cpu_rids, gpu_rids=gpu_rids, **section)
+        spec = place_spec("dada", len(tids), len(resources), len(cpu_rids), len(gpu_rids), 0,
+                          area_bound)
+        layout, packed, machine = self.pack(sim, tids, resources, p_cpu=p_cpu, p_gpu=p_gpu,
+                                            use_cp=use_cp, affinity=affinity, place=spec)
+        pack_dada(self._host_in_np[:layout.n_in], layout, tids=tids, cpu_rids=cpu_rids,
+                  gpu_rids=gpu_rids, **section)
+        return self._place(layout, packed, machine)
+
+    def place_heft(self, sim, tids: Sequence[int], resources, *, order, durations, cls_of_res,
+                   load_ts, now: float) -> HeftPlacement:
+        """HEFT's placement of one activation, scored and scanned on the
+        device (counterpart of ``heft_select``): the transfer rows of the
+        ready tasks, then the EFT scan in priority ``order`` over the class
+        ``durations`` (``cls_of_res``: each resource's class), from
+        ``load_ts`` at ``now``. With ``device="cpu"``: the scorer's plain
+        version, then the scan's, over the host values."""
+        scan = dict(order=order, durations=durations, cls_of_res=cls_of_res, load_ts=load_ts,
+                    now=now)
+        if self.device.type == "cpu":
+            X = self.score_matrices(sim, tids, resources, use_cp=True, x_rows=True)["X_np"]
+            return heft_select_plain(X=X.tolist(), **scan)
+        spec = place_spec("heft", len(tids), len(resources), 0, 0, len(durations), False)
+        layout, packed, machine = self.pack(sim, tids, resources, use_cp=True, x_rows=True,
+                                            place=spec)
+        pack_heft(self._host_in_np[:layout.n_in], layout, **scan)
+        return self._place(layout, packed, machine)

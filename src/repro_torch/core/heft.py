@@ -6,12 +6,14 @@ Both phases run inside ``activate`` (Algorithm 1):
   * worker selection: each task goes to the worker with the earliest
     predicted finish time, *always* including predicted transfer time.
 
-Counterpart of ``repro.core.heft``. The (ready × resources) transfer
-matrix comes from the device backend for activations at least
-``min_wide`` wide (default 1: every activation) and from the host rows
-otherwise; the EFT scan then runs on the host over those rows with the
-reference's strict-improvement rule (ties within 1e-15 keep the lower
-rid), so placements are bit-identical to ``repro``'s.
+Counterpart of ``repro.core.heft``. For activations at least
+``min_wide`` wide (default 1: every activation) the device backend
+computes the (ready × resources) transfer matrix and runs the EFT scan on
+the card right after it, returning only each task's rid and finish time
+(:meth:`TorchScoringBackend.place_heft`); narrower activations take the
+host rows and the scan's plain version. The scan keeps the reference's
+strict-improvement rule (ties within 1e-15 keep the lower rid), so
+placements are bit-identical to ``repro``'s.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..kernels.sched_place import heft_select_plain
 from .backend import TorchScoringBackend, check_min_wide
 from .dag import Task
 from .simulator import Simulator, Strategy
@@ -30,22 +33,22 @@ class HEFT(Strategy):
     name = "heft"
 
     def __init__(self, device="cuda", min_wide: int = 1) -> None:
-        """``device``: where the scoring matrices are computed (raises if
-        it is ``cuda`` and no GPU is present). ``min_wide``: the narrowest
-        activation scored on the device; narrower ones use the host rows."""
+        """``device``: where each activation is scored and placed (raises
+        if it is ``cuda`` and no GPU is present). ``min_wide``: the
+        narrowest activation scored and placed on the device; narrower
+        ones use the host rows and the scan's plain version."""
         self.backend = TorchScoringBackend(device)
         self.min_wide = check_min_wide(min_wide)
 
-    def place(self, sim: Simulator, ready: List[Task], src: Optional[int]) -> None:
+    def preamble(self, sim: Simulator, tids: List[int]) -> dict:
+        """The EFT scan's host values of one activation: the priority
+        ``order``, the class ``durations``, each resource's class
+        (``cls_of_res``), ``load_ts`` and ``now``."""
         machine = sim.machine
-        resources = machine.resources
-        cpus = machine.cpus
-        gpus = machine.gpus
+        cpus, gpus = machine.cpus, machine.gpus
         cpu_cls = cpus[0].cls if cpus else gpus[0].cls
         gpu_cls = gpus[0].cls if gpus else cpu_cls
-
-        n = len(ready)
-        tids = [t.tid for t in ready]
+        n = len(tids)
 
         # --- per-class predicted durations (activation-invariant) --------
         if n >= _WIDE:
@@ -60,41 +63,34 @@ class HEFT(Strategy):
         speed = [pc / pg if pg > 0 else 1.0 for pc, pg in zip(p_cpu, p_gpu)]
         order = sorted(range(n), key=lambda i: (-speed[i], tids[i]))
 
-        # per-resource duration columns
+        # the duration classes and each resource's class
         cls_times = {cpu_cls.name: p_cpu, gpu_cls.name: p_gpu}
-        cols = []
-        for r in resources:
-            col = cls_times.get(r.cls.name)
-            if col is None:
-                col = sim.predictor(r.cls).times_list(tids)
-                cls_times[r.cls.name] = col
-            cols.append(col)
+        for r in machine.resources:
+            if r.cls.name not in cls_times:
+                cls_times[r.cls.name] = sim.predictor(r.cls).times_list(tids)
+        cls_index = {name: k for k, name in enumerate(cls_times)}
+        return dict(
+            order=order, durations=list(cls_times.values()),
+            cls_of_res=[cls_index[r.cls.name] for r in machine.resources],
+            load_ts=sim.load_ts, now=sim.now,
+        )
 
+    def place(self, sim: Simulator, ready: List[Task], src: Optional[int]) -> None:
+        resources = sim.machine.resources
+        n = len(ready)
+        tids = [t.tid for t in ready]
+        scan = self.preamble(sim, tids)
+
+        # --- worker selection: earliest finish time ----------------------
         if n >= self.min_wide:
-            X = self.backend.score_matrices(
-                sim, tids, resources, use_cp=True, x_rows=True
-            )["X_np"].tolist()
+            # scored and scanned on the device; only the placement comes back
+            placed = self.backend.place_heft(sim, tids, resources, **scan)
         else:
             X = sim.transfer_model.task_input_transfer_rows(
                 sim.arrays, tids, [r.mem for r in resources], sim.residency
             )
-
-        # --- worker selection: earliest finish time ----------------------
+            placed = heft_select_plain(X=X, **scan)
         load_ts = sim.load_ts
-        now = sim.now
-        n_res = len(resources)
-        first_rid = resources[0].rid
-        inf = float("inf")
-        for i in order:
-            xrow = X[i]
-            best_eft = inf
-            best_rid = first_rid
-            for rid in range(n_res):
-                lt = load_ts[rid]
-                start = now if now > lt else lt
-                eft = start + xrow[rid] + cols[rid][i]
-                if eft < best_eft - 1e-15:
-                    best_eft = eft
-                    best_rid = rid
-            load_ts[best_rid] = best_eft
-            sim.push(ready[i], best_rid)
+        for i, rid, eft in zip(scan["order"], placed.rids, placed.efts):
+            load_ts[rid] = eft
+            sim.push(ready[i], rid)

@@ -277,6 +277,13 @@ class ScoreSpec:
                 | FLAG_S * self.want_s | FLAG_ACCEL_ONLY * self.accel_only | FLAG_C * self.want_c)
 
 
+@functools.lru_cache(maxsize=4096)
+def score_spec(**fields) -> ScoreSpec:
+    """A :class:`ScoreSpec`, built and checked once per distinct activation
+    shape."""
+    return ScoreSpec(**fields)
+
+
 @dataclass(frozen=True)
 class ScoreLayout:
     """Slot offsets and lengths of each section of the input, machine and
@@ -330,14 +337,22 @@ def _check_indptr(name: str, indptr: np.ndarray, n: int, nnz: int) -> None:
         raise ValueError(f"{name} is no CSR row pointer of {n} rows over {nnz} entries")
 
 
-def _write(buf: np.ndarray, sections, values: Dict[str, object]) -> None:
+def _write(buf: np.ndarray, sections, values: Dict[str, object], f64_names=F64_SECTIONS) -> None:
+    """Write each named value into its section of ``buf`` (int64 slots;
+    the sections named in ``f64_names`` as f64)."""
     f64 = buf.view(np.float64)
     for name, value in values.items():
         off, k = sections[name]
+        dst = f64 if name in f64_names else buf
+        if isinstance(value, (int, float, np.generic)):  # a scalar: one slot
+            if k != 1:
+                raise ValueError(f"section {name} holds {k} slots, got 1 value")
+            dst[off] = value
+            continue
         a = np.asarray(value).reshape(-1)
         if a.shape[0] != k:
             raise ValueError(f"section {name} holds {k} slots, got {a.shape[0]} values")
-        (f64 if name in F64_SECTIONS else buf)[off:off + k] = a
+        dst[off:off + k] = a
 
 
 def pack_activation(buf: np.ndarray, layout: ScoreLayout, *, reads=None, writes=None,
@@ -392,12 +407,12 @@ def pack_machine(n_res: int, *, latency: float, bandwidth: float, mem_shift, hos
     return buf
 
 
-def unpack(buf, sections) -> Dict[str, object]:
+def unpack(buf, sections, f64_names=F64_SECTIONS) -> Dict[str, object]:
     """Views of each section of a packed buffer (numpy array or tensor):
-    int64 sections as they are, f64 sections reinterpreted."""
+    int64 sections as they are, the f64 sections reinterpreted."""
     f64 = buf.view(torch.float64 if isinstance(buf, torch.Tensor) else np.float64)
     return {
-        name: (f64 if name in F64_SECTIONS else buf)[off:off + k]
+        name: (f64 if name in f64_names else buf)[off:off + k]
         for name, (off, k) in sections.items()
     }
 
@@ -501,19 +516,27 @@ def score_activation(packed_in: torch.Tensor, layout: ScoreLayout, machine: torc
         return got if out is None else out.copy_(got)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    build()
     if out is None:
         out = torch.empty(layout.n_out, dtype=torch.float64, device=dev)
-    spec = layout.spec
-    err = _lib.repro_score_activation(
-        packed_in.data_ptr(), machine.data_ptr(), out.data_ptr(), layout.c_offsets,
-        spec.n, spec.n_u, spec.n_res, spec.flags, dev.index or 0,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"score_activation kernel launch failed: CUDA error {err}")
-    score_activation.launches += 1
+    launch_score(packed_in.data_ptr(), machine.data_ptr(), out.data_ptr(), layout,
+                 dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
 score_activation.launches = 0
+
+
+def launch_score(in_ptr: int, machine_ptr: int, out_ptr: int, layout: ScoreLayout,
+                 device_index: int, stream: int) -> None:
+    """Launch the fused kernel on device pointers to buffers of the
+    layout's sizes (:func:`score_activation` checks its tensors first; the
+    scoring backend sizes its own) and count the launch."""
+    build()
+    spec = layout.spec
+    err = _lib.repro_score_activation(
+        in_ptr, machine_ptr, out_ptr, layout.c_offsets, spec.n, spec.n_u, spec.n_res,
+        spec.flags, device_index, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"score_activation kernel launch failed: CUDA error {err}")
+    score_activation.launches += 1

@@ -8,8 +8,10 @@ import numpy as np
 import pytest
 import torch
 
+from _place_cases import MACHINES, dada_case, heft_case, packed_dada, packed_heft
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
+from repro_torch.kernels import sched_place as sp
 from repro_torch.kernels import sched_score as port
 from repro_torch.kernels import tile_gemm
 
@@ -93,23 +95,27 @@ def test_cuda_simulation_equals_cpu(cuda, spec):
                 [(iv.tid, iv.rid, iv.start, iv.end) for iv in res.intervals])
 
     strategy = resolve(spec)
-    score = strategy.backend.score_matrices
-    scored = [0]
+    method = "place_heft" if spec == "heft" else "place_dada"
+    place = getattr(strategy.backend, method)
+    placed = [0]
 
     def counted(*args, **kwargs):
-        scored[0] += 1
-        return score(*args, **kwargs)
+        placed[0] += 1
+        return place(*args, **kwargs)
 
-    strategy.backend.score_matrices = counted
-    port.score_activation.launches = 0
-    port.transfer_matrix.launches = 0
+    setattr(strategy.backend, method, counted)
+    port.score_activation.launches = port.transfer_matrix.launches = 0
+    sp.dada_place.launches = sp.heft_select.launches = 0
+    plain = sp.dada_place_plain.calls + sp.heft_select_plain.calls
     on_card = run_simulation(qr_graph(6, 256), paper_machine(8), strategy, seed=7)
     launches = port.score_activation.launches
+    assert sp.dada_place_plain.calls + sp.heft_select_plain.calls == plain
     on_cpu = run_simulation(qr_graph(6, 256), paper_machine(8), resolve(spec, device="cpu"), seed=7)
     assert fingerprint(on_card) == fingerprint(on_cpu)
-    # every activation scored on the card is one fused launch, DADA
-    # without +CP included; the standalone transfer kernel is off the path
-    assert launches == scored[0] > 0
+    # every activation placed on the card is one fused scoring launch and
+    # one placement launch, DADA without +CP included; the standalone
+    # transfer kernel is off the path, and so are the plain searches
+    assert launches == sp.dada_place.launches + sp.heft_select.launches == placed[0] > 0
     assert port.transfer_matrix.launches == 0
 
 
@@ -789,3 +795,158 @@ def test_cuda_tensor_core_routes_refusals_launch_nothing(cuda):
     with pytest.raises(ValueError, match="float32 or all bfloat16"):
         fd.flash_decode(q, c.float(), c.float(), 4)
     assert counts() == before
+
+
+# ---------------------------------------------------------------------------
+# placement: dada_place and heft_select (csrc/sched_place.cu)
+
+# resource classes by position: paper_machine(8) (4 CPUs, 8 GPUs), a wide
+# GPU-only machine, a two-CPU machine, the interleaved one of the CPU tests
+# and two wide interleaved ones (2, 4 and 8 rids a lane in the DADA kernel)
+PLACE_MACHINES = {"paper": [False] * 4 + [True] * 8, "gpu40": [True] * 40, "cpu2": [False] * 2,
+                  "mixed": MACHINES["both"], "mixed70": [i % 2 == 1 for i in range(70)],
+                  "mixed130": [i % 3 != 0 for i in range(130)]}
+
+
+@pytest.mark.parametrize("n", [1, 3, 37, 128, 256])
+@pytest.mark.parametrize("machine", sorted(PLACE_MACHINES))
+def test_cuda_dada_place_equals_plain(cuda, machine, n):
+    """36 seeds a shape: α 0 / 0.5 / 1, ±CP, ±area bound, both iteration
+    limits, ties, rows without affinity, dedicated tasks."""
+    for seed in range(36):
+        layout, buf, scores = packed_dada(dada_case(seed, n=n, accel=PLACE_MACHINES[machine]))
+        want = sp.dada_place(buf, scores, layout)
+        before = sp.dada_place.launches
+        got = sp.dada_place(buf.to(cuda), scores.to(cuda), layout)
+        torch.cuda.synchronize()
+        assert sp.dada_place.launches == before + 1
+        assert torch.equal(got.cpu(), want), (machine, n, seed)
+        assert sp.read_placement(want.numpy(), layout).status == sp.STATUS_OK
+
+
+@pytest.mark.parametrize("n", [1, 3, 37, 128, 256])
+@pytest.mark.parametrize("n_res", [2, 14, 40, 70])
+def test_cuda_heft_select_equals_plain(cuda, n_res, n):
+    for seed in range(8):
+        layout, buf, scores = packed_heft(heft_case(seed, n=n, n_res=n_res))
+        want = sp.heft_select(buf, scores, layout)
+        out = torch.full((layout.n_out,), -5, dtype=torch.int64, device=cuda)
+        before = sp.heft_select.launches
+        got = sp.heft_select(buf.to(cuda), scores.to(cuda), layout, out=out)
+        torch.cuda.synchronize()
+        assert got.data_ptr() == out.data_ptr() and sp.heft_select.launches == before + 1
+        assert torch.equal(got.cpu(), want), (n_res, n, seed)
+
+
+def test_cuda_dada_place_reports_an_infeasible_upper_bound(cuda):
+    case = dada_case(3, n=37, accel=PLACE_MACHINES["paper"])
+    case["C"] = [[1e9] * len(row) for row in case["C"]]
+    layout, buf, scores = packed_dada(case)
+    got = sp.read_placement(sp.dada_place(buf.to(cuda), scores.to(cuda), layout).cpu().numpy(),
+                            layout)
+    assert got.status == sp.STATUS_INFEASIBLE
+    assert got == sp.read_placement(sp.dada_place(buf, scores, layout).numpy(), layout)
+
+
+def test_cuda_placement_beyond_its_envelope_raises(cuda):
+    """Beyond the kernels' shared memory the wrappers raise before any
+    launch; there is no fallback to the plain version."""
+    layout, buf, scores = packed_dada(dada_case(0, n=8500, accel=PLACE_MACHINES["paper"]))
+    hlayout, hbuf, hscores = packed_heft(heft_case(0, n=3, n_res=500))
+    before = (sp.dada_place.launches, sp.heft_select.launches)
+    plain = sp.dada_place_plain.calls + sp.heft_select_plain.calls
+    wide = packed_dada(dada_case(1, n=4, accel=[True] * 300))
+    for lay, b, sc in ((layout, buf, scores), wide):
+        with pytest.raises(ValueError, match="beyond the kernel"):
+            sp.dada_place(b.to(cuda), sc.to(cuda), lay)
+    with pytest.raises(ValueError, match="beyond the kernel"):
+        sp.heft_select(hbuf.to(cuda), hscores.to(cuda), hlayout)
+    assert (sp.dada_place.launches, sp.heft_select.launches) == before
+    assert sp.dada_place_plain.calls + sp.heft_select_plain.calls == plain
+
+
+def test_cuda_placement_rejects_mixed_devices(cuda):
+    layout, buf, scores = packed_dada(dada_case(1, n=5))
+    before = sp.dada_place.launches
+    with pytest.raises(ValueError, match="devices"):
+        sp.dada_place(buf.to(cuda), scores, layout)
+    assert sp.dada_place.launches == before
+
+
+@pytest.mark.parametrize("spec", ["heft", "dada?alpha=0.5&use_cp=1", "dada?alpha=0.5",
+                                  "dada?alpha=0&area_bound=1"])
+def test_cuda_place_backend_equals_cpu(cuda, spec):
+    """place_dada / place_heft on the card equal the CPU backend's call
+    bit for bit, with one launch of each kernel."""
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.core import Simulator
+    from repro_torch.linalg.qr import qr_graph
+    from repro_torch.sched import resolve
+
+    tids = list(range(40))
+    p_cpu, p_gpu = [1.0 + t for t in tids], [0.5 + 0.25 * t for t in tids]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        sim = Simulator(qr_graph(6, 256), paper_machine(8), resolve(spec, device=dev), seed=7)
+        for k, name in enumerate(sim.arrays.data_names):
+            if k % 3 == 0:
+                sim.residency.write(name, k % 8)
+        be, res, st = sim.strategy.backend, sim.machine.resources, sim.strategy
+        before = (port.score_activation.launches, sp.dada_place.launches + sp.heft_select.launches)
+        if spec == "heft":
+            got[dev] = be.place_heft(sim, tids, res, order=tids[::-1], durations=[p_cpu, p_gpu],
+                                     cls_of_res=[int(r.is_accelerator) for r in res],
+                                     load_ts=[0.125 * (j % 5) for j in range(len(res))], now=0.25)
+        else:
+            got[dev] = be.place_dada(
+                sim, tids, res, p_cpu=p_cpu, p_gpu=p_gpu, use_cp=st.use_cp,
+                affinity="accel_write" if st.alpha > 0.0 else None, area_bound=st.area_bound,
+                offsets=[0.0625 * (j % 3) for j in range(len(res))], flex_order=tids,
+                max_off=0.125, sum_max=sum(max(a, b) for a, b in zip(p_cpu, p_gpu)),
+                area=sum(min(a, b) for a, b in zip(p_cpu, p_gpu)), off_total=0.1875,
+                alpha=st.alpha, eps_rel=st.eps_rel, max_iters=st.max_iters,
+                cpu_rids=[r.rid for r in sim.machine.cpus], gpu_rids=[r.rid for r in sim.machine.gpus],
+            )
+        after = (port.score_activation.launches, sp.dada_place.launches + sp.heft_select.launches)
+        assert after == tuple(b + (dev == "cuda") for b in before)
+    assert got["cuda"] == got["cpu"]
+
+
+@pytest.mark.parametrize("spec", ["heft", "dada?alpha=0.5&use_cp=1", "dada?alpha=0"])
+def test_cuda_cholesky_places_with_two_launches_per_activation(cuda, spec):
+    """A warm Cholesky NT 6 simulation issues exactly two kernel launches
+    and two copies per activation placed on the card (the profiler counts
+    the runtime calls), and no plain search runs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.core import run_simulation
+    from repro_torch.linalg.cholesky import cholesky_graph
+    from repro_torch.sched import resolve
+
+    strategy = resolve(spec)
+    method = "place_heft" if spec == "heft" else "place_dada"
+    place = getattr(strategy.backend, method)
+    placed = [0]
+
+    def counted(*args, **kwargs):
+        placed[0] += 1
+        return place(*args, **kwargs)
+
+    setattr(strategy.backend, method, counted)
+    run_simulation(cholesky_graph(6, 256), paper_machine(8), strategy, seed=0)  # warm buffers
+    placed[0] = 0
+    plain = sp.dada_place_plain.calls + sp.heft_select_plain.calls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = run_simulation(cholesky_graph(6, 256), paper_machine(8), strategy, seed=0)
+        torch.cuda.synchronize()
+    launch_calls = sum(e.count for e in prof.key_averages() if e.device_type != DeviceType.CUDA
+                       and e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    memcpy_calls = sum(e.count for e in prof.key_averages() if e.device_type != DeviceType.CUDA
+                       and e.key.startswith("cudaMemcpy"))
+    assert placed[0] > 0
+    assert (launch_calls, memcpy_calls) == (2 * placed[0], 2 * placed[0])
+    assert sp.dada_place_plain.calls + sp.heft_select_plain.calls == plain
+    cpu = run_simulation(cholesky_graph(6, 256), paper_machine(8), resolve(spec, device="cpu"), seed=0)
+    assert res.makespan == cpu.makespan and res.intervals == cpu.intervals

@@ -62,7 +62,8 @@ def _imported_roots(path: Path):
 
 
 def test_no_source_file_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    # chip_smoke.py draws its placement cases from tests/_place_cases.py
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "_place_cases.py"]
     assert len(files) >= 25
     offenders = {
         str(f.relative_to(ROOT)): sorted(
@@ -179,3 +180,19 @@ def test_build_helper_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_library(src)
     assert not list(tmp_path.glob("*.so"))
+
+
+def test_place_kernel_source_is_in_the_package():
+    """The placement kernels' source sits in the package, names the
+    reference functions it replaces and exports both C entries; it is
+    built at first use, not at import."""
+    from repro_torch.kernels import sched_place
+
+    src = sched_place._SRC
+    assert src.is_file() and src.is_relative_to(PORT) and src in sched_place.SOURCES
+    text = src.read_text()
+    for name in ("backend.py:633", "backend.py:877", "dada.py:452-490"):
+        assert name in text
+    for entry in ("repro_dada_place", "repro_heft_select"):
+        assert f'extern "C" int {entry}' in text
+    assert sched_place._lib is None or torch.cuda.is_available()

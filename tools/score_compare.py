@@ -1,19 +1,24 @@
 """Scheduling wall time and scoring time of source trees of the port,
 paired on one card.
 
-    python3 tools/score_compare.py --src PARENT/src --src src
+    python3 tools/score_compare.py --src PARENT/src --src src \
+        [--runs cholesky:16,qr:16,lu:16,cholesky:64] [--device cuda --device cpu]
 
-Runs the simulations below once per tree, in the order given and then in
-reverse (A, B, B, A), each tree in a fresh interpreter so that two
+Runs the simulations of ``--runs`` (default ``RUNS`` below) once per
+tree, in the order given and then in reverse (A, B, B, A), each tree in a fresh interpreter so that two
 versions of ``repro_torch`` never meet in one process. Every run is HEFT
 or DADA(0.5)+CP on ``paper_machine(8)`` with every activation scored
-(``min_wide=1``), on the card and with ``device="cpu"``. Prints one JSON
+(``min_wide=1``), on the card and with ``device="cpu"`` (``--device``
+picks). Prints one JSON
 line per run (tree, graph, NT, strategy, device, wall s, score s, scored
 activations, score ms per activation, the longest call, the seconds the
 garbage collector paused the run and the part of them inside scoring
 calls, makespan) and, last, each tree's
-median per (graph, NT, strategy, device). Fails unless every run of a
-(graph, NT, strategy) gives the same makespan. Needs one CUDA device.
+median per (graph, NT, strategy, device). "score" is the backend call
+of one activation: ``place_heft`` / ``place_dada`` (scoring and placement)
+on trees that have them, ``score_matrices`` on older ones. Fails unless
+every run of a (graph, NT, strategy) gives the same makespan. Needs one
+CUDA device.
 """
 from __future__ import annotations
 
@@ -57,7 +62,12 @@ gc.callbacks.append(on_gc)
 
 def run(gname, nt, spec, device):
     strategy = resolve(spec, device=device)
-    score = strategy.backend.score_matrices
+    # the backend call of one activation: scoring and placement on trees
+    # that place on the device, scoring alone before them
+    be = strategy.backend
+    method = "place_heft" if spec == "heft" else "place_dada"
+    method = method if hasattr(be, method) else "score_matrices"
+    score = getattr(be, method)
     acc = [0, 0.0, 0.0, 0.0]  # calls, seconds, the longest call, gc seconds inside calls
 
     def timed(*args, **kwargs):
@@ -70,23 +80,23 @@ def run(gname, nt, spec, device):
         acc[3] += gc_pause[0] - g0
         return out
 
-    strategy.backend.score_matrices = timed
+    setattr(be, method, timed)
     sim = Simulator(builders[gname](nt, 512), machine, strategy, seed=0)
     g0 = gc_pause[0]
     w0 = time.perf_counter()
     res = sim.run()
     torch.cuda.synchronize()
-    return dict(src=SRC, graph=gname, nt=nt, strategy=res.strategy, device=device,
+    return dict(src=SRC, graph=gname, nt=nt, strategy=res.strategy, device=device, call=method,
                 wall_s=time.perf_counter() - w0, score_s=acc[1], scored=acc[0],
                 score_ms_per_act=acc[1] / acc[0] * 1e3, max_call_ms=acc[2] * 1e3,
                 gc_s=gc_pause[0] - g0, gc_in_score_s=acc[3], makespan=res.makespan)
 
 
-for device in ("cuda", "cpu"):  # warm-up: kernel build, first-use costs
+for device in DEVICES:  # warm-up: kernel build, first-use costs
     run("cholesky", 4, SPECS[1], device)
 for gname, nt in RUNS:
     for spec in SPECS:
-        for device in ("cuda", "cpu"):
+        for device in DEVICES:
             print(json.dumps(run(gname, nt, spec, device)), flush=True)
 """
 
@@ -95,7 +105,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", action="append", required=True,
                     help="a tree's src directory (repeat; run in order, then reversed)")
+    ap.add_argument("--runs", default=",".join(f"{g}:{nt}" for g, nt in RUNS),
+                    help="graph:NT pairs, comma-separated")
+    ap.add_argument("--device", action="append", choices=("cuda", "cpu"),
+                    help="devices to run on (repeat; default both)")
     args = ap.parse_args()
+    runs = [(g, int(nt)) for g, nt in (r.split(":") for r in args.runs.split(","))]
+    devices = tuple(args.device or ("cuda", "cpu"))
     import torch
 
     if not torch.cuda.is_available():
@@ -104,7 +120,8 @@ def main() -> int:
     srcs = [str(Path(s).resolve()) for s in args.src]
     rows = []
     for src in srcs + srcs[::-1]:
-        code = f"SRC = {src!r}\nRUNS = {RUNS!r}\nSPECS = {SPECS!r}\n" + CHILD
+        code = (f"SRC = {src!r}\nRUNS = {runs!r}\nSPECS = {SPECS!r}\nDEVICES = {devices!r}\n"
+                + CHILD)
         out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                              check=False)
         if out.returncode != 0:
@@ -118,7 +135,7 @@ def main() -> int:
         same = {r["makespan"] for r in rows if (r["graph"], r["nt"], r["strategy"]) == key[:3]}
         if len(same) != 1:
             raise SystemExit(f"{key}: makespans differ between runs: {same}")
-    for src in srcs:
+    for src in dict.fromkeys(srcs):  # each tree once, however often it ran
         for key in keys:
             mine = [r for r in rows if r["src"] == src and
                     (r["graph"], r["nt"], r["strategy"], r["device"]) == key]
