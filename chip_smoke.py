@@ -5,7 +5,7 @@
 Phases (each prints its own lines and its wall time; any failure exits
 non-zero and no phase carries on past its own failure):
 
-  1. build    build the seven CUDA sources of the ported kernels from the
+  1. build    build the eight CUDA sources of the ported kernels from the
               repo, one nvcc each, started together; print their ptxas
               reports and the card (name and power limit, from nvidia-smi);
   2. kernel   the fused activation scorer (score_activation) against its
@@ -102,7 +102,31 @@ non-zero and no phase carries on past its own failure):
               activation the kernel launches (must be 2) and memcpy calls
               (must be 2), with no other kernel, memcpy or memset on the
               card;
- 10. report   a JSON line of every ported kernel, then the last line
+ 10. episode  the surrogate episode scan (episode_scan: one block a
+              configuration, the whole list-scheduling scan in one launch)
+              against its plain version, on the card and on the CPU, every
+              output and every schedule column equal (torch.equal) on
+              the CPU tests' cases (tests/_episode_cases.py: capacities
+              where eviction binds, the chain that needs all eight LRU
+              rounds, a graph of assorted sizes, pad_to and extra_steps),
+              seeded batches over Cholesky, LU and QR at NT 4 / 8 / 16 on
+              paper_machine(1..8) with the five figure specs, capacities of
+              8 and 32 MiB, and a padded NT 16 batch. Then the paper-figure
+              sweep at full width through run_batch (the main path, its
+              launch count read from 0): Cholesky, LU and QR at NT 16, tile
+              512, paper_machine(1..8) x five specs x 30 seeds, 1 200
+              configurations a graph, one launch each; every configuration
+              must place every task and equal the CPU's run_batch; prints
+              wall s, configs/s and tasks/s beside the CPU's, per-spec means
+              at 8 GPUs, the kernel's ms (CUDA events around three
+              launches back to back, the wrapper's argument checks left
+              out), the plain version's ms on the card and the bound (the
+              operations of the real reads, writes and successors, with a
+              heap's log2 n_pad for the ready set, at the f32 instruction
+              rate). Then NT 32 rows for the three graphs and an NT 64
+              Cholesky row, 132 configurations each (one block an SM), with
+              wall s and the kernel's ms;
+ 11. report   a JSON line of every ported kernel, then the last line
               ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits 2 without printing a result when there is
@@ -128,6 +152,8 @@ ROOT = Path(__file__).resolve().parent
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 H100_FP64_FLOPS = 34e12  # H100 SXM data sheet, f64 outside the tensor cores
 H100_FP32_FLOPS = 67e12  # f32 outside the tensor cores (the f32 contract forbids TF32)
+# single f32 (or integer) instructions a second: the f32 rate counts an FMA as two
+H100_FP32_OPS = H100_FP32_FLOPS / 2
 H100_BF16_FLOPS = 989e12  # bf16 tensor cores, dense
 GEMM_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # tests/test_kernels.py:21
 # gemm_update plans the planner does not pick, launched as they are:
@@ -1042,6 +1068,260 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+# ---- the episode phase --------------------------------------------------------
+
+# the figure sweep at the paper's shape: benchmarks/common.py's bench_settings()
+# default (30 runs, seeds 1234 + i, GPU counts 1..8) over its five specs
+EPISODE_NT, EPISODE_TILE, EPISODE_RUNS, EPISODE_GPUS = 16, 512, 30, tuple(range(1, 9))
+# scale rows: (graph, NT), 132 configurations each (one block an SM)
+EPISODE_SCALE = (("cholesky", 32), ("lu", 32), ("qr", 32), ("cholesky", 64))
+EPISODE_SCALE_CONFIGS = 132
+
+
+def episode_outputs(res):
+    """An episode result as a flat list of CPU tensors."""
+    return [t.cpu() for t in (*res[:3], *(res[3] if len(res) > 3 else ()))]
+
+
+def episode_compare(se, ep, plan, batch, dev, label, pad_to=None, extra=0):
+    """The kernel against the plain scan on the CPU and on the card: every
+    output, the schedule's columns included, must be equal (torch.equal).
+    Returns the largest |difference| seen."""
+    use_cap = bool(np.isfinite(batch.cap).any())
+    n_steps = plan.n + extra
+    args = ep.episode_inputs(plan, batch, torch.device("cpu"), pad_to)
+    dargs = [a.to(dev) for a in args]
+    wants = [episode_outputs(se.episode_plain(*a, n_steps=n_steps, use_cap=use_cap, emit=True))
+             for a in (args, dargs)]
+    got = episode_outputs(se.episode_scan(*dargs, n_steps=n_steps, use_cap=use_cap, emit=True))
+    torch.cuda.synchronize()
+    err = 0.0
+    names = ("makespan", "total_bytes", "n_placed") + se.SCHEDULE_COLUMNS
+    for where, want in zip(("CPU", "card"), wants):
+        for name, g, w in zip(names, got, want):
+            if not torch.equal(g, w):
+                raise SystemExit(f"episode_scan differs from its plain version on the {where} "
+                                 f"in {name} at {label}")
+            if g.is_floating_point():
+                err = max(err, (g.double() - w.double()).abs().nan_to_num().max().item())
+    if not (got[2][:len(batch)] == plan.n).all():
+        raise SystemExit(f"episode_scan left tasks unplaced at {label}")
+    return err
+
+
+def episode_bound(plan, args):
+    """(bound ms, bound_by, bytes, operations) of one uncapped launch on
+    the episode's inputs ``args``. Bytes: each input read once and each output
+    written once, at the HBM rate. Operations: what the function needs for
+    this plan's tasks, counted from their real reads, writes and
+    successors: per task and configuration, taking it from and putting it
+    into a heap of the ready set (2 log2 n_pad compares), the transfer and
+    affinity folds over the unique memories (2 n_u (reads + writes)), the
+    scores and argmins over the resources (6 R), the hops of its reads (4 a
+    read) and its successors' updates (2 each). Each is one f32 or integer
+    instruction, at the f32 instruction rate (an FMA counts as one)."""
+    n, n_pad, n_data = plan.n, plan.n_pad, plan.n_data
+    reads = int((plan.read_ids[:n] < n_data).sum())
+    writes = int((plan.write_ids[:n] < n_data).sum())
+    succs = int((plan.succ_ids[:n] < n_pad).sum())
+    per_config = (2 * math.ceil(math.log2(n_pad)) * n + 2 * plan.n_u * (reads + writes)
+                  + 6 * plan.n_res * n + 4 * reads + 2 * succs)
+    B = args[13].shape[0]
+    ops = B * per_config
+    nbytes = sum(a.numel() * a.element_size() for a in args) + 12 * B
+    bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FP32_OPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), nbytes, ops
+
+
+def event_ms(fn, reps=3):
+    """Mean ms of ``fn`` over ``reps`` calls after one warm-up, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def episode_phase(dev, se, ep, run_batch, cached_graph, paper_machine, graph_fns):
+    """Kernel against its plain version on every case, then the
+    full-width figure sweep through run_batch (the main path: its launch
+    count is read from 0), then the scale rows. Returns the kernels-line
+    entry."""
+    from functools import partial
+
+    from _episode_cases import FIGURE_SPECS, MIB, case_graph, cases, configs, plan_and_batch
+
+    # 1. the kernel against its plain version -------------------------------
+    checks = [(label, case_graph(graph_key), gpus, specs, seeds, caps, pad_to, extra)
+              for label, graph_key, gpus, specs, seeds, caps, pad_to, extra in cases()]
+    for kind, fn in graph_fns.items():
+        for nt, seeds in ((4, (1234, 1235, 1236)), (8, (1234, 1235)), (16, (1234,))):
+            g = cached_graph(partial(fn, nt, EPISODE_TILE, with_fns=False))
+            checks.append((f"{kind}{nt}", g, EPISODE_GPUS, FIGURE_SPECS, seeds, (0,), None, 0))
+        g = cached_graph(partial(fn, 8, EPISODE_TILE, with_fns=False))
+        checks.append((f"{kind}8-caps", g, (2, 8), FIGURE_SPECS, (1234,), (0, 8 * MIB, 32 * MIB),
+                       None, 0))
+    g = cached_graph(partial(graph_fns["cholesky"], EPISODE_NT, EPISODE_TILE, with_fns=False))
+    checks.append(("cholesky16-padded", g, (1, 8), FIGURE_SPECS, (77,), (0,), 16, 5))
+    max_err = 0.0
+    for label, g, gpus, specs, seeds, caps, pad_to, extra in checks:
+        items = configs(g, gpus, specs, seeds, caps)
+        max_err = max(max_err, episode_compare(se, ep, *plan_and_batch(items), dev, label,
+                                               pad_to, extra))
+    n_cases = len(checks)
+    print(f"episode_scan equal to its plain version (card and CPU, every output and schedule "
+          f"column) on {n_cases} cases", flush=True)
+
+    # 2. the figure sweep at full width: the main path ----------------------
+    graphs = {k: cached_graph(partial(f, EPISODE_NT, EPISODE_TILE, with_fns=False))
+              for k, f in graph_fns.items()}
+    machines = {n: paper_machine(n) for n in EPISODE_GPUS}
+    sweep = {
+        k: [{"graph": g, "machine": machines[n], "strategy": s, "seed": 1234 + i, "noise": 0.03}
+            for n in EPISODE_GPUS for s in FIGURE_SPECS for i in range(EPISODE_RUNS)]
+        for k, g in graphs.items()
+    }
+    for k in sweep:  # plans built and memoized before the clock
+        plan_and_batch(sweep[k][:1])
+    card, card_s = {}, {}
+    se.episode_scan.launches = 0
+    for k, items in sweep.items():
+        w0 = time.perf_counter()
+        card[k] = run_batch(items, device="cuda")
+        torch.cuda.synchronize()
+        card_s[k] = time.perf_counter() - w0
+    sweep_launches = se.episode_scan.launches
+    if sweep_launches != len(sweep):
+        raise SystemExit(f"the sweep launched episode_scan {sweep_launches} times, want one per "
+                         f"group ({len(sweep)})")
+    cpu, cpu_s = {}, {}
+    for k, items in sweep.items():
+        w0 = time.perf_counter()
+        cpu[k] = run_batch(items, device="cpu")
+        cpu_s[k] = time.perf_counter() - w0
+    if se.episode_scan.launches != sweep_launches:
+        raise SystemExit("the CPU sweep launched the kernel")
+    rows = []
+    for k, items in sweep.items():
+        n = len(graphs[k])
+        for a, b in zip(card[k], cpu[k]):
+            if a != b:
+                raise SystemExit(f"{k}: the card's run_batch differs from the CPU's: {a} vs {b}")
+            if a.n_placed != n or not math.isfinite(a.makespan) or a.makespan <= 0:
+                raise SystemExit(f"{k}: a configuration placed {a.n_placed} of {n} tasks")
+        plan, batch = plan_and_batch(items)
+        args = ep.episode_inputs(plan, batch, dev)
+        run = partial(se.episode_scan, *args, n_steps=plan.n, use_cap=False, emit=False)
+        # the launch alone (the wrapper's checks left out), back to back:
+        # the kernel's device time
+        ms = event_ms(partial(se._launch, args, n_steps=plan.n, use_cap=False, emit=False))
+        if not ms > 0:
+            raise SystemExit(f"{k}: the kernel's device time read {ms} ms")
+        w0 = time.perf_counter()
+        plain_card = se.episode_plain(*args, n_steps=plan.n, use_cap=False, emit=False)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - w0) * 1e3
+        if not all(torch.equal(x, y) for x, y in zip(run(), plain_card)):
+            raise SystemExit(f"{k}: episode_scan differs from its plain version at full width")
+        bound_ms, bound_by, nbytes, ops = episode_bound(plan, args)
+        state_b = 4 * se.state_words(plan.n_pad, plan.n_data + 1, plan.n_u, False)
+        means = {}
+        for s in FIGURE_SPECS:
+            pick = [j for j, c in enumerate(items) if c["strategy"] == s
+                    and c["machine"] is machines[8]]
+            means[s] = {d: (float(np.mean([res[j].makespan for j in pick])),
+                            float(np.mean([res[j].gbytes for j in pick])))
+                        for d, res in (("card", card[k]), ("cpu", cpu[k]))}
+        row = dict(graph=k, nt=EPISODE_NT, tasks=n, configs=len(items), n_pad=plan.n_pad,
+                   state_bytes=state_b, wall_s=card_s[k], configs_per_s=len(items) / card_s[k],
+                   tasks_per_s=len(items) * n / card_s[k], cpu_wall_s=cpu_s[k],
+                   cpu_configs_per_s=len(items) / cpu_s[k], ms=ms,
+                   plain_card_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   bytes=nbytes, operations=ops, share_of_bound=bound_ms / ms,
+                   means_8gpu=means)
+        rows.append(row)
+        print(f"episode sweep {k} NT {EPISODE_NT}: {len(items)} configs x {n} tasks, "
+              f"state {state_b} B a config, card wall {card_s[k]:.6f} s "
+              f"({row['configs_per_s']:.1f} configs/s, {row['tasks_per_s']:.4g} tasks/s), "
+              f"CPU plain wall {cpu_s[k]:.6f} s ({row['cpu_configs_per_s']:.2f} configs/s); "
+              f"kernel {ms:.6f} ms, plain on the card {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.6f} ms ({bound_by}; {nbytes} B, {ops} ops)", flush=True)
+        for s, m in means.items():
+            print(f"  8 GPUs {s:26s} mean makespan card {m['card'][0]:.9f} cpu {m['cpu'][0]:.9f}  "
+                  f"mean GB card {m['card'][1]:.6f} cpu {m['cpu'][1]:.6f}", flush=True)
+
+    # 3. scale rows ---------------------------------------------------------------
+    scale = []
+    order = [(n, s, 1234 + i) for i in range(4) for n in EPISODE_GPUS for s in FIGURE_SPECS]
+    for kind, nt in EPISODE_SCALE:
+        w0 = time.perf_counter()
+        g = cached_graph(partial(graph_fns[kind], nt, EPISODE_TILE, with_fns=False))
+        items = [{"graph": g, "machine": machines[n], "strategy": s, "seed": sd, "noise": 0.03}
+                 for n, s, sd in order[:EPISODE_SCALE_CONFIGS]]
+        plan, batch = plan_and_batch(items)
+        setup_s = time.perf_counter() - w0
+        before = se.episode_scan.launches
+        w0 = time.perf_counter()
+        res = run_batch(items, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        if se.episode_scan.launches != before + 1:
+            raise SystemExit(f"{kind} NT {nt}: want one launch")
+        if any(r.n_placed != len(g) or not math.isfinite(r.makespan) for r in res):
+            raise SystemExit(f"{kind} NT {nt}: tasks left unplaced")
+        args = ep.episode_inputs(plan, batch, dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = se._launch(args, n_steps=plan.n, use_cap=False, emit=False)  # the launch alone
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        if not np.array_equal(out[0].cpu().numpy().astype(np.float64),
+                              np.array([r.makespan for r in res])):
+            raise SystemExit(f"{kind} NT {nt}: the kernel differs from run_batch")
+        bound_ms, bound_by, _, _ = episode_bound(plan, args)
+        row = dict(graph=kind, nt=nt, tasks=len(g), n_pad=plan.n_pad, configs=len(items),
+                   state_bytes=4 * se.state_words(plan.n_pad, plan.n_data + 1, plan.n_u, False),
+                   setup_s=setup_s, wall_s=wall, configs_per_s=len(items) / wall,
+                   tasks_per_s=len(items) * len(g) / wall, ms=ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        scale.append(row)
+        print(f"episode scale {kind} NT {nt}: {len(items)} configs x {len(g)} tasks "
+              f"(n_pad {plan.n_pad}, state {row['state_bytes']} B a config), graph and plan "
+              f"{setup_s:.3f} s, run_batch wall {wall:.6f} s ({row['tasks_per_s']:.4g} tasks/s), "
+              f"kernel {ms:.6f} ms, bound {bound_ms:.6f} ms", flush=True)
+
+    head = next(r for r in rows if r["graph"] == "qr")  # the widest graph of the sweep
+    return {
+        "name": "episode_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sched_episode.cu",
+        "replaces": "src/repro/kernels/sched_score.py:121",
+        "replaces_with_it": "src/repro/core/episode.py:363 (_build_episode_fn, jitted scan :404-635)",
+        "launches": sweep_launches,
+        "launches_counted_in": "the NT 16 figure sweep through run_batch (one per group)",
+        "exact": max_err == 0.0,
+        "max_abs_err": max_err,
+        "cases": n_cases,
+        "ms": head["ms"],
+        "plain_ms": head["plain_card_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": None,
+        "shape": f"qr NT {EPISODE_NT} tile {EPISODE_TILE}: {head['configs']} configs x "
+                 f"{head['tasks']} steps, n_pad {head['n_pad']}",
+        "sweep": rows,
+        "scale": scale,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1049,9 +1329,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "tests"))  # _place_cases: the seeded placement cases
     from repro_torch.configs.paper_machine import paper_machine
-    from repro_torch.core import Simulator
+    from repro_torch.core import Simulator, cached_graph, run_batch
+    from repro_torch.core import episode as episode_mod
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import sched_episode as se
     from repro_torch.kernels import sched_place as sp
     from repro_torch.kernels import sched_score as ss
     from repro_torch.kernels import tile_gemm as tg
@@ -1072,7 +1354,7 @@ def main() -> int:
     t0 = phase("build")
     card = card_line()
     print(card)
-    kernel_modules = (ss, sp, tg, fa, fd)
+    kernel_modules = (ss, sp, tg, fa, fd, se)
     sources = [src for mod in kernel_modules for src in mod.SOURCES]
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         reports = list(pool.map(lambda src: build_library(src)[1], sources))
@@ -1597,7 +1879,20 @@ def main() -> int:
                              f"activation, got {counts} over {placed[0]}")
     done("profile", t0)
 
-    # ---- 10. report ----------------------------------------------------------
+    # ---- 10. episode ---------------------------------------------------------
+    t0 = phase("episode")
+    episode_ptxas = ptxas_table(reports[sources.index(se._SRC)])
+    if not episode_ptxas:
+        raise SystemExit("no ptxas report for sched_episode.cu")
+    for row in episode_ptxas:
+        print(f"episode ptxas: {row}")
+    episode_entry = episode_phase(
+        dev, se, episode_mod, run_batch, cached_graph, paper_machine,
+        {"cholesky": cholesky_graph, "lu": lu_graph, "qr": qr_graph})
+    episode_entry["ptxas"] = episode_ptxas
+    done("episode", t0)
+
+    # ---- 11. report ----------------------------------------------------------
     kernels = [{
         "name": "score_activation",
         "route": "cuda",
@@ -1709,6 +2004,7 @@ def main() -> int:
             **{key: head[key] for key in ("n_split", "chunk") if key in head},
             "timings": rows,
         })
+    kernels.append(episode_entry)
     print(json.dumps({"serve": served}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Core: the task-graph model, machine and performance models, the
-simulator facade and the HEFT / DADA strategies."""
-from .api import run_simulation
+simulator facade, the HEFT / DADA strategies and the batched surrogate
+episodes (``run_batch``)."""
+from .api import BatchResult, cached_graph, run_batch, run_simulation
 from .dada import DADA, DualApprox
 from .dag import Access, DataObject, GraphArrays, Mode, Task, TaskGraph
 from .heft import HEFT
@@ -8,8 +9,8 @@ from .machine import HOST_MEM, LinkModel, MachineModel, Resource, ResourceClass,
 from .simulator import SimResult, Simulator, Strategy
 
 __all__ = [
-    "Access", "DADA", "DataObject", "DualApprox", "GraphArrays", "HEFT",
+    "Access", "BatchResult", "DADA", "DataObject", "DualApprox", "GraphArrays", "HEFT",
     "HOST_MEM", "LinkModel", "MachineModel", "Mode", "Resource",
     "ResourceClass", "SimResult", "Simulator", "Strategy", "Task",
-    "TaskGraph", "make_machine", "run_simulation",
+    "TaskGraph", "cached_graph", "make_machine", "run_batch", "run_simulation",
 ]

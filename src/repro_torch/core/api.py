@@ -1,6 +1,11 @@
-"""Public entry point of the scheduling core."""
+"""Public entry points of the scheduling core: the exact simulation and
+the batched surrogate episodes."""
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+from ..device import resolve_device
 from ..sched.registry import resolve
 from .dag import TaskGraph
 from .machine import MachineModel
@@ -19,3 +24,126 @@ def run_simulation(
     which builds it for the card)."""
     sim = Simulator(graph, machine, resolve(strategy), seed=seed, noise=noise)
     return sim.run()
+
+
+_GRAPH_CACHE: Dict[tuple, TaskGraph] = {}
+
+
+def cached_graph(factory) -> TaskGraph:
+    """Memoize graphs built by ``functools.partial`` factories.
+
+    A sweep runs many (strategy × machine) configurations over the *same*
+    kernel graph; within one process the graph and its structure-of-arrays
+    view are built once per distinct factory signature instead of once per
+    configuration. Eviction is LRU one at a time (16 graphs). Non-partial
+    factories (closures, lambdas) are not memoized.
+    """
+    try:
+        key = (factory.func, factory.args, tuple(sorted(factory.keywords.items())))
+        hash(key)
+    except (AttributeError, TypeError):
+        return factory()
+    g = _GRAPH_CACHE.get(key)
+    if g is None:
+        while len(_GRAPH_CACHE) >= 16:
+            _GRAPH_CACHE.pop(next(iter(_GRAPH_CACHE)))
+        _GRAPH_CACHE[key] = g = factory()
+    else:
+        # refresh recency so steady sweep graphs outlive one-off builds
+        _GRAPH_CACHE.pop(key)
+        _GRAPH_CACHE[key] = g
+    return g
+
+
+@dataclass(frozen=True)
+class BatchResult:
+    """One configuration's surrogate-episode outcome.
+
+    Mirrors the :class:`SimResult` metric surface (``gflops`` / ``gbytes``
+    derived the same way) so sweep code can consume either engine's
+    results through one row schema. ``n_placed`` counts the tasks the
+    episode placed (all of them, in a finished episode).
+    """
+
+    strategy: str
+    seed: int
+    makespan: float
+    total_bytes: float
+    total_flops: float
+    n_steals: int = 0
+    n_placed: int = 0
+
+    @property
+    def gflops(self) -> float:
+        if self.makespan <= 0:
+            return 0.0
+        return self.total_flops / self.makespan / 1e9
+
+    @property
+    def gbytes(self) -> float:
+        return self.total_bytes / 1e9
+
+
+def run_batch(configs: Sequence[dict], device="cuda") -> List[BatchResult]:
+    """Run a batch of scheduling configurations through the surrogate
+    episode engine, one episode scan per group.
+
+    Each item of ``configs`` is a mapping::
+
+        {"graph": TaskGraph | partial-factory, "machine": MachineModel,
+         "strategy": "dada?alpha=0.5&use_cp=1",  # heft | ws | dada | dual
+         "seed": 1234, "noise": 0.03, "capacity": 0}
+
+    Items are grouped by (graph, machine template) — machine *shapes*
+    (GPU counts), strategy parameters, seeds and capacities are batch
+    axes inside a group. On the card each group is one launch of the
+    ``episode_scan`` kernel; with ``device="cpu"`` the plain scan takes
+    the group whole. Configurations never interact, so results do not
+    depend on the grouping; they come back in input order.
+
+    This is the approximate engine (see :mod:`repro_torch.core.episode`):
+    use it for sweeps and searches, and :func:`run_simulation` for
+    verification.
+    """
+    from . import episode as ep
+
+    dev = resolve_device(device)
+    items = []
+    for i, c in enumerate(configs):
+        g = c["graph"]
+        if not isinstance(g, TaskGraph):
+            g = cached_graph(g)
+        items.append((i, g, c))
+
+    groups: Dict[tuple, list] = {}
+    for i, g, c in items:
+        m: MachineModel = c["machine"]
+        cpu = next((r.cls for r in m.resources if not r.is_accelerator), None)
+        gpu = next((r.cls for r in m.resources if r.is_accelerator), None)
+        key = (
+            id(g), len(m.resources),
+            cpu.name if cpu else None, gpu.name if gpu else None,
+            m.link.bandwidth, m.link.latency,
+        )
+        groups.setdefault(key, []).append((i, g, c))
+
+    out: List[Optional[BatchResult]] = [None] * len(items)
+    for group in groups.values():
+        g = group[0][1]
+        max_mem = max(
+            max((r.mem for r in c["machine"].resources if r.is_accelerator), default=-1)
+            for _, _, c in group
+        )
+        plan = ep.build_plan(g, group[0][2]["machine"], n_u=max_mem + 2)
+        batch = ep.config_batch(plan, [c for _, _, c in group])
+        res = ep.run_episodes(plan, batch, device=dev)
+        for j, (i, _, c) in enumerate(group):
+            out[i] = BatchResult(
+                strategy=c["strategy"],
+                seed=int(c.get("seed", 0)),
+                makespan=float(res["makespan"][j]),
+                total_bytes=float(res["total_bytes"][j]),
+                total_flops=plan.total_flops,
+                n_placed=int(res["n_placed"][j]),
+            )
+    return out  # type: ignore[return-value]

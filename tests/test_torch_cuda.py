@@ -8,7 +8,11 @@ import numpy as np
 import pytest
 import torch
 
+from _episode_cases import FIGURE_SPECS, case_graph, cases, configs, plan_and_batch, tile_graph
 from _place_cases import MACHINES, dada_case, heft_case, packed_dada, packed_heft
+from repro_torch.core import episode as ep
+from repro_torch.core import run_batch
+from repro_torch.kernels import sched_episode as se
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import sched_place as sp
@@ -950,3 +954,51 @@ def test_cuda_cholesky_places_with_two_launches_per_activation(cuda, spec):
     assert sp.dada_place_plain.calls + sp.heft_select_plain.calls == plain
     cpu = run_simulation(cholesky_graph(6, 256), paper_machine(8), resolve(spec, device="cpu"), seed=0)
     assert res.makespan == cpu.makespan and res.intervals == cpu.intervals
+
+
+# ---------------------------------------------------------------------------
+# the surrogate episode scan: one launch per group, bit-equal to the plain scan
+
+
+def _episode_check(cuda, items, pad_to=None, extra=0):
+    plan, batch = plan_and_batch(items)
+    use_cap = bool(np.isfinite(batch.cap).any())
+    n_steps = plan.n + extra
+    args = ep.episode_inputs(plan, batch, torch.device("cpu"), pad_to)
+    want = se.episode_plain(*args, n_steps=n_steps, use_cap=use_cap, emit=True)
+    before = se.episode_scan.launches
+    got = se.episode_scan(*[a.to(cuda) for a in args], n_steps=n_steps, use_cap=use_cap,
+                          emit=True)
+    torch.cuda.synchronize()
+    assert se.episode_scan.launches == before + 1
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g.cpu(), w)
+    for name, g, w in zip(se.SCHEDULE_COLUMNS, got[3], want[3]):
+        assert torch.equal(g.cpu(), w), name
+    assert (got[2].cpu()[:len(batch)] == plan.n).all()
+
+
+@pytest.mark.parametrize("case", cases(), ids=lambda c: c[0])
+def test_cuda_episode_scan_equals_plain(cuda, case):
+    label, graph_key, gpus, specs, seeds, caps, pad_to, extra = case
+    items = configs(case_graph(graph_key), gpus, specs, seeds, caps)
+    _episode_check(cuda, items, pad_to, extra)
+
+
+@pytest.mark.parametrize("kind", ["cholesky", "lu", "qr"])
+def test_cuda_episode_scan_paper_size(cuda, kind):
+    """NT 16, tile 512, paper_machine(1..8), the figure specs."""
+    items = configs(tile_graph(kind, 16, 512), range(1, 9), FIGURE_SPECS, (1234,))
+    _episode_check(cuda, items)
+
+
+def test_cuda_run_batch_is_one_launch_per_group(cuda):
+    items = configs(tile_graph("cholesky", 4), (1, 4, 8), FIGURE_SPECS, (1, 2))
+    items += configs(tile_graph("lu", 4), (2, 8), FIGURE_SPECS, (3,), (0, 2 << 20))
+    before = se.episode_scan.launches
+    got = run_batch(items)
+    assert se.episode_scan.launches == before + 2
+    want = run_batch(items, device="cpu")
+    assert se.episode_scan.launches == before + 2
+    for a, b in zip(got, want):
+        assert a == b

@@ -62,8 +62,9 @@ def _imported_roots(path: Path):
 
 
 def test_no_source_file_imports_jax_or_repro():
-    # chip_smoke.py draws its placement cases from tests/_place_cases.py
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "_place_cases.py"]
+    # chip_smoke.py draws its placement and episode cases from tests/
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / "tests" / name for name in ("_place_cases.py", "_episode_cases.py")]
     assert len(files) >= 25
     offenders = {
         str(f.relative_to(ROOT)): sorted(
