@@ -126,7 +126,22 @@ non-zero and no phase carries on past its own failure):
               rate). Then NT 32 rows for the three graphs and an NT 64
               Cholesky row, 132 configurations each (one block an SM), with
               wall s and the kernel's ms;
- 11. report   a JSON line of every ported kernel, then the last line
+ 11. paper    the paper's experiment through repro_torch.bench, each
+              engine's figure sweeps driven with the kernels' counts set to
+              0 just before and read just after: fig1-fig4 (Cholesky, LU,
+              QR at NT 16, tile 512) on the exact engine at the reference's
+              fast depth (3 seeds x 2 / 4 / 8 GPUs; one scoring and one
+              placement launch per placed activation, the ws rows on the
+              host with steals), then on the surrogate at the paper's (30
+              seeds x 1..8 GPUs: 6 000 configurations, one episode_scan
+              launch per figure); C1-C6 on both (validate: C6 through
+              run_many on the card), every claim must pass; fig2's
+              summaries at 3 seeds on each engine must equal
+              device="cpu" field for field (both timed).
+              Prints every row, the claim tables, wall s per figure,
+              runs/s and configs/s, and a paper JSON line;
+ 12. report   a JSON line of every ported kernel (launches_paper: each
+              kernel's launches in the paper phase), then the last line
               ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits 2 without printing a result when there is
@@ -1322,6 +1337,105 @@ def episode_phase(dev, se, ep, run_batch, cached_graph, paper_machine, graph_fns
     }
 
 
+def paper_phase(ss, sp, se):
+    """The paper's experiment through the port (``repro_torch.bench``):
+    fig1-fig4 on the exact engine at the reference's fast depth and on the
+    surrogate at the paper's, each engine's path driven with the kernels'
+    counts set to 0 just before it and read just after; C1-C6 on both;
+    fig2's card summaries against the CPU's. Returns the ``paper`` JSON
+    entry and the launches by kernel."""
+    from functools import partial
+
+    from repro_torch.bench import common, figures
+    from repro_torch.bench import paper_validation as pv
+
+    counters = {"score_activation": ss.score_activation, "dada_place": sp.dada_place,
+                "heft_select": sp.heft_select, "episode_scan": se.episode_scan}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    total = dict.fromkeys(counters, 0)
+    depth = {"exact": (common.FAST_RUNS, common.FAST_GPUS),
+             "surrogate": (common.PAPER_RUNS, common.PAPER_GPUS)}
+    entry = {"card": card_line(), "nt": common.NT, "tile": common.TILE, "engines": {}}
+    for engine, (n_runs, gpus) in depth.items():
+        zero()
+        figs = pv.run_figures(engine, n_runs, gpus, device="cuda")
+        launches = read()
+        rows = [f["rows"] for f in figs.values()]
+        walls = {name: f["wall_s"] for name, f in figs.items()}
+        for fig_rows in rows:
+            for row in fig_rows:
+                print(common.format_row(row), flush=True)
+        zero()
+        w0 = time.perf_counter()
+        checks = pv.validate(*rows, device="cuda")  # C1-C5 on the rows, C6 through run_many
+        c6_s = time.perf_counter() - w0
+        c6_launches = read()
+        for name in total:
+            total[name] += launches[name] + c6_launches[name]
+        ok = pv.print_checks(checks)
+        n_items = sum(r["n_runs"] for fig_rows in rows for r in fig_rows)
+        unit = "runs/s" if engine == "exact" else "configs/s"
+        rate = pv.rate(figs)
+        print(f"paper {engine}: {n_runs} runs x gpus {list(gpus)}, NT {common.NT}: walls "
+              + ", ".join(f"{k} {v:.6f} s" for k, v in walls.items())
+              + f"; {rate:.3f} {unit}; C1-C6 {c6_s:.6f} s; launches {launches}, C6 {c6_launches}",
+              flush=True)
+        if engine == "exact":
+            placed = launches["dada_place"] + launches["heft_select"]
+            if not (launches["dada_place"] and launches["heft_select"]
+                    and launches["score_activation"] == placed and not launches["episode_scan"]):
+                raise SystemExit(f"paper exact: launches {launches}, want one scoring and one "
+                                 f"placement launch per activation and no episode_scan")
+        elif launches != {"score_activation": 0, "dada_place": 0, "heft_select": 0,
+                          "episode_scan": len(figures.FIGURES)}:
+            raise SystemExit(f"paper surrogate: launches {launches}, want one episode_scan "
+                             f"per figure and nothing else")
+        if not (c6_launches["dada_place"] and c6_launches["score_activation"]
+                == c6_launches["dada_place"]):
+            raise SystemExit(f"paper {engine}: C6 launches {c6_launches}")
+        entry["engines"][engine] = dict(
+            runs=n_runs, gpus=list(gpus), items=n_items, wall_s=walls, rate=rate, unit=unit,
+            launches=launches, c1_c6_wall_s=c6_s, c6_launches=c6_launches,
+            claims=[dict(claim=c["claim"], measured=c["measured"], passed=bool(c["passed"]))
+                    for c in checks],
+            c6_ws_steals=checks[-1]["ws"].steals_mean)
+        if not ok:
+            raise SystemExit(f"paper {engine}: a claim failed")
+        if engine == "exact":
+            # the surrogate has no steals: only the exact engine's ws rows count them
+            ws_steals = {name: {r["n_gpus"]: r["steals"] for r in f["rows"] if r["strategy"] == "ws"}
+                         for name, f in figs.items() if name != "fig1_alpha_sweep"}
+            entry["engines"][engine]["ws_steals"] = ws_steals
+            if not all(x > 0 for v in ws_steals.values() for x in v.values()):
+                raise SystemExit("paper exact: a ws row stole nothing")
+        # fig2 at the fast depth on the card and with device="cpu", timed
+        # alike: every Summary field must be equal
+        fig2 = partial(common.sweep_summaries, "cholesky", common.STRATEGIES, common.FAST_RUNS,
+                       gpus, engine=engine)
+        w0 = time.perf_counter()
+        card_rows = fig2(device="cuda")
+        card_s = time.perf_counter() - w0
+        w0 = time.perf_counter()
+        cpu_rows = fig2(device="cpu")
+        cpu_s = time.perf_counter() - w0
+        if card_rows != cpu_rows:
+            raise SystemExit(f"paper {engine}: fig2's card rows differ from the CPU's")
+        entry["engines"][engine]["fig2_card_vs_cpu"] = dict(
+            runs=common.FAST_RUNS, gpus=list(gpus), summaries=len(card_rows), equal=True,
+            card_wall_s=card_s, cpu_wall_s=cpu_s)
+        print(f"paper {engine}: fig2's {len(card_rows)} card summaries ({common.FAST_RUNS} runs) "
+              f"equal the CPU's; wall card {card_s:.6f} s, CPU {cpu_s:.6f} s", flush=True)
+    entry["launches"] = total
+    return entry, total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1892,6 +2006,11 @@ def main() -> int:
     episode_entry["ptxas"] = episode_ptxas
     done("episode", t0)
 
+    # ---- 11. paper -----------------------------------------------------------
+    t0 = phase("paper")
+    paper, paper_launches = paper_phase(ss, sp, se)
+    done("paper", t0)
+
     # ---- 11. report ----------------------------------------------------------
     kernels = [{
         "name": "score_activation",
@@ -1914,6 +2033,7 @@ def main() -> int:
         "library_ms": None,
         "shape": score_shape,
         "launch_structure_cholesky_nt16": launch_structure,
+        "launches_paper": paper_launches["score_activation"],
     }, {
         "name": "place",
         "route": "cuda",
@@ -1922,6 +2042,8 @@ def main() -> int:
         "replaces_with_it": "src/repro/core/dada.py:452-490 (try_build at the searched λ)",
         "launches": sum(place_launches.values()),
         "launches_by_kernel": place_launches,
+        "launches_paper": paper_launches["dada_place"] + paper_launches["heft_select"],
+        "launches_paper_by_kernel": {k: paper_launches[k] for k in ("dada_place", "heft_select")},
         "exact": place_max_err == 0.0,
         "max_abs_err": place_max_err,
         "cases": place_cases,
@@ -2004,8 +2126,10 @@ def main() -> int:
             **{key: head[key] for key in ("n_split", "chunk") if key in head},
             "timings": rows,
         })
+    episode_entry["launches_paper"] = paper_launches["episode_scan"]
     kernels.append(episode_entry)
     print(json.dumps({"serve": served}))
+    print(json.dumps({"paper": paper}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,9 +1,13 @@
-"""Public entry points of the scheduling core: the exact simulation and
-the batched surrogate episodes."""
+"""Public entry points of the scheduling core: the exact simulation, the
+paper's seeded repetitions over it (``run_many``) and the batched
+surrogate episodes."""
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
+
+import numpy as np
 
 from ..device import resolve_device
 from ..sched.registry import resolve
@@ -24,6 +28,35 @@ def run_simulation(
     which builds it for the card)."""
     sim = Simulator(graph, machine, resolve(strategy), seed=seed, noise=noise)
     return sim.run()
+
+
+@dataclass
+class Summary:
+    """Mean + 95% confidence interval over repeated runs (paper methodology:
+    >=30 runs per configuration, mean and 95% CI reported)."""
+
+    strategy: str
+    n: int
+    gflops_mean: float
+    gflops_ci95: float
+    gbytes_mean: float
+    gbytes_ci95: float
+    makespan_mean: float
+    steals_mean: float
+
+    def row(self) -> str:
+        return (
+            f"{self.strategy},{self.n},{self.gflops_mean:.2f},{self.gflops_ci95:.2f},"
+            f"{self.gbytes_mean:.3f},{self.gbytes_ci95:.3f},{self.makespan_mean:.4f},"
+            f"{self.steals_mean:.1f}"
+        )
+
+
+def ci95(xs: Sequence[float]) -> float:
+    """Half-width of the normal 95% confidence interval of the mean."""
+    if len(xs) < 2:
+        return 0.0
+    return 1.96 * float(np.std(xs, ddof=1)) / math.sqrt(len(xs))
 
 
 _GRAPH_CACHE: Dict[tuple, TaskGraph] = {}
@@ -53,6 +86,47 @@ def cached_graph(factory) -> TaskGraph:
         _GRAPH_CACHE.pop(key)
         _GRAPH_CACHE[key] = g
     return g
+
+
+def run_many(
+    graph_factory,
+    machine: MachineModel,
+    strategy_factory,
+    n_runs: int = 30,
+    noise: float = 0.03,
+    base_seed: int = 1234,
+) -> Summary:
+    """Run ``n_runs`` seeded simulations (seeds ``base_seed + i``) and
+    summarize them: mean and 95% CI.
+
+    ``graph_factory`` and ``strategy_factory`` are callables so each run
+    gets a fresh strategy (the history model calibrates within a run); the
+    graph is shared through :func:`cached_graph`. The runs go one after
+    another in this process: a strategy built for the card holds a CUDA
+    context, which a forked worker cannot use. The reference's process
+    pool gives the same summary for any worker count, so nothing is lost.
+    """
+    graph = cached_graph(graph_factory)
+    gf, gb, mk, st = [], [], [], []
+    name = ""
+    for i in range(n_runs):
+        strat = strategy_factory()
+        res = run_simulation(graph, machine, strat, seed=base_seed + i, noise=noise)
+        gf.append(res.gflops)
+        gb.append(res.gbytes)
+        mk.append(res.makespan)
+        st.append(float(res.n_steals))
+        name = strat.name
+    return Summary(
+        strategy=name,
+        n=n_runs,
+        gflops_mean=float(np.mean(gf)),
+        gflops_ci95=ci95(gf),
+        gbytes_mean=float(np.mean(gb)),
+        gbytes_ci95=ci95(gb),
+        makespan_mean=float(np.mean(mk)),
+        steals_mean=float(np.mean(st)),
+    )
 
 
 @dataclass(frozen=True)

@@ -46,4 +46,5 @@ class Simulator(Engine):
             strategy=self.strategy.name,
             total_flops=self._primary.graph.total_flops(),
             n_events=m.n_events,
+            n_steals=m.n_steals,
         )

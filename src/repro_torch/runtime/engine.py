@@ -1,25 +1,28 @@
 """The event-driven XKaapi-like runtime engine.
 
 Reproduces the paper's execution flow (§2.1-2.2):
-  * each worker owns a local ready-queue,
+  * each worker owns a local ready-queue (pop / push / steal),
   * completing a task triggers ``activate`` on its newly-ready successors —
     this is where the scheduling strategy runs,
   * transfers to/from accelerator memories are prefetched when a task is
     pushed, overlap with computation, and contend on shared PCIe-switch
     links (FIFO per link group — :mod:`repro_torch.runtime.transfers`),
+  * idle workers emit steal requests to a randomly selected victim (enabled
+    by strategies with ``allow_steal``: the ``ws`` baseline),
   * the runtime observes real (noisy) durations and feeds the history-based
     performance model, which therefore calibrates online (§2.3).
 
 Counterpart of ``repro.runtime.engine`` on its default path: unbounded
-device memories, no faults, no work stealing, no audit log, no serving
-mode. Several graphs may be submitted before :meth:`Engine.run`; their
-roots are placed in submit order when the run starts.
+device memories, no faults, no audit log, no serving mode. Several graphs
+may be submitted before :meth:`Engine.run`; their roots are placed in
+submit order when the run starts.
 
 Determinism: all randomness flows through one seeded numpy Generator (the
 per-task duration noise of each graph is drawn, in tid order, when the
-graph is submitted). Event posting order, seeded-stream consumption and
-IEEE operation order are those of ``repro``'s engine, so a run here is
-bit-for-bit the reference run.
+graph is submitted; each steal draws its victim from the same stream).
+Event posting order, seeded-stream consumption and IEEE operation order
+are those of ``repro``'s engine, so a run here is bit-for-bit the
+reference run.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ from ..core.perfmodel import (
 )
 from .events import EventQueue
 from .metrics import Metrics, ScheduledInterval, SimResult
-from .queues import Worker
+from .queues import Worker, eligible_victims
 from .transfers import TransferEngine
 
 
@@ -46,6 +49,11 @@ class Strategy:
     """Scheduling strategy interface: placement happens in ``place``."""
 
     name = "base"
+    allow_steal = False
+    owner_lifo = False
+
+    def init(self, sim) -> None:
+        pass
 
     def place(
         self, sim, ready: List[Task], src: Optional[int]
@@ -104,6 +112,8 @@ class Engine:
     ) -> None:
         self.machine = machine
         self.strategy = strategy
+        self._steal_on = strategy.allow_steal
+        self._lifo = strategy.owner_lifo
         self.rng = np.random.default_rng(seed)
         self.noise = noise
         self.model = HistoryPerfModel()
@@ -188,11 +198,36 @@ class Engine:
         )
         self._try_start(w)
 
+    def _steal(self, thief: Worker) -> bool:
+        victims = eligible_victims(self.workers, thief.rid)
+        if not victims:
+            return False
+        v = victims[int(self.rng.integers(len(victims)))]
+        task = v.queue.popleft()  # thief takes the oldest task
+        self.metrics.n_steals += 1
+        thief.queue.append(task)
+        ctx = self._ctx_of[id(task)]
+        self.transfers.prefetch(
+            ctx, task, self._mem_of[thief.rid], self._bit_of[thief.rid], self.now
+        )
+        return True
+
+    def _steal_round(self) -> None:
+        # callers guard on self._steal_on (strategy.allow_steal)
+        progress = True
+        while progress:
+            progress = False
+            for w in self.workers:
+                if w.running is None and not w.queue:
+                    if self._steal(w):
+                        self._try_start(w)
+                        progress = True
+
     def _try_start(self, w: Worker) -> None:
         if w.running is not None or not w.queue:
             return
         rid = w.rid
-        task = w.queue[0]
+        task = w.queue[-1] if self._lifo else w.queue[0]
         ctx = self._ctx_of[id(task)]
         # make sure inputs are (going to be) resident
         mem = self._mem_of[rid]
@@ -213,7 +248,10 @@ class Engine:
         if missing:
             w.blocked_on = missing
             return
-        w.queue.popleft()
+        if self._lifo:
+            w.queue.pop()
+        else:
+            w.queue.popleft()
         w.blocked_on = 0
         tid = task.tid
         # ground-truth duration: per-rid static flops/rate times the
@@ -263,14 +301,20 @@ class Engine:
             self._set_ctx(ctx)
             self.strategy.place(self, newly_ready, rid)
         self._try_start(w)
+        if self._steal_on:
+            self._steal_round()
 
     # ------------------------------------------------------------------
     def _run_loop(self) -> None:
+        self.strategy.init(self)
         for ctx in self._ctxs:
             roots = ctx.graph.roots()
             if roots:
                 self._set_ctx(ctx)
                 self.strategy.place(self, roots, None)
+        steal_on = self._steal_on
+        if steal_on:
+            self._steal_round()
         events = self.events.heap
         heappop = heapq.heappop
         workers = self.workers
@@ -296,6 +340,8 @@ class Engine:
                             w.blocked_on -= 1
                             if w.blocked_on == 0:
                                 self._try_start(w)
+                if steal_on:
+                    self._steal_round()
             else:  # "done"
                 rid, ctx, tid, dur = payload
                 self._complete(rid, ctx, tid, dur)
@@ -326,5 +372,6 @@ class Engine:
                 strategy=self.strategy.name,
                 total_flops=ctx.graph.total_flops(),
                 n_events=self.metrics.n_events,
+                n_steals=self.metrics.n_steals,
             ))
         return out

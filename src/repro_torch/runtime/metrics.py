@@ -1,4 +1,8 @@
-"""Run metrics: counters, execution intervals and :class:`SimResult`."""
+"""Run metrics: counters, execution intervals and :class:`SimResult`.
+
+One :class:`Metrics` instance per engine accumulates the machine-global
+counters (transferred bytes, transfer/steal/event counts, per-worker busy
+time, the interval timeline)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -25,16 +29,28 @@ class SimResult:
     strategy: str
     total_flops: float
     n_events: int = 0
+    n_steals: int = 0
+
+    @property
+    def gflops(self) -> float:
+        if self.makespan <= 0:
+            return 0.0
+        return self.total_flops / self.makespan / 1e9
+
+    @property
+    def gbytes(self) -> float:
+        return self.total_bytes / 1e9
 
 
 class Metrics:
     """Engine-global counters."""
 
-    __slots__ = ("total_bytes", "n_transfers", "n_events", "busy", "intervals")
+    __slots__ = ("total_bytes", "n_transfers", "n_steals", "n_events", "busy", "intervals")
 
     def __init__(self, machine: MachineModel) -> None:
         self.total_bytes = 0
         self.n_transfers = 0
+        self.n_steals = 0
         self.n_events = 0
         self.busy: Dict[int, float] = {r.rid: 0.0 for r in machine.resources}
         self.intervals: List[ScheduledInterval] = []

@@ -1002,3 +1002,45 @@ def test_cuda_run_batch_is_one_launch_per_group(cuda):
     assert se.episode_scan.launches == before + 2
     for a, b in zip(got, want):
         assert a == b
+
+
+# ---------------------------------------------------------------------------
+# the paper's experiment (repro_torch.bench) on the card
+
+@pytest.mark.parametrize("spec", ["heft", "dada?alpha=0.5&use_cp=1"])
+def test_cuda_run_many_equals_cpu(cuda, spec):
+    """Every Summary field of the card's run_many equals the CPU's, and
+    every activation was scored and placed on the card."""
+    import dataclasses
+    from functools import partial
+
+    from repro_torch.bench.common import graphs_for, strategy_for
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.core import run_many
+
+    graph = graphs_for(6, 256)["cholesky"]
+    before = (port.score_activation.launches, sp.dada_place.launches + sp.heft_select.launches)
+    got = run_many(graph, paper_machine(4), partial(strategy_for, spec, "cuda"), n_runs=3)
+    after = (port.score_activation.launches, sp.dada_place.launches + sp.heft_select.launches)
+    want = run_many(graph, paper_machine(4), partial(strategy_for, spec, "cpu"), n_runs=3)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert after[0] - before[0] == after[1] - before[1] > 0
+
+
+@pytest.mark.parametrize("engine", ["exact", "surrogate"])
+def test_cuda_two_engine_sweep(cuda, engine):
+    """fig2's strategies at NT 4 on 2 and 8 GPUs through the sweep: the
+    card's summaries equal the CPU's; the exact engine launches the
+    scorer, the surrogate one episode_scan for the whole figure."""
+    from repro_torch.bench.common import STRATEGIES, sweep_summaries
+
+    before = (port.score_activation.launches, se.episode_scan.launches)
+    got = sweep_summaries("cholesky", STRATEGIES, 2, (2, 8), engine=engine, nt=4, tile=256)
+    launched = (port.score_activation.launches - before[0], se.episode_scan.launches - before[1])
+    want = sweep_summaries("cholesky", STRATEGIES, 2, (2, 8), engine=engine, device="cpu",
+                           nt=4, tile=256)
+    assert got == want
+    assert launched == ((launched[0], 0) if engine == "exact" else (0, 1))
+    assert launched[0] > 0 or engine == "surrogate"
+    ws = [s for _, label, s in got if label == "ws"]
+    assert ws and (engine == "surrogate" or all(s.steals_mean > 0 for s in ws))

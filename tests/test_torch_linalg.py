@@ -218,7 +218,7 @@ def test_execute_graph_matches_reference(kernel):
         assert err < bound, (kernel, err, bound)
 
 
-@pytest.mark.parametrize("spec", ["heft", "dada?alpha=0.5", "dada?alpha=1.0&use_cp=1"])
+@pytest.mark.parametrize("spec", ["heft", "ws", "dada?alpha=0.5", "dada?alpha=1.0&use_cp=1"])
 @pytest.mark.parametrize("kernel", list(FACTORIZATIONS))
 def test_schedule_replay_equals_program_order(kernel, spec):
     """Replaying a simulated schedule gives exactly the numbers of program
@@ -227,7 +227,9 @@ def test_schedule_replay_equals_program_order(kernel, spec):
     _, build, _, gen = FACTORIZATIONS[kernel]
     a = gen(N, seed=3, device="cpu")
     want = T.join_tiles(execute_graph(build(NT, TILE), T.split_tiles(a, TILE)), NT, TILE)
-    res = run_simulation(build(NT, TILE), paper_machine(2), resolve(spec, device="cpu"), seed=7)
+    # ws scores nothing and takes no device
+    strategy = resolve("ws") if spec == "ws" else resolve(spec, device="cpu")
+    res = run_simulation(build(NT, TILE), paper_machine(2), strategy, seed=7)
     got = T.join_tiles(execute_schedule(build(NT, TILE), T.split_tiles(a, TILE), res), NT, TILE)
     assert torch.equal(got, want)
 

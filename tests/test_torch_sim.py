@@ -5,7 +5,8 @@ busy times, every execution interval) equals ``repro``'s numpy-path
 fingerprint over the matrix of ``tests/test_backend.py`` — {cholesky, lu,
 qr} × {heft, dada(0), dada(0.5), dada(0.5)+cp} × {0, 3, 8} GPUs × seeds
 {0, 7} at NT 6, tile 256 — with every activation scored by the backend
-(``min_wide=1``). So do the accepted λ and loads, the graph builders
+(``min_wide=1``), and so does the work-stealing baseline ``ws``, steals
+counted. So do the accepted λ and loads, the graph builders
 (task by task), the reference's random graphs and machines brought across
 by ``repro_torch.convert``, the host path (``min_wide`` above every
 activation) and a two-graph engine run."""
@@ -19,6 +20,7 @@ from repro.core import DADA as RefDADA
 from repro.core import HEFT as RefHEFT
 from repro.core import run_simulation as ref_run_simulation
 from repro.core.machine import make_machine as ref_make_machine
+from repro.runtime.queues import WorkSteal as RefWorkSteal
 from repro.linalg.cholesky import cholesky_graph as ref_cholesky_graph
 from repro.linalg.lu import lu_graph as ref_lu_graph
 from repro.linalg.qr import qr_graph as ref_qr_graph
@@ -28,6 +30,7 @@ from repro_torch.core import DADA, HEFT, run_simulation
 from repro_torch.linalg.cholesky import cholesky_graph
 from repro_torch.linalg.lu import lu_graph
 from repro_torch.linalg.qr import qr_graph
+from repro_torch.runtime.queues import WorkSteal
 from repro_torch.sched import resolve
 
 KERNELS = {
@@ -44,6 +47,8 @@ STRATEGIES = {
         lambda: RefDADA(alpha=0.5, use_cp=True, backend="numpy"),
         lambda **kw: DADA(alpha=0.5, use_cp=True, **kw),
     ),
+    # ws scores nothing: it takes no device and no min_wide
+    "ws": (RefWorkSteal, lambda **kw: WorkSteal()),
 }
 
 
@@ -54,11 +59,13 @@ def _fingerprint(res):
         res.n_transfers,
         tuple(sorted(res.busy.items())),
         tuple((iv.tid, iv.rid, iv.start, iv.end) for iv in res.intervals),
+        res.n_steals,
     )
 
 
 def _ref_fingerprint(res):
-    assert res.n_steals == 0  # HEFT and DADA place every task; none steal
+    if res.strategy != "ws":
+        assert res.n_steals == 0  # HEFT and DADA place every task; none steal
     return _fingerprint(res)
 
 
@@ -102,6 +109,26 @@ def test_port_matches_reference(kernel, strat, n_gpus, seed):
     assert _fingerprint(b) == _ref_fingerprint(a)
     assert b.strategy == a.strategy
     assert b.total_flops == a.total_flops and b.n_events == a.n_events
+    assert (b.gflops, b.gbytes) == (a.gflops, a.gbytes)
+    if strat == "ws":
+        assert b.n_steals > 0  # steals happen on every machine here, 0 GPUs included
+
+
+def test_ws_two_graphs_like_reference():
+    """Steal rounds across two submitted graphs: a thief may take the other
+    graph's task, and the LIFO owner pop reheads across graphs."""
+    from repro.runtime import Engine as RefEngine
+    from repro_torch.runtime import Engine
+
+    ref_eng = RefEngine(ref_paper_machine(4), RefWorkSteal(), seed=11)
+    ref_eng.submit(ref_cholesky_graph(5, 256, with_fns=False))
+    ref_eng.submit(ref_qr_graph(4, 256, with_fns=False))
+    eng = Engine(paper_machine(4), WorkSteal(), seed=11)
+    eng.submit(cholesky_graph(5, 256))
+    eng.submit(qr_graph(4, 256))
+    ref_res, res = ref_eng.run(), eng.run()
+    assert [_fingerprint(r) for r in res] == [_fingerprint(r) for r in ref_res]
+    assert res[0].n_steals > 0
 
 
 def test_lambda_and_loads_match():
