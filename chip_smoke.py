@@ -22,20 +22,29 @@ non-zero and no phase carries on past its own failure):
               versions on seeded inputs (n_pad 8..256, r_pad 1..4, n_u
               9/25/30, with empty masks, host-only masks and padded reads),
               exactly equal, and its times at the widest shape;
-  3. place    the placement kernels (dada_place: DADA's λ search;
-              heft_select: HEFT's EFT scan) against their plain versions on
-              seeded packed activations (tests/_place_cases.py, the card
-              tests' builder): n 1 / 3 / 37 / 128 / 256 on CPU+GPU,
-              GPU-only and CPU-only machines (2..130 resources), α 0 / 0.5 /
-              1, ±CP, ±area bound, max_iters 1 and 30, values on a 1/8 grid
-              (ties), empty affinity rows, finish times a few ulps apart
-              (HEFT's 1e-15 rule): every placement buffer must be equal bit
-              for bit (torch.equal), λ and the finish times ==. Then at the
-              main path's widest activation (n 128, LU NT 64): each kernel's
-              ms per launch, device ms from a CUDA-graph replay, the plain
-              version's ms on the host, a whole place_dada / place_heft call
-              (card and CPU), the bound, and the ptxas registers, shared
-              memory and spills of sched_place.cu;
+  3. place    the placement kernels (dada_place: DADA's λ search as a
+              speculative midpoint tree over one block's warps;
+              heft_select: HEFT's EFT scan from staged shared memory)
+              against their plain versions on seeded packed activations
+              (tests/_place_cases.py, shared with the card tests): n 1 / 3 /
+              37 / 128 / 256 on CPU+GPU, GPU-only and CPU-only machines
+              (2..130 resources), α 0 / 0.5 / 1, ±CP, ±area bound,
+              max_iters 1 and 30, values on a 1/8 grid (ties), empty
+              affinity rows, finish times a few ulps apart (HEFT's 1e-15
+              rule); searches cut short inside a tree round (max_iters 2..7,
+              the stopping rule between levels); DADA at n 1 000..8 000
+              (every staging level, shallower trees) and HEFT's ring (n
+              4 000 at 440 resources, 512 resources): every placement
+              buffer must be equal bit for bit (torch.equal), λ and the
+              finish times ==. The launchers' plans (tree depth, staging,
+              ring) must equal PlaceSpec.plan; prints d and the ptxas
+              registers, shared memory and spills of sched_place.cu. Then
+              at n 8 / 32 / 128 / 512 of LU NT 64 on paper_machine(8) (n 128
+              is the main path's widest activation): each kernel's ms per
+              launch, device ms from a CUDA-graph replay, d, probes and
+              rounds, the plain version's ms on the host, a whole
+              place_dada / place_heft call (card and CPU), the bound and the
+              length of the dependent chain;
   4. main     HEFT and DADA(0.5)+CP on the paper machine with 8 GPUs over
               the Cholesky, LU and QR tile DAGs at NT 16 (tile 512, the
               paper's shape) and NT 64 (the reference's scaling size), every
@@ -98,7 +107,8 @@ non-zero and no phase carries on past its own failure):
               smoke configs served on the card against the CPU at f32;
   9. profile  one NT 16 Cholesky simulation per strategy under
               torch.profiler (twice with one strategy object; the second is
-              read): device busy time against wall time, and per placed
+              read): device busy time against wall time, each placement
+              kernel's device time summed over the run, and per placed
               activation the kernel launches (must be 2) and memcpy calls
               (must be 2), with no other kernel, memcpy or memset on the
               card;
@@ -216,6 +226,13 @@ ATTN_CASES = [
 PLACE_MACHINES = {"paper": [False] * 4 + [True] * 8, "gpu40": [True] * 40, "cpu2": [False] * 2,
                   "cpu1gpu1": [False, True], "mixed130": [i % 3 != 0 for i in range(130)]}
 PLACE_N = (1, 3, 37, 128, 256)
+# DADA's wide activations on paper_machine(8): C and the task vectors staged
+# (1 000), the task vectors only (1 500), nothing (4 000, depth 4; 8 000,
+# depth 2); HEFT's ring (n, n_res) and one pass at 440 resources
+PLACE_WIDE_N = (1000, 1500, 4000, 8000)
+PLACE_HEFT_RING = ((4000, 440), (2000, 14), (100, 512), (3, 440))
+# the widths of the place phase's timing rows (LU NT 64's ready tasks)
+PLACE_WIDTHS = (8, 32, 128, 512)
 # the card's wall s of each main-path run in PR 18's final run (PERF.md §5),
 # by (graph, NT, strategy, min_wide): printed beside this run's for the
 # reader, never put in the kernels line
@@ -378,10 +395,22 @@ def place_check(sp, dev):
     matrix (seeded activations of ``tests/_place_cases.py``, packed as the
     backend packs them); returns (cases, max |kernel - plain| over λ, loads
     and finish times)."""
-    from _place_cases import dada_case, heft_case, packed_dada, packed_heft
+    from _place_cases import MID_ROUND, dada_case, heft_case, packed_dada, packed_heft
 
     n_cases, max_err = 0, 0.0
     cases = []
+    # searches cut short inside a round of the midpoint tree, wide
+    # activations (every staging level, shallower trees), HEFT's ring
+    for n in (37, 128):
+        for accel in PLACE_MACHINES.values():
+            for seed, max_iters, eps_rel in MID_ROUND:
+                cases.append(("dada", packed_dada(dada_case(seed, n=n, accel=accel,
+                                                            max_iters=max_iters, eps_rel=eps_rel))))
+    for n in PLACE_WIDE_N:
+        for seed in (0, 4, 9, 13):
+            cases.append(("dada", packed_dada(dada_case(seed, n=n, accel=PLACE_MACHINES["paper"]))))
+    for n, n_res in PLACE_HEFT_RING:
+        cases.append(("heft", packed_heft(heft_case(len(cases), n=n, n_res=n_res))))
     for n in PLACE_N:
         for accel in PLACE_MACHINES.values():
             for alpha in (0.0, 0.5, 1.0):
@@ -419,6 +448,130 @@ def place_check(sp, dev):
         max_err = max([max_err] + diffs)
         n_cases += 1
     return n_cases, max_err
+
+
+def place_plan_check(sp):
+    """PlaceSpec.plan (the Python mirror) against the launchers' own plan
+    (repro_place_plan) at the shapes this phase launches; returns the plans
+    of the main path's widest activation (n 128 on paper_machine(8)).
+    tests/test_torch_cuda.py checks the envelope's edges."""
+    import ctypes
+
+    got = (ctypes.c_int64 * 4)()
+    shapes = [("dada", n, 12, 4, 8, 0) for n in PLACE_WIDTHS + PLACE_WIDE_N]
+    shapes += [("heft", n, 12, 0, 0, 2) for n in PLACE_WIDTHS]
+    shapes += [("heft", n, n_res, 0, 0, 2) for n, n_res in PLACE_HEFT_RING]
+    for kind, n, n_res, n_cpu, n_gpu, n_cls in shapes:
+        spec = sp.PlaceSpec(kind, n, n_res, n_cpu=n_cpu, n_gpu=n_gpu, n_cls=n_cls)
+        err = sp._lib.repro_place_plan(int(kind == "heft"), n, n_res, n_cpu, n_gpu, n_cls, got)
+        if err != 0 or tuple(got[:3]) != spec.plan:
+            raise SystemExit(f"the launcher's plan {tuple(got)} (err {err}) differs from "
+                             f"PlaceSpec.plan {spec.plan} at {spec}")
+    dada = sp.PlaceSpec("dada", 128, 12, n_cpu=4, n_gpu=8).plan
+    heft = sp.PlaceSpec("heft", 128, 12, n_cls=2).plan
+    print(f"launch plans equal PlaceSpec.plan on {len(shapes)} shapes; at n 128 on "
+          f"paper_machine(8): dada_place depth d={dada[0]} ({(1 << dada[0]) - 1} warps), staging "
+          f"level {dada[1]}, {dada[2]} B shared; heft_select {heft[0]} tasks a buffer x {heft[1]} "
+          f"buffer(s), {heft[2]} B shared")
+    return {"dada_place": dict(zip(("depth", "stage", "smem_bytes"), dada)),
+            "heft_select": dict(zip(("group", "buffers", "smem_bytes"), heft))}
+
+
+def place_timing(sp, ss, name, spec, sim, tids, machine, resolve, dev, place_ptxas):
+    """One placement kernel at one activation of ``sim`` (the tasks
+    ``tids``, the strategy's own preamble): ms per launch (CUDA events),
+    device ms from a CUDA-graph replay, the plain version's ms on the host,
+    a whole place_dada / place_heft call on the card and on the CPU, the
+    bound, the plan, and (DADA) probes and rounds of the tree. Checks the
+    kernel and both calls against the plain placement."""
+    strategy, cpu_strategy = resolve(spec), resolve(spec, device="cpu")
+    res = machine.resources
+    if name == "dada_place":
+        p_cpu, p_gpu, section = strategy.preamble(sim, tids)
+        pspec = sp.PlaceSpec("dada", len(tids), len(res), n_cpu=len(machine.cpus),
+                             n_gpu=len(machine.gpus))
+        score_kw = dict(p_cpu=p_cpu, p_gpu=p_gpu, use_cp=True, affinity="accel_write")
+        call_kw = dict(score_kw, area_bound=False, **section)
+    else:
+        scan = strategy.preamble(sim, tids)
+        pspec = sp.PlaceSpec("heft", len(tids), len(res), n_cls=len(scan["durations"]))
+        score_kw = dict(use_cp=True, x_rows=True)
+        call_kw = scan
+    layout, packed, mach = strategy.backend.pack(sim, tids, res, place=pspec, **score_kw)
+    if name == "dada_place":
+        sp.pack_dada(packed.numpy(), layout, tids=tids, **section)
+    else:
+        sp.pack_heft(packed.numpy(), layout, **scan)
+    kernel = getattr(sp, name)
+    cpu_in = packed.clone()
+    cpu_scores = ss.score_activation(cpu_in[:layout.score.n_in], layout.score, mach.cpu())
+    d_in = cpu_in.to(dev)
+    d_scores = ss.score_activation(d_in[:layout.score.n_in], layout.score, mach)
+    d_out = torch.empty(layout.n_out, dtype=torch.int64, device=dev)
+    want = kernel(cpu_in, cpu_scores, layout)
+    kernel(d_in, d_scores, layout, out=d_out)
+    if not torch.equal(d_out.cpu(), want):
+        raise SystemExit(f"{name} disagrees with its plain version at n {len(tids)}")
+    ms = time_ms(lambda: kernel(d_in, d_scores, layout, out=d_out))
+    device_ms = graph_ms(lambda: kernel(d_in, d_scores, layout, out=d_out))
+    reps = 20 if len(tids) <= 128 else 5
+    w0 = time.perf_counter()
+    for _ in range(reps):
+        kernel(cpu_in, cpu_scores, layout)
+    plain_ms = (time.perf_counter() - w0) / reps * 1e3
+    call = {}  # a whole place_dada / place_heft call, card and CPU
+    method = "place_dada" if name == "dada_place" else "place_heft"
+    for d, st in (("cuda", strategy), ("cpu", cpu_strategy)):
+        fn = getattr(st.backend, method)
+        for _ in range(10):
+            fn(sim, tids, res, **call_kw)
+        reps = 300 if d == "cuda" else (50 if len(tids) <= 128 else 10)
+        w0 = time.perf_counter()
+        for _ in range(reps):
+            got = fn(sim, tids, res, **call_kw)
+        call[d] = (time.perf_counter() - w0) / reps * 1e3
+        if got != sp.read_placement(want.numpy(), layout):
+            raise SystemExit(f"{method} on {d} differs from the plain placement")
+    n, n_res = len(tids), len(res)
+    got = sp.read_placement(want.numpy(), layout)
+    plan = layout.spec.plan
+    # bytes: the scorer outputs read (C, S, the row maxima; X for HEFT),
+    # the class durations and the section read, the placement written;
+    # operations (f64, compares counted): per probe and task one addition
+    # and one compare per candidate resource, plus the preference scan
+    # and the bound (DADA); three additions and two compares per task and
+    # resource (HEFT). The dependent chain: rounds x tasks (DADA: a round
+    # places the tasks one after another), tasks (HEFT)
+    sec = layout.n_in - layout.score.n_in
+    if name == "dada_place":
+        nbytes = 8 * (2 * n * n_res + n + 2 * n + sec + layout.n_out)
+        ops = max(got.iters, 1) * 2 * n * n_res + n * n_res + n
+        rounds = -(-got.iters // plan[0]) if got.iters else 1
+        chain = rounds * n
+    else:
+        nbytes = 8 * (n * n_res + sec + layout.n_out)
+        ops = 5 * n * n_res
+        rounds = None
+        chain = n
+    bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / H100_FP64_FLOPS * 1e3
+    row = dict(
+        n=n, n_res=n_res, plan=list(plan), iters=getattr(got, "iters", None), rounds=rounds,
+        chain_steps=chain, ms=ms, device_ms=device_ms, plain_ms=plain_ms, call_ms=call["cuda"],
+        cpu_call_ms=call["cpu"], bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes, flop=ops,
+        smem_bytes=layout.spec.smem_bytes,
+        ptxas=[r for r in place_ptxas if name.split("_")[0] in r["function"]],
+    )
+    tree = (f"depth d={plan[0]}, staging level {plan[1]}, probes {got.iters}, rounds {rounds}"
+            if name == "dada_place" else f"{plan[0]} tasks a buffer x {plan[1]} buffer(s)")
+    print(f"{name} at n={n} n_res={n_res} (LU NT 64's first {n} tasks): kernel {ms:.6f} ms per "
+          f"launch ({device_ms:.6f} ms on the device, from a CUDA graph), plain {plain_ms:.6f} ms "
+          f"on the host; a whole {method} call {call['cuda']:.6f} ms on the card, "
+          f"{call['cpu']:.6f} ms with device='cpu'; bound {row['bound_ms']:.3e} ms ({nbytes} "
+          f"bytes, {ops} flop); dependent chain {chain} steps; {tree}; dynamic smem "
+          f"{layout.spec.smem_bytes} B", flush=True)
+    return row
 
 
 def launch_counts(prof):
@@ -1631,87 +1784,19 @@ def main() -> int:
     place_cases, place_max_err = place_check(sp, dev)
     print(f"dada_place and heft_select exactly equal to their plain versions on {place_cases} cases "
           f"(max |err| {place_max_err})")
-    place_rows = {}
-    for name, spec in (("dada_place", "dada?alpha=0.5&use_cp=1"), ("heft_select", "heft")):
-        # the main path's widest activation again (n 128, LU NT 64), with
-        # the strategy's own host preamble
-        strategy, cpu_strategy = resolve(spec), resolve(spec, device="cpu")
-        res = machine.resources
-        if name == "dada_place":
-            p_cpu, p_gpu, section = strategy.preamble(lu_sim, tids)
-            pspec = sp.PlaceSpec("dada", len(tids), len(res), n_cpu=len(machine.cpus),
-                                 n_gpu=len(machine.gpus))
-            score_kw = dict(p_cpu=p_cpu, p_gpu=p_gpu, use_cp=True, affinity="accel_write")
-            call_kw = dict(score_kw, area_bound=False, **section)
-        else:
-            scan = strategy.preamble(lu_sim, tids)
-            pspec = sp.PlaceSpec("heft", len(tids), len(res), n_cls=len(scan["durations"]))
-            score_kw = dict(use_cp=True, x_rows=True)
-            call_kw = scan
-        layout, packed, mach = strategy.backend.pack(lu_sim, tids, res, place=pspec, **score_kw)
-        if name == "dada_place":
-            sp.pack_dada(packed.numpy(), layout, tids=tids, **section)
-        else:
-            sp.pack_heft(packed.numpy(), layout, **scan)
-        kernel = getattr(sp, name)
-        cpu_in = packed.clone()
-        cpu_scores = ss.score_activation(cpu_in[:layout.score.n_in], layout.score, mach.cpu())
-        d_in = cpu_in.to(dev)
-        d_scores = ss.score_activation(d_in[:layout.score.n_in], layout.score, mach)
-        d_out = torch.empty(layout.n_out, dtype=torch.int64, device=dev)
-        want = kernel(cpu_in, cpu_scores, layout)
-        kernel(d_in, d_scores, layout, out=d_out)
-        if not torch.equal(d_out.cpu(), want):
-            raise SystemExit(f"{name} disagrees with its plain version at the widest activation")
-        ms = time_ms(lambda: kernel(d_in, d_scores, layout, out=d_out))
-        device_ms = graph_ms(lambda: kernel(d_in, d_scores, layout, out=d_out))
-        w0 = time.perf_counter()
-        for _ in range(20):
-            kernel(cpu_in, cpu_scores, layout)
-        plain_ms = (time.perf_counter() - w0) / 20 * 1e3
-        call = {}  # a whole place_dada / place_heft call, card and CPU
-        method = "place_dada" if name == "dada_place" else "place_heft"
-        for d, st in (("cuda", strategy), ("cpu", cpu_strategy)):
-            fn = getattr(st.backend, method)
-            for _ in range(20):
-                fn(lu_sim, tids, res, **call_kw)
-            reps = 300 if d == "cuda" else 50
-            w0 = time.perf_counter()
-            for _ in range(reps):
-                got = fn(lu_sim, tids, res, **call_kw)
-            call[d] = (time.perf_counter() - w0) / reps * 1e3
-            if got != sp.read_placement(want.numpy(), layout):
-                raise SystemExit(f"{method} on {d} differs from the plain placement")
-        n, n_res = len(tids), len(res)
-        got = sp.read_placement(want.numpy(), layout)
-        # bytes: the scorer outputs read (C, S, the row maxima; X for HEFT),
-        # the class durations and the section read, the placement written;
-        # operations (f64, compares counted): per probe and task one addition
-        # and one compare per candidate resource, plus the preference scan
-        # and the bound (DADA); three additions and two compares per task and
-        # resource (HEFT)
-        sec = layout.n_in - layout.score.n_in
-        if name == "dada_place":
-            nbytes = 8 * (2 * n * n_res + n + 2 * n + sec + layout.n_out)
-            ops = (got.iters + 1) * 2 * n * n_res + n * n_res + n
-        else:
-            nbytes = 8 * (n * n_res + sec + layout.n_out)
-            ops = 5 * n * n_res
-        bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / H100_FP64_FLOPS * 1e3
-        place_rows[name] = dict(
-            n=n, n_res=n_res, iters=getattr(got, "iters", None), ms=ms, device_ms=device_ms,
-            plain_ms=plain_ms, call_ms=call["cuda"], cpu_call_ms=call["cpu"],
-            bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            bytes=nbytes, flop=ops, smem_bytes=layout.spec.smem_bytes,
-            ptxas=[r for r in place_ptxas if name.split("_")[0] in r["function"]],
-        )
-        print(f"{name} at n={n} n_res={n_res} (LU NT 64, {spec}): kernel {ms:.6f} ms per launch "
-              f"({device_ms:.6f} ms on the device, from a CUDA graph), plain {plain_ms:.6f} ms on "
-              f"the host; a whole {method} call {call['cuda']:.6f} ms on the card, "
-              f"{call['cpu']:.6f} ms with device='cpu'; bound {place_rows[name]['bound_ms']:.3e} ms "
-              f"({nbytes} bytes, {ops} flop); probes {place_rows[name]['iters']}; "
-              f"dynamic smem {layout.spec.smem_bytes} B; ptxas {place_rows[name]['ptxas']}")
+    place_plan = place_plan_check(sp)
+    for row in place_ptxas:  # registers and spills of each instantiation
+        print(f"place ptxas: {row}")
+    place_rows, place_by_width = {}, {"dada_place": [], "heft_select": []}
+    for width in PLACE_WIDTHS:
+        for name, spec in (("dada_place", "dada?alpha=0.5&use_cp=1"), ("heft_select", "heft")):
+            # LU NT 64's first `width` ready tasks, with the strategy's own
+            # host preamble; n 128 is the main path's widest activation
+            row = place_timing(sp, ss, name, spec, lu_sim, list(range(width)), machine, resolve,
+                               dev, place_ptxas)
+            place_by_width[name].append(row)
+            if width == 128:
+                place_rows[name] = row
     del lu_sim, tids
     done("place", t0)
 
@@ -1971,17 +2056,23 @@ def main() -> int:
                 res = sim.run()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - w0
-        busy_us, _ = device_time(prof)
+        busy_us, by_kernel = device_time(prof)
         counts = launch_counts(prof)
         per_act = {k: v / placed[0] for k, v in counts.items()}
+        # each placement kernel's device time summed over the run
+        place_sums = {k: sum(us for key, us in by_kernel if f"{k}_kernel" in key) / 1e3
+                      for k in ("dada_place", "heft_select")}
         launch_structure[res.strategy] = dict(
             placed=placed[0], wall_s=wall, device_busy_s=busy_us / 1e6,
-            device_idle_share=1.0 - busy_us / 1e6 / wall, counts=counts, per_activation=per_act)
+            device_idle_share=1.0 - busy_us / 1e6 / wall, counts=counts, per_activation=per_act,
+            place_kernel_device_ms=place_sums)
         print(
             f"profile graph=cholesky NT=16 strategy={res.strategy} wall_s={wall:.6f} "
             f"device_busy_s={busy_us / 1e6:.6f} device_idle_share="
             f"{1.0 - busy_us / 1e6 / wall:.4f} placed={placed[0]} counts={counts} "
-            f"per_activation={ {k: round(v, 4) for k, v in per_act.items()} }",
+            f"per_activation={ {k: round(v, 4) for k, v in per_act.items()} } "
+            f"placement kernel device ms summed over the run: {place_sums} "
+            f"({sum(place_sums.values()) / placed[0] * 1e3:.3f} us a placed activation)",
             flush=True,
         )
         # the runtime calls are counted exactly; the device-side trace may
@@ -2054,7 +2145,11 @@ def main() -> int:
         "bound_by": place_rows["dada_place"]["bound_by"],
         "library_ms": None,
         "shape": "n 128, LU NT 64, DADA(0.5)+CP's call (heft_select: HEFT's call)",
+        "redesigned": 22,
+        "plan": place_plan,
         "by_kernel": place_rows,
+        "by_width": place_by_width,
+        "profile_device_ms": {k: v["place_kernel_device_ms"] for k, v in launch_structure.items()},
         "main_runs": main_rows,
     }, {
         "name": "transfer_matrix",

@@ -76,7 +76,59 @@ PLACE_F64 = frozenset((
 PLACE_WANT_S, PLACE_WANT_X, PLACE_AREA_BOUND = 1, 2, 4
 SMEM_LIMIT = 232448  # shared memory one block may use on an H100
 DADA_MAX_RES = 256  # the DADA kernel's registers hold up to 8 rids a lane
+# the DADA kernel's deepest midpoint tree (2^d - 1 warps) by rids a lane
+# (1, 2, 4, 8): 31 warps leave 64 registers a thread, 15 leave 128
+DADA_MAX_DEPTH = (5, 5, 5, 4)
+HEFT_MAX_RES = 512  # the HEFT kernel's registers hold up to 16 time stamps a lane
+HEFT_GROUP = 32  # tasks a buffer of the HEFT kernel's ring holds at most
+HEFT_THREADS = 256
 STATUS_OK, STATUS_INFEASIBLE = 0, 1
+
+
+def _slot_class(n_res: int) -> int:
+    """Rids a lane, rounded up to a power of two, as its exponent."""
+    return max(0, ((n_res + 31) // 32 - 1).bit_length())
+
+
+def dada_smem(n: int, n_res: int, depth: int, stage: int) -> int:
+    """The DADA kernel's shared memory (``dada_smem`` of csrc/sched_place.cu)
+    at tree depth ``depth`` and staging level ``stage`` (0: nothing staged;
+    1: the task vectors; 2: those and C): f64 words for the worst sum, the
+    offsets, the preference scores, [p_cpu, p_gpu, x_max, tids,
+    flex_order], [C]; int32 words for the chains, the preferred rids, the
+    heads, each rid's position in the CPU / GPU list and two rounds of
+    verdicts; one int16 rid a task for each of the 2^depth - 1 warps."""
+    f64 = 1 + n_res + n + (5 * n if stage >= 1 else 0) + (n * n_res if stage >= 2 else 0)
+    i32 = 2 * n + 3 * n_res + 64
+    return 8 * f64 + 4 * i32 + 2 * ((1 << depth) - 1) * n
+
+
+def dada_plan(n: int, n_res: int, n_cpu: int, n_gpu: int) -> Optional[Tuple[int, int, int]]:
+    """(depth, stage, shared bytes) of the DADA kernel (``dada_plan`` of
+    csrc/sched_place.cu): the deepest tree whose unstaged layout fits, then
+    the most staging that fits beside it; None beyond the kernel."""
+    if n < 1 or n_res < 1 or n_res > DADA_MAX_RES or n_cpu + n_gpu < 1:
+        return None
+    for depth in range(DADA_MAX_DEPTH[_slot_class(n_res)], 0, -1):
+        if dada_smem(n, n_res, depth, 0) <= SMEM_LIMIT:
+            stage = next(s for s in (2, 1, 0) if dada_smem(n, n_res, depth, s) <= SMEM_LIMIT)
+            return depth, stage, dada_smem(n, n_res, depth, stage)
+    return None
+
+
+def heft_plan(n: int, n_res: int, n_cls: int) -> Optional[Tuple[int, int, int]]:
+    """(tasks a buffer, buffers, shared bytes) of the HEFT kernel
+    (``heft_plan`` of csrc/sched_place.cu): one pass (X, the class
+    durations and the order as they lie) where it fits, else a ring of two
+    buffers of up to 32 tasks' X and duration rows; None beyond the
+    kernel."""
+    if n < 1 or n_res < 1 or n_res > HEFT_MAX_RES or n_cls < 1:
+        return None
+    one = 8 * (n * n_res + n_cls * n + n)
+    if one <= SMEM_LIMIT:
+        return n, 1, one
+    group = min(HEFT_GROUP, SMEM_LIMIT // (32 * n_res))
+    return (group, 2, 32 * group * n_res) if group >= 1 else None
 
 
 @dataclass(frozen=True)
@@ -116,18 +168,32 @@ class PlaceSpec:
                 raise ValueError("n_cpu, n_gpu and area_bound are DADA's")
 
     @property
+    def plan(self) -> Optional[Tuple[int, int, int]]:
+        """The kernel's launch plan, as its launcher computes it: DADA's
+        (tree depth, staging level, shared bytes) or HEFT's (tasks a
+        buffer, buffers, shared bytes); None beyond the kernel."""
+        if self.kind == "heft":
+            return heft_plan(self.n, self.n_res, self.n_cls)
+        return dada_plan(self.n, self.n_res, self.n_cpu, self.n_gpu)
+
+    @property
     def smem_bytes(self) -> int:
-        """Dynamic shared memory of the kernel (csrc/sched_place.cu)."""
-        if self.kind == "heft":  # the time stamps, the candidates, 32 staged rows of each
-            return 16 * 33 * self.n_res
-        return 16 * self.n + 4 * (3 * self.n + 3 * self.n_res + self.n_cpu + self.n_gpu)
+        """Dynamic shared memory of the kernel (csrc/sched_place.cu): the
+        plan's, or beyond the kernel its least layout (DADA: one warp,
+        nothing staged; HEFT: a ring of one task a buffer)."""
+        plan = self.plan
+        if plan is not None:
+            return plan[2]
+        if self.kind == "heft":
+            return 32 * self.n_res
+        return dada_smem(self.n, self.n_res, 1, 0)
 
     @property
     def fits_kernel(self) -> bool:
-        """Whether the kernel takes it: its shared memory within the
-        card's limit and, for DADA, at most 256 resources (8 a lane, the
-        loads held in registers)."""
-        return self.smem_bytes <= SMEM_LIMIT and (self.kind == "heft" or self.n_res <= DADA_MAX_RES)
+        """Whether the kernel takes it: a plan within the card's shared
+        memory and, for DADA, at most 256 resources (8 a lane, the loads in
+        registers); for HEFT, at most 512 (16 time stamps a lane)."""
+        return self.plan is not None
 
 
 @functools.lru_cache(maxsize=4096)
@@ -521,6 +587,8 @@ def build() -> str:
         + [ctypes.c_void_p]
     )
     lib.repro_heft_select.restype = ctypes.c_int
+    lib.repro_place_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64)]
+    lib.repro_place_plan.restype = ctypes.c_int
     _lib = lib
     return _build_log
 
@@ -548,7 +616,8 @@ def _check(kind, packed_in, scores, layout, out) -> torch.device:
         raise ValueError(
             f"{kind} placement of {layout.spec.n} tasks x {layout.spec.n_res} resources is "
             f"beyond the kernel: {layout.spec.smem_bytes} bytes of shared memory (at most "
-            f"{SMEM_LIMIT}), at most {DADA_MAX_RES} resources for DADA"
+            f"{SMEM_LIMIT}), at most {DADA_MAX_RES} resources for DADA and {HEFT_MAX_RES} "
+            f"for HEFT"
         )
     return dev
 

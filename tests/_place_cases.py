@@ -28,11 +28,12 @@ def _q(rng, shape, hi, zeros=0.0):
 
 
 def dada_case(seed, n=None, accel=None, alpha=None, use_cp=None, area_bound=None,
-              max_iters=None):
+              max_iters=None, eps_rel=None):
     """A seeded DADA activation: the inputs of both searches. ``n`` ready
     tasks (default 1..8) on a machine of resource classes ``accel`` (by
     position, True for an accelerator); the machine, ``alpha``, ``use_cp``,
-    ``area_bound`` and ``max_iters`` default to choices by the seed."""
+    ``area_bound``, ``max_iters`` and ``eps_rel`` default to choices by the
+    seed."""
     rng = np.random.default_rng(seed)
     if accel is None:
         accel = MACHINES[("both", "cpu", "gpu")[seed % 3]]
@@ -69,10 +70,18 @@ def dada_case(seed, n=None, accel=None, alpha=None, use_cp=None, area_bound=None
         max_off=max(offsets), sum_max=sum(max(pc, pg) for pc, pg in zip(p_cpu, p_gpu)),
         area=sum(min(pc, pg) for pc, pg in zip(p_cpu, p_gpu)) if area_bound else 0.0,
         off_total=sum(offsets) if area_bound else 0.0,
-        eps_rel=(0.01, 1e-3)[seed % 2], max_iters=max_iters,
+        eps_rel=(0.01, 1e-3)[seed % 2] if eps_rel is None else eps_rel, max_iters=max_iters,
         cpu_rids=[j for j, a in enumerate(accel) if not a],
         gpu_rids=[j for j, a in enumerate(accel) if a],
     )
+
+
+# searches that stop partway through a round of the depth-5 midpoint tree:
+# by the iteration limit (2..7 probes) or, with a wide tolerance, by the
+# stopping rule between two levels; (seed, max_iters, eps_rel)
+MID_ROUND = [(seed, max_iters, eps_rel) for max_iters in range(2, 8)
+             for eps_rel in (0.01, 0.3) for seed in (max_iters, 40 + max_iters)] + [
+    (seed, 30, eps_rel) for eps_rel in (0.02, 0.05, 0.1, 0.2, 0.45) for seed in (7, 19, 23)]
 
 
 def plain_kwargs(case):

@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from _episode_cases import FIGURE_SPECS, case_graph, cases, configs, plan_and_batch, tile_graph
-from _place_cases import MACHINES, dada_case, heft_case, packed_dada, packed_heft
+from _place_cases import MACHINES, MID_ROUND, dada_case, heft_case, packed_dada, packed_heft
 from repro_torch.core import episode as ep
 from repro_torch.core import run_batch
 from repro_torch.kernels import sched_episode as se
@@ -842,6 +842,80 @@ def test_cuda_heft_select_equals_plain(cuda, n_res, n):
         assert torch.equal(got.cpu(), want), (n_res, n, seed)
 
 
+def _dada_equals_plain(cuda, case):
+    layout, buf, scores = packed_dada(case)
+    want = sp.dada_place(buf, scores, layout)
+    before = sp.dada_place.launches
+    got = sp.dada_place(buf.to(cuda), scores.to(cuda), layout)
+    torch.cuda.synchronize()
+    assert sp.dada_place.launches == before + 1
+    assert torch.equal(got.cpu(), want), (layout.spec, sp.read_placement(got.cpu().numpy(), layout),
+                                          sp.read_placement(want.numpy(), layout))
+    return sp.read_placement(want.numpy(), layout)
+
+
+@pytest.mark.parametrize("n", [5, 37, 128])
+@pytest.mark.parametrize("machine", sorted(PLACE_MACHINES))
+def test_cuda_dada_place_mid_round_equals_plain(cuda, machine, n):
+    """Searches that stop partway through a round of the midpoint tree (the
+    iteration limit 2..7, the stopping rule between two levels): λ, the
+    probe count and the placement of the last feasible probe equal the
+    plain version's bit for bit."""
+    for seed, max_iters, eps_rel in MID_ROUND:
+        got = _dada_equals_plain(cuda, dada_case(seed, n=n, accel=PLACE_MACHINES[machine],
+                                                 max_iters=max_iters, eps_rel=eps_rel))
+        assert got.status == sp.STATUS_OK and got.iters <= max_iters
+
+
+@pytest.mark.parametrize("n,plan", [(1000, (5, 2)), (1500, (5, 1)), (4000, (4, 0)),
+                                    (8000, (2, 0))])
+def test_cuda_dada_place_wide_activations_equal_plain(cuda, n, plan):
+    """Thousands of ready tasks on paper_machine(8): C and the task vectors
+    staged, the task vectors only, or nothing (read from global memory),
+    under a shallower tree where the shared memory runs out."""
+    accel = PLACE_MACHINES["paper"]
+    assert sp.PlaceSpec("dada", n, len(accel), n_cpu=4, n_gpu=8).plan[:2] == plan
+    for seed in (0, 4, 9, 13):  # α 0 / 0.5, ±CP, ±area bound
+        assert _dada_equals_plain(cuda, dada_case(seed, n=n, accel=accel)).status == sp.STATUS_OK
+
+
+@pytest.mark.parametrize("n,n_res", [(4000, 440), (3, 440), (100, 512), (2000, 14), (1700, 14),
+                                     (40, 129)])
+def test_cuda_heft_select_ring_and_wide_equal_plain(cuda, n, n_res):
+    """HEFT through its ring of staged rows (n 4 000 at 440 resources, 512
+    resources, 2 000 tasks at 14) and in one pass at the ring's edge and
+    at 440 resources: equal to the plain version bit for bit."""
+    for seed in range(2):
+        layout, buf, scores = packed_heft(heft_case(seed, n=n, n_res=n_res))
+        want = sp.heft_select(buf, scores, layout)
+        got = sp.heft_select(buf.to(cuda), scores.to(cuda), layout)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (n, n_res, seed)
+
+
+def test_cuda_place_plan_matches_the_launcher(cuda):
+    """PlaceSpec.plan mirrors the launchers' own plan (repro_place_plan of
+    csrc/sched_place.cu) across widths, resource counts and the edges."""
+    import ctypes
+
+    sp.build()
+    got = (ctypes.c_int64 * 4)()
+    for n in (1, 8, 37, 128, 512, 1000, 1500, 2000, 4000, 8000, 12885, 12886):
+        for n_res, n_cpu in ((2, 2), (12, 4), (14, 6), (33, 11), (65, 20), (129, 43), (256, 0),
+                             (257, 0)):
+            spec = sp.PlaceSpec("dada", n, n_res, n_cpu=n_cpu, n_gpu=n_res - n_cpu)
+            err = sp._lib.repro_place_plan(0, n, n_res, n_cpu, n_res - n_cpu, 0, got)
+            assert (err == 0) == spec.fits_kernel, spec
+            if err == 0:
+                assert tuple(got[:3]) == spec.plan and got[3] == 32 * ((1 << spec.plan[0]) - 1)
+        for n_res in (1, 14, 440, 512, 513):
+            spec = sp.PlaceSpec("heft", n, n_res, n_cls=2)
+            err = sp._lib.repro_place_plan(1, n, n_res, 0, 0, 2, got)
+            assert (err == 0) == spec.fits_kernel, spec
+            if err == 0:
+                assert tuple(got[:3]) == spec.plan and got[3] == sp.HEFT_THREADS
+
+
 def test_cuda_dada_place_reports_an_infeasible_upper_bound(cuda):
     case = dada_case(3, n=37, accel=PLACE_MACHINES["paper"])
     case["C"] = [[1e9] * len(row) for row in case["C"]]
@@ -855,8 +929,8 @@ def test_cuda_dada_place_reports_an_infeasible_upper_bound(cuda):
 def test_cuda_placement_beyond_its_envelope_raises(cuda):
     """Beyond the kernels' shared memory the wrappers raise before any
     launch; there is no fallback to the plain version."""
-    layout, buf, scores = packed_dada(dada_case(0, n=8500, accel=PLACE_MACHINES["paper"]))
-    hlayout, hbuf, hscores = packed_heft(heft_case(0, n=3, n_res=500))
+    layout, buf, scores = packed_dada(dada_case(0, n=13000, accel=PLACE_MACHINES["paper"]))
+    hlayout, hbuf, hscores = packed_heft(heft_case(0, n=3, n_res=513))
     before = (sp.dada_place.launches, sp.heft_select.launches)
     plain = sp.dada_place_plain.calls + sp.heft_select_plain.calls
     wide = packed_dada(dada_case(1, n=4, accel=[True] * 300))

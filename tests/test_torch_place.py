@@ -26,6 +26,7 @@ import torch
 
 from _place_cases import (
     MACHINES,
+    MID_ROUND,
     TINY,
     dada_case,
     heft_case,
@@ -202,6 +203,42 @@ def test_dada_search_and_build_match_reference(ref_backend, group, depth):
         assign, loads = built
         assert got.rids == [assign[t] for t in case["tids"]], seed
         assert got.loads == loads, seed
+
+
+@pytest.mark.parametrize("depth", [1, 3, 5])
+@pytest.mark.parametrize("seed,max_iters,eps_rel", MID_ROUND,
+                         ids=[f"s{s}-it{m}-eps{e}" for s, m, e in MID_ROUND])
+def test_dada_search_stopping_mid_round_matches_reference(ref_backend, seed, max_iters, eps_rel,
+                                                          depth):
+    """Searches that stop partway through a round of the midpoint tree, by
+    the iteration limit (2..7) or by the stopping rule between two levels:
+    λ and the placement equal the reference's jitted search at depths 1, 3
+    and 5 (one walk of up to ``depth`` levels a round, the rule re-checked
+    before each), bit for bit, and the probes stay within the limit."""
+    for kind, accel in MACHINES.items():
+        case = dada_case(seed, n=37, accel=accel, max_iters=max_iters, eps_rel=eps_rel)
+        got = sp.dada_place_plain(**plain_kwargs(case))
+        lam = ref_search(ref_backend, case, depth)
+        assert got.status == sp.STATUS_OK
+        assert got.lam == lam, (kind, got.lam, lam)
+        assert got.iters <= max_iters
+        assign, loads = ref_try_build(case, lam)
+        assert got.rids == [assign[t] for t in case["tids"]], kind
+        assert got.loads == loads, kind
+
+
+def test_mid_round_cases_stop_between_levels():
+    """The mid-round cases reach every iteration limit from 2 to 7 and
+    stop by the rule at probe counts that are no multiple of 5 (a depth-5
+    round cut short), on every machine kind."""
+    by_limit, by_rule = set(), set()
+    for seed, max_iters, eps_rel in MID_ROUND:
+        for accel in MACHINES.values():
+            got = sp.dada_place_plain(**plain_kwargs(dada_case(
+                seed, n=37, accel=accel, max_iters=max_iters, eps_rel=eps_rel)))
+            (by_limit if got.iters == max_iters else by_rule).add(got.iters)
+    assert set(range(2, 8)) <= by_limit
+    assert {2, 3, 4, 6, 7, 8, 9, 11} <= by_rule
 
 
 def test_dada_cases_cover_the_matrix():
@@ -449,15 +486,89 @@ def test_wrappers_refuse_mismatched_buffers():
 
 def test_shared_memory_envelope():
     """The kernels' envelope, as csrc/sched_place.cu sizes it: the main
-    path's widest activation fits many times over; thousands of ready
-    tasks or more than 256 resources (DADA), or hundreds of resources
-    (HEFT), do not, and a CUDA tensor there is refused."""
+    path's widest activation fits many times over, staged whole under a
+    depth-5 tree (DADA) or in one pass (HEFT); 12 884 ready tasks at 14
+    resources or more than 256 resources (DADA), or more than 512
+    resources (HEFT), do not, and a CUDA tensor there is refused."""
     dada = sp.PlaceSpec("dada", 128, 14, n_cpu=6, n_gpu=8)
-    assert dada.smem_bytes == 16 * 128 + 4 * (3 * 128 + 3 * 14 + 14) and dada.fits_kernel
-    assert sp.PlaceSpec("heft", 128, 14, n_cls=2).smem_bytes == 16 * 33 * 14
+    assert dada.smem_bytes == (8 * (1 + 14 + 128 + 5 * 128 + 128 * 14)
+                               + 4 * (2 * 128 + 3 * 14 + 64) + 2 * 31 * 128)
+    assert dada.fits_kernel and dada.plan == (5, 2, dada.smem_bytes)
+    heft = sp.PlaceSpec("heft", 128, 14, n_cls=2)
+    assert heft.smem_bytes == 8 * (128 * 14 + 2 * 128 + 128) and heft.plan == (128, 1, heft.smem_bytes)
     assert sp.PlaceSpec("dada", 8000, 14, n_cpu=6, n_gpu=8).fits_kernel
-    assert not sp.PlaceSpec("dada", 8500, 14, n_cpu=6, n_gpu=8).fits_kernel
+    assert sp.PlaceSpec("dada", 12883, 14, n_cpu=6, n_gpu=8).fits_kernel
+    assert not sp.PlaceSpec("dada", 12884, 14, n_cpu=6, n_gpu=8).fits_kernel
     assert sp.PlaceSpec("dada", 8, 256, n_gpu=256).fits_kernel
     assert not sp.PlaceSpec("dada", 8, 257, n_gpu=257).fits_kernel
     assert sp.PlaceSpec("heft", 1, 440, n_cls=2).fits_kernel
-    assert not sp.PlaceSpec("heft", 1, 441, n_cls=2).fits_kernel
+    assert sp.PlaceSpec("heft", 100_000, 512, n_cls=2).fits_kernel
+    assert not sp.PlaceSpec("heft", 1, 513, n_cls=2).fits_kernel
+
+
+def _one_warp_kernels_took(spec) -> bool:
+    """The envelope of the one-warp kernels this sizing replaced: DADA's
+    16 n + 4 (3 n + 3 n_res + n_cpu + n_gpu) bytes and at most 256
+    resources; HEFT's 16 x 33 bytes a resource."""
+    if spec.kind == "heft":
+        return 16 * 33 * spec.n_res <= sp.SMEM_LIMIT
+    return (spec.n_res <= 256 and 16 * spec.n + 4 * (3 * spec.n + 3 * spec.n_res + spec.n_cpu
+                                                      + spec.n_gpu) <= sp.SMEM_LIMIT)
+
+
+@pytest.mark.parametrize("n_res", [1, 2, 12, 14, 31, 32, 33, 64, 65, 128, 129, 200, 256, 440])
+def test_envelope_keeps_every_activation_the_one_warp_kernels_took(n_res):
+    """Every placement the one-warp kernels took still fits, at every
+    width up to and beyond their edge (n 8 293 at 14 resources)."""
+    widths = sorted(set(range(1, 400, 13)) | set(range(400, 13_000, 211)) | {8293, 8294})
+    for n in widths:
+        specs = [sp.PlaceSpec("heft", n, n_res, n_cls=c) for c in (1, 2, 7)]
+        if n_res <= 256:
+            specs += [sp.PlaceSpec("dada", n, n_res, n_cpu=c, n_gpu=n_res - c)
+                      for c in sorted({0, n_res // 3, n_res})]
+        for spec in specs:
+            if _one_warp_kernels_took(spec):
+                assert spec.fits_kernel, spec
+            if spec.fits_kernel:
+                assert spec.smem_bytes == spec.plan[2] <= sp.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n_res,plan", [(12, (5, 2)), (32, (5, 2)), (33, (5, 2)), (64, (5, 2)),
+                                        (65, (5, 2)), (128, (5, 2)), (129, (4, 2)), (256, (4, 1))])
+def test_dada_plan_takes_the_deepest_tree_the_registers_allow(n_res, plan):
+    """At n 128 the tree is as deep as its class of rids a lane allows (a
+    31-warp block leaves 64 registers a thread), with everything staged
+    but, at 256 resources, C."""
+    spec = sp.PlaceSpec("dada", 128, n_res, n_cpu=n_res // 3, n_gpu=n_res - n_res // 3)
+    assert spec.plan[:2] == plan
+
+
+@pytest.mark.parametrize("n,plan", [(8, (5, 2)), (128, (5, 2)), (1000, (5, 2)), (1500, (5, 1)),
+                                    (2000, (5, 0)), (4000, (4, 0)), (8000, (2, 0)),
+                                    (12880, (1, 0))])
+def test_dada_plan_stages_what_fits_beside_the_tree(n, plan):
+    """On paper_machine(8)'s 12 resources: the deepest tree that fits with
+    nothing staged, then the most staging beside it (C and the task
+    vectors, the task vectors, or nothing: those are read from global
+    memory)."""
+    spec = sp.PlaceSpec("dada", n, 12, n_cpu=4, n_gpu=8)
+    depth, stage, smem = spec.plan
+    assert (depth, stage) == plan
+    assert smem == sp.dada_smem(n, 12, depth, stage) <= sp.SMEM_LIMIT
+    if depth < 5:
+        assert sp.dada_smem(n, 12, depth + 1, 0) > sp.SMEM_LIMIT
+    if stage < 2:
+        assert sp.dada_smem(n, 12, depth, stage + 1) > sp.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n,n_res,plan", [(128, 12, (128, 1)), (1700, 14, (1700, 1)),
+                                          (1800, 14, (32, 2)), (4000, 440, (16, 2)),
+                                          (1, 440, (1, 1)), (100, 512, (14, 2))])
+def test_heft_plan_stages_in_one_pass_or_a_ring(n, n_res, plan):
+    """The whole activation in one pass where X, the two classes'
+    durations and the order fit; else two buffers of up to 32 tasks'
+    rows."""
+    spec = sp.PlaceSpec("heft", n, n_res, n_cls=2)
+    assert spec.plan[:2] == plan
+    group, nbuf, smem = spec.plan
+    assert smem == (8 * (n * n_res + 3 * n) if nbuf == 1 else 32 * group * n_res)
