@@ -112,30 +112,40 @@ non-zero and no phase carries on past its own failure):
               activation the kernel launches (must be 2) and memcpy calls
               (must be 2), with no other kernel, memcpy or memset on the
               card;
- 10. episode  the surrogate episode scan (episode_scan: one block a
-              configuration, the whole list-scheduling scan in one launch)
-              against its plain version, on the card and on the CPU, every
-              output and every schedule column equal (torch.equal) on
-              the CPU tests' cases (tests/_episode_cases.py: capacities
-              where eviction binds, the chain that needs all eight LRU
-              rounds, a graph of assorted sizes, pad_to and extra_steps),
-              seeded batches over Cholesky, LU and QR at NT 4 / 8 / 16 on
-              paper_machine(1..8) with the five figure specs, capacities of
-              8 and 32 MiB, and a padded NT 16 batch. Then the paper-figure
-              sweep at full width through run_batch (the main path, its
-              launch count read from 0): Cholesky, LU and QR at NT 16, tile
-              512, paper_machine(1..8) x five specs x 30 seeds, 1 200
-              configurations a graph, one launch each; every configuration
-              must place every task and equal the CPU's run_batch; prints
-              wall s, configs/s and tasks/s beside the CPU's, per-spec means
-              at 8 GPUs, the kernel's ms (CUDA events around three
-              launches back to back, the wrapper's argument checks left
-              out), the plain version's ms on the card and the bound (the
-              operations of the real reads, writes and successors, with a
-              heap's log2 n_pad for the ready set, at the f32 instruction
-              rate). Then NT 32 rows for the three graphs and an NT 64
-              Cholesky row, 132 configurations each (one block an SM), with
-              wall s and the kernel's ms;
+ 10. episode  the surrogate episode scan (episode_scan: one warp a
+              configuration, the whole list-scheduling scan in one launch,
+              reading the plan's selection order) against its plain
+              version, on the card and on the CPU, every output and every
+              schedule column equal (torch.equal) on the CPU tests' cases
+              (tests/_episode_cases.py: capacities where eviction binds,
+              the chain that needs all eight LRU rounds, a graph of
+              assorted sizes, a wide graph whose every selection ties,
+              pad_to and extra_steps), seeded batches over Cholesky, LU and
+              QR at NT 4 / 8 / 16 on paper_machine(1..8) with the five
+              figure specs, capacities of 8 and 32 MiB, a padded NT 16
+              batch, and priorities cut to three values with some -inf (the
+              plan's tables must then be refused, and the kernel reads
+              tables derived from those priorities). The launcher's plan
+              (configurations a block, shared bytes) must equal
+              launch_plan's. Then the
+              paper-figure sweep at full width through run_batch (the main
+              path, its launch count read from 0): Cholesky, LU and QR at NT
+              16, tile 512, paper_machine(1..8) x five specs x 30 seeds,
+              1 200 configurations a graph, one launch each; every
+              configuration must place every task and equal the CPU's
+              run_batch; prints wall s, configs/s and tasks/s beside the
+              CPU's, per-spec means at 8 GPUs, the order's build ms, the
+              kernel's ms (CUDA events around three launches back to back
+              of the kernel alone: the wrapper's argument checks left out,
+              the plan's tables built with the plan), the plain version's
+              ms on the card and the bound (the operations of the real
+              reads, writes and successors at the f32 instruction rate,
+              selection not counted since the order is an input; beside it
+              the bound with a heap's 2 log2 n_pad a task and configuration
+              for the ready set, the definition used before the order was
+              an input). Then NT 32 rows for the three graphs and an NT 64
+              Cholesky row, 132 configurations each, with the order's
+              build ms, wall s and the kernel's ms;
  11. paper    the paper's experiment through repro_torch.bench, each
               engine's figure sweeps driven with the kernels' counts set to
               0 just before and read just after: fig1-fig4 (Cholesky, LU,
@@ -1241,7 +1251,7 @@ def _to(tree, dev):
 # the figure sweep at the paper's shape: benchmarks/common.py's bench_settings()
 # default (30 runs, seeds 1234 + i, GPU counts 1..8) over its five specs
 EPISODE_NT, EPISODE_TILE, EPISODE_RUNS, EPISODE_GPUS = 16, 512, 30, tuple(range(1, 9))
-# scale rows: (graph, NT), 132 configurations each (one block an SM)
+# scale rows: (graph, NT), 132 configurations each (one an SM)
 EPISODE_SCALE = (("cholesky", 32), ("lu", 32), ("qr", 32), ("cholesky", 64))
 EPISODE_SCALE_CONFIGS = 132
 
@@ -1251,17 +1261,32 @@ def episode_outputs(res):
     return [t.cpu() for t in (*res[:3], *(res[3] if len(res) > 3 else ()))]
 
 
-def episode_compare(se, ep, plan, batch, dev, label, pad_to=None, extra=0):
-    """The kernel against the plain scan on the CPU and on the card: every
-    output, the schedule's columns included, must be equal (torch.equal).
-    Returns the largest |difference| seen."""
+def episode_compare(se, ep, plan, batch, dev, label, pad_to=None, extra=0, prio=None):
+    """The kernel (reading the plan's tables, as run_episodes passes them)
+    against the plain scan on the CPU and on the card: every output, the
+    schedule's columns included, must be equal (torch.equal). ``prio``
+    replaces the plan's priorities: the plan's tables must then be refused,
+    and the kernel reads tables derived from the new inputs. Returns the
+    largest |difference| seen."""
     use_cap = bool(np.isfinite(batch.cap).any())
     n_steps = plan.n + extra
-    args = ep.episode_inputs(plan, batch, torch.device("cpu"), pad_to)
-    dargs = [a.to(dev) for a in args]
+    args = list(ep.episode_inputs(plan, batch, torch.device("cpu"), pad_to))
+    dargs = list(ep.episode_inputs(plan, batch, dev, pad_to))
+    tables = ep.episode_tables(plan, dev)
+    if prio is not None:
+        args[7] = torch.from_numpy(prio)
+        dargs[7] = args[7].to(dev)
+        try:
+            se.episode_scan(*dargs, n_steps=n_steps, use_cap=use_cap, emit=True, tables=tables)
+        except ValueError:
+            pass
+        else:
+            raise SystemExit(f"episode_scan took the plan's tables with other priorities at {label}")
+        tables = se.plan_tables(dargs)
     wants = [episode_outputs(se.episode_plain(*a, n_steps=n_steps, use_cap=use_cap, emit=True))
              for a in (args, dargs)]
-    got = episode_outputs(se.episode_scan(*dargs, n_steps=n_steps, use_cap=use_cap, emit=True))
+    got = episode_outputs(se.episode_scan(*dargs, n_steps=n_steps, use_cap=use_cap, emit=True,
+                                          tables=tables))
     torch.cuda.synchronize()
     err = 0.0
     names = ("makespan", "total_bytes", "n_placed") + se.SCHEDULE_COLUMNS
@@ -1272,34 +1297,47 @@ def episode_compare(se, ep, plan, batch, dev, label, pad_to=None, extra=0):
                                  f"in {name} at {label}")
             if g.is_floating_point():
                 err = max(err, (g.double() - w.double()).abs().nan_to_num().max().item())
-    if not (got[2][:len(batch)] == plan.n).all():
+    if prio is None and not (got[2][:len(batch)] == plan.n).all():
         raise SystemExit(f"episode_scan left tasks unplaced at {label}")
     return err
 
 
-def episode_bound(plan, args):
-    """(bound ms, bound_by, bytes, operations) of one uncapped launch on
-    the episode's inputs ``args``. Bytes: each input read once and each output
-    written once, at the HBM rate. Operations: what the function needs for
-    this plan's tasks, counted from their real reads, writes and
-    successors: per task and configuration, taking it from and putting it
-    into a heap of the ready set (2 log2 n_pad compares), the transfer and
-    affinity folds over the unique memories (2 n_u (reads + writes)), the
-    scores and argmins over the resources (6 R), the hops of its reads (4 a
-    read) and its successors' updates (2 each). Each is one f32 or integer
-    instruction, at the f32 instruction rate (an FMA counts as one)."""
+def episode_bound(plan, args, tables):
+    """(bound ms, bound_by, bytes, operations, heap bound ms) of one
+    uncapped launch on the episode's inputs ``args`` and their ``tables``.
+    Bytes: each input the function reads once (the plan's order in place
+    of ``indeg0`` and ``prio``) and each output written once, at the HBM
+    rate. Operations: what the function needs for this plan's tasks,
+    counted from their real reads, writes and successors: per task and
+    configuration, the transfer and affinity folds over the unique
+    memories (2 n_u (reads + writes)), the scores and argmins over the
+    resources (6 R), the hops of its reads (4 a read) and its successors'
+    updates (2 each). Each is one f32 or integer instruction, at the f32
+    instruction rate (an FMA counts as one). Selection is not counted: the
+    order is an input, computed once per plan on the host. The heap bound
+    is the definition used before the order was an input: the same plus,
+    per task and configuration, a heap of the ready set (2 log2 n_pad
+    compares), and every one of the 23 inputs read once."""
     n, n_pad, n_data = plan.n, plan.n_pad, plan.n_data
     reads = int((plan.read_ids[:n] < n_data).sum())
     writes = int((plan.write_ids[:n] < n_data).sum())
     succs = int((plan.succ_ids[:n] < n_pad).sum())
-    per_config = (2 * math.ceil(math.log2(n_pad)) * n + 2 * plan.n_u * (reads + writes)
-                  + 6 * plan.n_res * n + 4 * reads + 2 * succs)
+    per_config = (2 * plan.n_u * (reads + writes) + 6 * plan.n_res * n + 4 * reads + 2 * succs)
     B = args[13].shape[0]
     ops = B * per_config
-    nbytes = sum(a.numel() * a.element_size() for a in args) + 12 * B
+    out_bytes = 12 * B
+
+    def size(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    nbytes = size(a for i, a in enumerate(args) if i not in (6, 7)) + size([tables.order])
+    nbytes += out_bytes
     bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
     ops_ms = ops / H100_FP32_OPS * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), nbytes, ops
+    heap_ops = ops + B * 2 * math.ceil(math.log2(n_pad)) * n
+    heap_ms = max((size(args) + out_bytes) / H100_HBM_BYTES_PER_S, heap_ops / H100_FP32_OPS) * 1e3
+    return (max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), nbytes, ops,
+            heap_ms)
 
 
 def event_ms(fn, reps=3):
@@ -1338,11 +1376,27 @@ def episode_phase(dev, se, ep, run_batch, cached_graph, paper_machine, graph_fns
     g = cached_graph(partial(graph_fns["cholesky"], EPISODE_NT, EPISODE_TILE, with_fns=False))
     checks.append(("cholesky16-padded", g, (1, 8), FIGURE_SPECS, (77,), (0,), 16, 5))
     max_err = 0.0
+    shapes = set()
     for label, g, gpus, specs, seeds, caps, pad_to, extra in checks:
         items = configs(g, gpus, specs, seeds, caps)
-        max_err = max(max_err, episode_compare(se, ep, *plan_and_batch(items), dev, label,
-                                               pad_to, extra))
-    n_cases = len(checks)
+        plan, batch = plan_and_batch(items)
+        shapes.add((plan.n_res, plan.r_pad, plan.w_pad, plan.s_pad))
+        max_err = max(max_err, episode_compare(se, ep, plan, batch, dev, label, pad_to, extra))
+    # priorities cut to three values (every selection a tie) with some -inf
+    # (the order ends early; the later steps are inactive on task 0)
+    g = cached_graph(partial(graph_fns["lu"], 8, EPISODE_TILE, with_fns=False))
+    plan, batch = plan_and_batch(configs(g, (2, 8), FIGURE_SPECS, (5,)))
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        prio = rng.choice(np.array([1.0, 2.0, 3.0], np.float32), size=plan.n_pad)
+        prio[rng.choice(np.arange(1, plan.n), size=seed, replace=False)] = -np.inf
+        max_err = max(max_err, episode_compare(se, ep, plan, batch, dev, f"lu8-prio{seed}",
+                                               extra=2, prio=prio))
+    n_cases = len(checks) + 3
+    for shape in sorted(shapes):
+        if se.launcher_plan(*shape) != se.launch_plan(*shape):
+            raise SystemExit(f"the launcher's plan {se.launcher_plan(*shape)} differs from "
+                             f"launch_plan's at {shape}")
     print(f"episode_scan equal to its plain version (card and CPU, every output and schedule "
           f"column) on {n_cases} cases", flush=True)
 
@@ -1355,8 +1409,12 @@ def episode_phase(dev, se, ep, run_batch, cached_graph, paper_machine, graph_fns
             for n in EPISODE_GPUS for s in FIGURE_SPECS for i in range(EPISODE_RUNS)]
         for k, g in graphs.items()
     }
+    order_ms = {}
     for k in sweep:  # plans built and memoized before the clock
-        plan_and_batch(sweep[k][:1])
+        plan, _ = plan_and_batch(sweep[k][:1])
+        w0 = time.perf_counter()
+        se.selection_order(plan.indeg0, plan.prio.astype(np.float32), plan.succ_ids)
+        order_ms[k] = (time.perf_counter() - w0) * 1e3
     card, card_s = {}, {}
     se.episode_scan.launches = 0
     for k, items in sweep.items():
@@ -1385,10 +1443,13 @@ def episode_phase(dev, se, ep, run_batch, cached_graph, paper_machine, graph_fns
                 raise SystemExit(f"{k}: a configuration placed {a.n_placed} of {n} tasks")
         plan, batch = plan_and_batch(items)
         args = ep.episode_inputs(plan, batch, dev)
-        run = partial(se.episode_scan, *args, n_steps=plan.n, use_cap=False, emit=False)
-        # the launch alone (the wrapper's checks left out), back to back:
-        # the kernel's device time
-        ms = event_ms(partial(se._launch, args, n_steps=plan.n, use_cap=False, emit=False))
+        tables = ep.episode_tables(plan, dev)
+        run = partial(se.episode_scan, *args, n_steps=plan.n, use_cap=False, emit=False,
+                      tables=tables)
+        # the launch alone (the wrapper's checks left out; the plan's tables
+        # were built with the plan), back to back: the kernel's device time
+        ms = event_ms(partial(se._launch, args, tables, n_steps=plan.n, use_cap=False,
+                              emit=False))
         if not ms > 0:
             raise SystemExit(f"{k}: the kernel's device time read {ms} ms")
         w0 = time.perf_counter()
@@ -1397,7 +1458,7 @@ def episode_phase(dev, se, ep, run_batch, cached_graph, paper_machine, graph_fns
         plain_ms = (time.perf_counter() - w0) * 1e3
         if not all(torch.equal(x, y) for x, y in zip(run(), plain_card)):
             raise SystemExit(f"{k}: episode_scan differs from its plain version at full width")
-        bound_ms, bound_by, nbytes, ops = episode_bound(plan, args)
+        bound_ms, bound_by, nbytes, ops, heap_ms = episode_bound(plan, args, tables)
         state_b = 4 * se.state_words(plan.n_pad, plan.n_data + 1, plan.n_u, False)
         means = {}
         for s in FIGURE_SPECS:
@@ -1406,20 +1467,25 @@ def episode_phase(dev, se, ep, run_batch, cached_graph, paper_machine, graph_fns
             means[s] = {d: (float(np.mean([res[j].makespan for j in pick])),
                             float(np.mean([res[j].gbytes for j in pick])))
                         for d, res in (("card", card[k]), ("cpu", cpu[k]))}
+        warps, smem = se.launch_plan(plan.n_res, plan.r_pad, plan.w_pad, plan.s_pad)
         row = dict(graph=k, nt=EPISODE_NT, tasks=n, configs=len(items), n_pad=plan.n_pad,
-                   state_bytes=state_b, wall_s=card_s[k], configs_per_s=len(items) / card_s[k],
+                   state_bytes=state_b, warps_a_block=warps, smem_a_block=smem,
+                   order_ms=order_ms[k], wall_s=card_s[k], configs_per_s=len(items) / card_s[k],
                    tasks_per_s=len(items) * n / card_s[k], cpu_wall_s=cpu_s[k],
                    cpu_configs_per_s=len(items) / cpu_s[k], ms=ms,
                    plain_card_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    bytes=nbytes, operations=ops, share_of_bound=bound_ms / ms,
+                   heap_bound_ms=heap_ms, share_of_heap_bound=heap_ms / ms,
                    means_8gpu=means)
         rows.append(row)
         print(f"episode sweep {k} NT {EPISODE_NT}: {len(items)} configs x {n} tasks, "
-              f"state {state_b} B a config, card wall {card_s[k]:.6f} s "
+              f"state {state_b} B a config, {warps} configs a block ({smem} B shared), "
+              f"order built in {order_ms[k]:.3f} ms, card wall {card_s[k]:.6f} s "
               f"({row['configs_per_s']:.1f} configs/s, {row['tasks_per_s']:.4g} tasks/s), "
               f"CPU plain wall {cpu_s[k]:.6f} s ({row['cpu_configs_per_s']:.2f} configs/s); "
-              f"kernel {ms:.6f} ms, plain on the card {plain_ms:.3f} ms, "
-              f"bound {bound_ms:.6f} ms ({bound_by}; {nbytes} B, {ops} ops)", flush=True)
+              f"kernel {ms:.6f} ms, plain on the card {plain_ms:.3f} ms, bound {bound_ms:.6f} ms "
+              f"({bound_by}; {nbytes} B, {ops} ops; {100 * bound_ms / ms:.3f} % of it; with a "
+              f"heap of the ready set {heap_ms:.6f} ms, {100 * heap_ms / ms:.3f} %)", flush=True)
         for s, m in means.items():
             print(f"  8 GPUs {s:26s} mean makespan card {m['card'][0]:.9f} cpu {m['cpu'][0]:.9f}  "
                   f"mean GB card {m['card'][1]:.6f} cpu {m['cpu'][1]:.6f}", flush=True)
@@ -1434,6 +1500,9 @@ def episode_phase(dev, se, ep, run_batch, cached_graph, paper_machine, graph_fns
                  for n, s, sd in order[:EPISODE_SCALE_CONFIGS]]
         plan, batch = plan_and_batch(items)
         setup_s = time.perf_counter() - w0
+        w0 = time.perf_counter()
+        se.selection_order(plan.indeg0, plan.prio.astype(np.float32), plan.succ_ids)
+        scale_order_ms = (time.perf_counter() - w0) * 1e3
         before = se.episode_scan.launches
         w0 = time.perf_counter()
         res = run_batch(items, device="cuda")
@@ -1444,27 +1513,34 @@ def episode_phase(dev, se, ep, run_batch, cached_graph, paper_machine, graph_fns
         if any(r.n_placed != len(g) or not math.isfinite(r.makespan) for r in res):
             raise SystemExit(f"{kind} NT {nt}: tasks left unplaced")
         args = ep.episode_inputs(plan, batch, dev)
+        tables = ep.episode_tables(plan, dev)
+        torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = se._launch(args, n_steps=plan.n, use_cap=False, emit=False)  # the launch alone
+        out = se._launch(args, tables, n_steps=plan.n, use_cap=False, emit=False)  # the launch alone
         end.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(end)
+        if not ms > 0:
+            raise SystemExit(f"{kind} NT {nt}: the kernel's device time read {ms} ms")
         if not np.array_equal(out[0].cpu().numpy().astype(np.float64),
                               np.array([r.makespan for r in res])):
             raise SystemExit(f"{kind} NT {nt}: the kernel differs from run_batch")
-        bound_ms, bound_by, _, _ = episode_bound(plan, args)
+        bound_ms, bound_by, _, _, heap_ms = episode_bound(plan, args, tables)
         row = dict(graph=kind, nt=nt, tasks=len(g), n_pad=plan.n_pad, configs=len(items),
                    state_bytes=4 * se.state_words(plan.n_pad, plan.n_data + 1, plan.n_u, False),
-                   setup_s=setup_s, wall_s=wall, configs_per_s=len(items) / wall,
-                   tasks_per_s=len(items) * len(g) / wall, ms=ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   setup_s=setup_s, order_ms=scale_order_ms, wall_s=wall,
+                   configs_per_s=len(items) / wall, tasks_per_s=len(items) * len(g) / wall,
+                   ms=ms, bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+                   heap_bound_ms=heap_ms, share_of_heap_bound=heap_ms / ms)
         scale.append(row)
         print(f"episode scale {kind} NT {nt}: {len(items)} configs x {len(g)} tasks "
               f"(n_pad {plan.n_pad}, state {row['state_bytes']} B a config), graph and plan "
-              f"{setup_s:.3f} s, run_batch wall {wall:.6f} s ({row['tasks_per_s']:.4g} tasks/s), "
-              f"kernel {ms:.6f} ms, bound {bound_ms:.6f} ms", flush=True)
+              f"{setup_s:.3f} s (the order {scale_order_ms:.3f} ms of it), run_batch wall "
+              f"{wall:.6f} s ({row['tasks_per_s']:.4g} tasks/s), kernel {ms:.6f} ms, "
+              f"bound {bound_ms:.6f} ms ({100 * bound_ms / ms:.4f} % of it; with a heap of the "
+              f"ready set {100 * heap_ms / ms:.4f} %)", flush=True)
 
     head = next(r for r in rows if r["graph"] == "qr")  # the widest graph of the sweep
     return {

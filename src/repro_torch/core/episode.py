@@ -12,7 +12,9 @@ fixed-shape padded state, batched over a leading axis of configurations
 
 On the card the whole scan of every configuration is one launch of the
 hand-written kernel ``episode_scan`` (:mod:`repro_torch.kernels.sched_episode`,
-one block per configuration, every step inside the block). On the CPU
+one warp per configuration, every step on the warp). Which task a step
+selects depends only on the plan, so the plan carries the selection
+order (``EpisodePlan.order``) and the kernel reads it. On the CPU
 the plain version runs the same steps as a Python loop over PyTorch ops
 with the batch axis written out. Both compute in f32 with the reference's
 contractions (see that module), so each step's task and resource choice
@@ -28,14 +30,21 @@ fidelity against the oracle, plus equality with the reference's episode.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.sched_episode import _NEVER, SCHEDULE_COLUMNS, episode_scan
+from ..kernels.sched_episode import (
+    _NEVER,
+    SCHEDULE_COLUMNS,
+    PlanTables,
+    _tables_from,
+    episode_scan,
+    selection_order,
+)
 from .dag import TaskGraph
 from .machine import HOST_MEM, MachineModel
 
@@ -86,6 +95,14 @@ class EpisodePlan:
     bandwidth: float
     latency: float
     total_flops: float
+    # (≤ n,) int32: the tasks in the order the scan selects them, from the
+    # f32 priorities the scan compares (selection_order); the same for every
+    # configuration of a batch
+    order: np.ndarray
+    # device -> (the plan's 13 input tensors there, their PlanTables), built
+    # once by _on_device
+    on_device: Dict[torch.device, tuple] = field(default_factory=dict, repr=False,
+                                                 compare=False)
 
 
 def _pad2(rows: List[List[Tuple[int, float]]], n_pad: int, width: int, fill_id: int):
@@ -200,6 +217,7 @@ def build_plan(
         indeg0=indeg0, prio=prio, dur_cpu=dur_cpu, dur_gpu=dur_gpu,
         sizes=sizes, col_bits=col_bits, host_col=host_col,
         bandwidth=bw, latency=lat, total_flops=graph.total_flops(),
+        order=selection_order(indeg0, prio.astype(np.float32), succ_ids),
     )
     arr.cache[key] = plan
     return plan
@@ -331,13 +349,51 @@ def config_batch(plan: EpisodePlan, configs: Sequence[Mapping]) -> EpisodeBatch:
 # the episode: one launch on the card, the plain scan on the CPU
 
 
+def _tensor(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+
+def _on_device(plan: EpisodePlan, device) -> tuple:
+    """The plan's 13 input tensors on ``device`` and their tables, made
+    once and memoized with the plan: every group of the plan shares them,
+    and the tables (order, task records) are bound to these tensors."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    got = plan.on_device.get(device)
+    if got is None:
+        f32, i32 = np.float32, np.int32
+        rows = (
+            _tensor(plan.read_ids, device, i32), _tensor(plan.read_t, device, f32),
+            _tensor(plan.read_sz, device, f32), _tensor(plan.write_ids, device, i32),
+            _tensor(plan.write_sz, device, f32), _tensor(plan.succ_ids, device, i32),
+            _tensor(plan.indeg0, device, i32), _tensor(plan.prio, device, f32),
+            _tensor(plan.dur_cpu, device, f32), _tensor(plan.dur_gpu, device, f32),
+            _tensor(plan.sizes, device, f32), _tensor(plan.col_bits, device, i32),
+            _tensor(plan.host_col, device, bool),
+        )
+        # plan.order is the selection order of plan.prio in f32, which
+        # rows[7] holds
+        got = plan.on_device[device] = (rows, _tables_from(rows, plan.order))
+    return got
+
+
+def episode_tables(plan: EpisodePlan, device) -> PlanTables:
+    """The plan's :class:`PlanTables` on ``device``: the selection order and
+    the task records, bound to the plan tensors that :func:`episode_inputs`
+    hands out there (built once per plan and device)."""
+    return _on_device(plan, device)[1]
+
+
 def episode_inputs(
     plan: EpisodePlan, batch: EpisodeBatch, device, pad_to: Optional[int] = None
 ) -> Tuple[torch.Tensor, ...]:
     """The episode's 23 arguments on ``device``, in the reference's order
     (plan arrays, then batch axes padded to ``pad_to`` rows when it is
     given, then the bandwidth), every float in f32: the surrogate runs in
-    f32."""
+    f32. The plan's 13 tensors are made once per device and shared by
+    every call (:func:`episode_tables` is bound to them); do not change
+    them in place."""
     B = len(batch)
     B_pad = B if pad_to is None else pad_to
     if B_pad < B:
@@ -350,16 +406,11 @@ def episode_inputs(
         return np.concatenate([a, pad], axis=0)
 
     def t(a, dtype=None) -> torch.Tensor:
-        a = np.ascontiguousarray(a, dtype=dtype)
-        return torch.from_numpy(a).to(device)
+        return _tensor(a, device, dtype)
 
     f32, i32 = np.float32, np.int32
     return (
-        t(plan.read_ids, i32), t(plan.read_t, f32), t(plan.read_sz, f32),
-        t(plan.write_ids, i32), t(plan.write_sz, f32), t(plan.succ_ids, i32),
-        t(plan.indeg0, i32), t(plan.prio, f32), t(plan.dur_cpu, f32),
-        t(plan.dur_gpu, f32), t(plan.sizes, f32), t(plan.col_bits, i32),
-        t(plan.host_col, bool),
+        *_on_device(plan, device)[0],
         # padded batch rows: no valid resource, so every score is inf and
         # each step places its task on resource 0; they share nothing with
         # the real rows and are dropped from the results
@@ -385,11 +436,13 @@ def run_episodes(
     ``episode_scan`` launch on the card, the plain scan on the CPU.
 
     Returns ``makespan`` / ``total_bytes`` / ``n_placed`` arrays aligned
-    with the batch. The batch runs unpadded: one block (or one plain row) a
-    configuration. ``extra_steps`` and ``pad_to`` (batch-axis padding)
-    exist for the padding-invariance tests: extra steps find no ready task
-    and change nothing; padded rows run a scan of their own (every task on
-    resource 0) that never touches the real rows, and are dropped.
+    with the batch. The batch runs unpadded: one warp (or one plain row) a
+    configuration, the kernel reading the plan's tables (selection order
+    and task records, :func:`episode_tables`). ``extra_steps`` and
+    ``pad_to`` (batch-axis padding) exist for the padding-invariance
+    tests: extra steps find no ready task and change nothing; padded rows
+    run a scan of their own (every task on resource 0) that never touches
+    the real rows, and are dropped.
 
     ``emit_schedule`` additionally returns a ``"schedule"`` dict of
     (B, n_steps) arrays — per-step chosen task/resource and timeline
@@ -401,7 +454,8 @@ def run_episodes(
     args = episode_inputs(plan, batch, dev, pad_to)
     use_cap = bool(np.isfinite(batch.cap).any())
     res = episode_scan(
-        *args, n_steps=plan.n + int(extra_steps), use_cap=use_cap, emit=bool(emit_schedule)
+        *args, n_steps=plan.n + int(extra_steps), use_cap=use_cap, emit=bool(emit_schedule),
+        tables=episode_tables(plan, dev),
     )
     mk, total_b, n_placed = (r.cpu().numpy() for r in res[:3])
     out = {

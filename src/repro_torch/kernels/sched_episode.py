@@ -10,15 +10,28 @@ kernel's row axis).
 
   * :func:`episode_scan` — the wrapper: CPU tensors take the plain
     version, CUDA tensors launch the hand-written kernel
-    ``csrc/sched_episode.cu`` (one block per configuration, every step
-    inside the block, the transfer fold folded into the step) or raise.
-    ``episode_scan.launches`` counts the launches: one per call, which
-    ``run_episodes`` makes once per (graph, machine template) group. The
-    configurations' scan state lives in a global scratch buffer.
+    ``csrc/sched_episode.cu`` (one warp per configuration, several
+    configurations a block, every step on the warp, the transfer fold
+    folded into the step) or raise. ``episode_scan.launches`` counts the
+    launches: one per call, which ``run_episodes`` makes once per (graph,
+    machine template) group. The configurations' scan state lives in a
+    global scratch buffer.
   * :func:`episode_plain` — the plain version: a Python loop over steps
-    with the batch axis written out, op for op as the reference. Its
-    transfer rows come from :func:`.sched_score.transfer_matrix_compact`
-    with the configurations as rows.
+    with the batch axis written out, op for op as the reference, the
+    ready set's maximum taken at every step. Its transfer rows come from
+    :func:`.sched_score.transfer_matrix_compact` with the configurations
+    as rows.
+  * :func:`selection_order` — the tasks in the order the scan selects
+    them. Selection depends only on the plan's priorities and indegrees,
+    never on a configuration, so the kernel reads this order (computed
+    once per plan by ``core/episode.py::build_plan``) instead of scanning
+    a ready set.
+  * :class:`PlanTables` — what the kernel reads in place of the plan's
+    own rows: the order and the packed task records, on the inputs'
+    device, bound to the very tensors they were derived from
+    (:func:`plan_tables` from any inputs; ``core/episode.py::episode_tables``
+    once per plan and device). The wrapper refuses tables whose sources
+    are not the inputs it is given, or were changed in place since.
 
 Arithmetic. The reference runs the scan in f32 and XLA on the CPU
 compiles it with multiply-add contraction, so the port contracts exactly
@@ -34,14 +47,19 @@ for bit.
 Scatters drop out-of-range ids (pads carry distinct dummy ids past the
 state's edge, inactive steps shift theirs out of range), gathers clamp,
 ``indeg`` and ``ready_t`` carry one extra slot that the first successor
-pad hits, and the dummy data slot is reset to host / -1 every step.
+pad hits, and the dummy data slot is reset to host / -1 every step (the
+plain version; the kernel never writes the dummy slot, and keeps no
+extra slot, which nothing reads).
 """
 from __future__ import annotations
 
 import ctypes
+import heapq
 from pathlib import Path
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ._build import build_library
@@ -52,6 +70,10 @@ SOURCES = (_SRC,)
 
 _NEVER = 1 << 30  # indegree / touch sentinel: never ready, never a victim
 _K_EVICT = 8  # LRU eviction rounds per placement (capacity-bounded batches)
+# the kernel's launch plan (episode_plan of csrc/sched_episode.cu)
+WARPS = 2  # configurations a block, one warp each (fewer where they do not fit)
+MAX_RES = 32  # resources a configuration at most, one lane each
+SMEM_LIMIT = 232448  # shared memory one block may use on an H100
 SCHEDULE_COLUMNS = ("tid", "rid", "act", "start", "xfer_t", "fin", "xfer_b", "evict_b")
 _ARG_NAMES = (
     "read_ids", "read_t", "read_sz", "write_ids", "write_sz", "succ_ids",
@@ -62,6 +84,7 @@ _ARG_NAMES = (
 _INT_ARGS = frozenset(("read_ids", "write_ids", "succ_ids", "indeg0", "col_bits",
                        "mem_col", "link_grp"))
 _BOOL_ARGS = frozenset(("host_col", "is_gpu", "valid_res", "ws_pref"))
+_N_SOURCES = 10  # read_ids .. dur_gpu: the inputs the tables are derived from
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -110,6 +133,47 @@ def _row_sum(terms: torch.Tensor) -> torch.Tensor:
     for j in range(terms.shape[1]):
         acc = acc + terms[:, j]
     return acc
+
+
+def selection_order(indeg0: np.ndarray, prio: np.ndarray, succ_ids: np.ndarray) -> np.ndarray:
+    """The tasks in the order the scan selects them (int32).
+
+    The scan takes the ready set's greatest ``prio``, the least index
+    among equals, retires it and lowers its successors' indegrees; a task
+    joins the ready set when its indegree reaches exactly 0. None of that
+    depends on a configuration, so one order serves the whole batch. A
+    heap keyed by (−prio, index) gives it; ``prio`` is the f32 vector the
+    scan compares (two f64 ranks that round to one f32 value tie, and the
+    lesser index wins). A task of priority −inf is never taken: the order
+    ends where the scan's ready set holds only such tasks, and every later
+    step is inactive. Successor ids ≥ ``len(prio)`` are pads.
+    """
+    prio = np.asarray(prio)
+    if prio.dtype != np.float32:
+        raise ValueError(f"the scan compares f32 priorities, got {prio.dtype}")
+    if np.isnan(prio).any():
+        raise ValueError("a priority is NaN")
+    n_pad = prio.shape[0]
+    key = (-prio.astype(np.float64)).tolist()
+    indeg = np.asarray(indeg0)[:n_pad].tolist()
+    real = np.asarray(succ_ids) < n_pad
+    flat = np.asarray(succ_ids)[real].tolist()
+    ends = np.cumsum(real.sum(axis=1)).tolist()
+    heap = [(key[i], i) for i in range(n_pad) if indeg[i] == 0]
+    heapq.heapify(heap)
+    out = []
+    inf = float("inf")
+    while heap:
+        k, t = heapq.heappop(heap)
+        if k == inf:  # only -inf priorities left
+            break
+        out.append(t)
+        for s in flat[(ends[t - 1] if t else 0):ends[t]]:
+            d = indeg[s] - 1
+            indeg[s] = d
+            if d == 0:
+                heapq.heappush(heap, (key[s], s))
+    return np.array(out, dtype=np.int32)
 
 
 def episode_plain(
@@ -311,19 +375,132 @@ def build() -> str:
     fn.argtypes = [ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int),
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.repro_episode_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int64)]
+    lib.repro_episode_plan.restype = ctypes.c_int
     _lib = lib
     return _build_log
 
 
 def state_words(n_pad: int, nd1: int, n_u: int, use_cap: bool) -> int:
     """4-byte words of one configuration's scan state, which the kernel
-    keeps in a global scratch buffer: ``pready``, ``ready_t`` and
-    ``indeg`` (the last two with the extra slot), ``res_mask`` and
-    ``writer``, and ``touch`` with a capacity."""
-    return n_pad + 2 * (n_pad + 1) + 2 * nd1 + (n_u * nd1 if use_cap else 0)
+    keeps in a global scratch buffer: ``ready_t`` (``n_pad``),
+    ``res_mask`` and ``writer`` (``nd1`` each) and, with a capacity,
+    ``touch`` (``n_u`` × ``nd1``). The ready set is not state: the kernel
+    reads the plan's :func:`selection_order`."""
+    return n_pad + 2 * nd1 + (n_u * nd1 if use_cap else 0)
 
 
-def _check(args, n_steps: int) -> None:
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def record_words(r_pad: int, w_pad: int, s_pad: int) -> int:
+    """4-byte words of one task's record (:func:`task_records`): each
+    section padded to 16 bytes (``record_words`` of
+    csrc/sched_episode.cu)."""
+    return 3 * _round4(r_pad) + 2 * _round4(w_pad) + _round4(s_pad) + 4
+
+
+def warp_words(n_res: int, r_pad: int, w_pad: int, s_pad: int) -> int:
+    """4-byte words of shared memory one configuration's warp uses
+    (``warp_words`` of csrc/sched_episode.cu), each part 16-byte aligned:
+    two row buffers (a task's record, the configuration's noise and the
+    task's ready time), six a resource (clocks, machine rows, flags), the
+    gathered masks of the reads and of the writes, and the successors'
+    ready times."""
+    rows = record_words(r_pad, w_pad, s_pad) + 4
+    return 2 * rows + _round4(6 * n_res) + _round4(r_pad) + _round4(w_pad) + _round4(s_pad)
+
+
+def task_records(args) -> torch.Tensor:
+    """Each task's plan rows packed into one int32 record, on the inputs'
+    device, so that the kernel fetches a task with one 16-byte copy a lane
+    and folds four terms a 16-byte load: read ids, one-hop times and
+    sizes, write ids and sizes, successors, then ``dur_cpu`` and
+    ``dur_gpu`` (the floats' bits), each section zero-padded to 16
+    bytes."""
+    read_ids, read_t, read_sz, write_ids, write_sz, succ_ids = args[:6]
+    dur_cpu, dur_gpu = args[8], args[9]
+    i32 = torch.int32
+    n_pad = read_ids.shape[0]
+
+    def pad4(t: torch.Tensor) -> torch.Tensor:
+        t = t.view(i32)
+        extra = _round4(t.shape[1]) - t.shape[1]
+        if not extra:
+            return t
+        return torch.cat([t, torch.zeros((n_pad, extra), dtype=i32, device=t.device)], dim=1)
+
+    return torch.cat([pad4(read_ids), pad4(read_t), pad4(read_sz), pad4(write_ids),
+                      pad4(write_sz), pad4(succ_ids),
+                      pad4(torch.stack([dur_cpu, dur_gpu], dim=1))], dim=1)
+
+
+def launch_plan(n_res: int, r_pad: int, w_pad: int, s_pad: int) -> Optional[Tuple[int, int]]:
+    """(configurations a block, shared bytes a block) of the kernel's
+    launch (``episode_plan`` of csrc/sched_episode.cu): :data:`WARPS`,
+    fewer where their shared memory would not fit; None beyond
+    :data:`MAX_RES` resources or where one warp's shared memory does not
+    fit."""
+    if n_res > MAX_RES:
+        return None
+    per = 4 * warp_words(n_res, r_pad, w_pad, s_pad)
+    w = min(WARPS, SMEM_LIMIT // per)
+    return (w, w * per) if w >= 1 else None
+
+
+def launcher_plan(n_res: int, r_pad: int, w_pad: int, s_pad: int) -> Optional[Tuple[int, int]]:
+    """The launcher's own plan (``repro_episode_plan``), for the card tests
+    to hold against :func:`launch_plan`; None where it refuses."""
+    build()
+    out = (ctypes.c_int64 * 2)()
+    if _lib.repro_episode_plan(n_res, r_pad, w_pad, s_pad, out) != 0:
+        return None
+    return int(out[0]), int(out[1])
+
+
+@dataclass(frozen=True, eq=False)
+class PlanTables:
+    """What the kernel reads in place of the plan's rows, on the inputs'
+    device: ``order`` (int32, at most ``n_pad`` tasks: the
+    :func:`selection_order` of ``indeg0``, ``prio`` and ``succ_ids``) and
+    ``records`` (:func:`task_records`). ``sources`` are the inputs
+    ``read_ids`` .. ``dur_gpu`` they were derived from and ``versions``
+    those tensors' in-place versions then: :func:`episode_scan` takes the
+    tables only with these very tensors, unchanged."""
+
+    order: torch.Tensor
+    records: torch.Tensor
+    sources: Tuple[torch.Tensor, ...]
+    versions: Tuple[int, ...]
+
+    def matches(self, args) -> bool:
+        """Whether these tables were derived from ``args`` as they stand."""
+        return all(a is s and a._version == v
+                   for a, s, v in zip(args[:_N_SOURCES], self.sources, self.versions))
+
+
+def _tables_from(args, order: np.ndarray) -> PlanTables:
+    """The tables of ``args`` with ``order`` as their selection order; the
+    caller vouches that ``order`` is the :func:`selection_order` of these
+    inputs' ``indeg0``, ``prio`` and ``succ_ids`` (``episode_tables``
+    passes the plan's, built from the arrays these tensors copy)."""
+    sources = tuple(args[:_N_SOURCES])
+    return PlanTables(
+        order=torch.from_numpy(np.ascontiguousarray(order, dtype=np.int32)).to(args[0].device),
+        records=task_records(args), sources=sources,
+        versions=tuple(a._version for a in sources))
+
+
+def plan_tables(args) -> PlanTables:
+    """The tables of the 23 episode inputs ``args``, the selection order
+    computed here from their own ``indeg0``, ``prio`` and ``succ_ids``
+    (copied to the host once)."""
+    indeg0, prio, succ_ids = (args[i].cpu().numpy() for i in (6, 7, 5))
+    return _tables_from(args, selection_order(indeg0, prio, succ_ids))
+
+
+def _check(args, n_steps: int, tables: Optional[PlanTables] = None) -> None:
     if len(args) != len(_ARG_NAMES):
         raise ValueError(f"the episode takes {len(_ARG_NAMES)} tensors, got {len(args)}")
     devices = {a.device for a in args}
@@ -354,12 +531,17 @@ def _check(args, n_steps: int) -> None:
         raise ValueError("malformed episode plan")
     if B < 1 or n_steps < 1:
         raise ValueError("the episode needs at least one configuration and one step")
+    if tables is not None and not tables.matches(args):
+        raise ValueError("the tables were derived from other inputs, or these were changed "
+                         "in place since: derive them from these (plan_tables)")
+    order = tables.order if tables is not None else None
     # ids past the state's edge are pads (dropped or clamped); the kernel
     # indexes with the rest, so they must be in range. One read of the
     # extremes (a single sync on the card).
     ranged = (("read_ids", read_ids, None), ("write_ids", write_ids, None),
-              ("succ_ids", succ_ids, None), ("mem_col", mem_col, n_u), ("link_grp", link_grp, R))
-    ranged = [r for r in ranged if r[1].numel()]
+              ("succ_ids", succ_ids, None), ("mem_col", mem_col, n_u), ("link_grp", link_grp, R),
+              ("order", order, n_pad))
+    ranged = [r for r in ranged if r[1] is not None and r[1].numel()]
     ext = (torch.stack([v for _, ids, _ in ranged for v in (ids.min(), ids.max())]).tolist()
            if ranged else [])
     for (name, _, hi), lo_v, hi_v in zip(ranged, ext[0::2], ext[1::2]):
@@ -367,8 +549,9 @@ def _check(args, n_steps: int) -> None:
             raise ValueError(f"{name} holds ids outside [0, {hi if hi is not None else 'inf'})")
 
 
-def _launch(args, *, n_steps: int, use_cap: bool, emit: bool):
-    """One launch of the kernel on CUDA inputs that :func:`_check` passed."""
+def _launch(args, tables: PlanTables, *, n_steps: int, use_cap: bool, emit: bool):
+    """One launch of the kernel on CUDA inputs and their ``tables``, which
+    :func:`_check` passed: the kernel alone, no other work on the card."""
     build()
     dev = args[0].device
     read_ids, write_ids, succ_ids, sizes, col_bits, is_gpu = (
@@ -376,6 +559,10 @@ def _launch(args, *, n_steps: int, use_cap: bool, emit: bool):
     n_pad, r_pad = read_ids.shape
     B, R = is_gpu.shape
     n_u, nd1 = col_bits.shape[0], sizes.shape[0]
+    if launch_plan(R, r_pad, write_ids.shape[1], succ_ids.shape[1]) is None:
+        raise ValueError(f"the kernel takes at most {MAX_RES} resources and a warp's shared "
+                         f"memory within {SMEM_LIMIT} B: got {R} resources, "
+                         f"{4 * warp_words(R, r_pad, write_ids.shape[1], succ_ids.shape[1])} B")
     f32, i32 = torch.float32, torch.int32
     mk = torch.empty(B, dtype=f32, device=dev)
     total_b = torch.empty(B, dtype=f32, device=dev)
@@ -385,11 +572,16 @@ def _launch(args, *, n_steps: int, use_cap: bool, emit: bool):
         for dt in (i32, i32, torch.bool, f32, f32, f32, f32, f32)
     ) if emit else ()
     state = torch.empty(B * state_words(n_pad, nd1, n_u, use_cap), dtype=i32, device=dev)
-    ptrs = [a.data_ptr() for a in args] + [mk.data_ptr(), total_b.data_ptr(), npl.data_ptr()]
+    order = tables.order
+    # the inputs the kernel reads itself: sizes .. bandwidth (the plan's
+    # rows come packed in the records, the ready set as the order)
+    ptrs = [a.data_ptr() for a in args[_N_SOURCES:]]
+    ptrs += [mk.data_ptr(), total_b.data_ptr(), npl.data_ptr()]
     ptrs += [c.data_ptr() for c in schedule] if emit else [0] * len(SCHEDULE_COLUMNS)
-    ptrs.append(state.data_ptr())
+    ptrs += [state.data_ptr(), order.data_ptr() if order.numel() else 0,
+             tables.records.data_ptr()]
     dims = [B, n_pad, r_pad, write_ids.shape[1], succ_ids.shape[1], R, n_u, nd1,
-            n_steps, int(use_cap), int(emit)]
+            n_steps, int(use_cap), int(emit), order.numel()]
     err = _lib.repro_episode_scan(
         (ctypes.c_int64 * len(ptrs))(*ptrs), (ctypes.c_int * len(dims))(*dims),
         dev.index or 0, torch.cuda.current_stream(dev).cuda_stream,
@@ -400,19 +592,30 @@ def _launch(args, *, n_steps: int, use_cap: bool, emit: bool):
     return (mk, total_b, npl, schedule) if emit else (mk, total_b, npl)
 
 
-def episode_scan(*args: torch.Tensor, n_steps: int, use_cap: bool, emit: bool):
+def episode_scan(*args: torch.Tensor, n_steps: int, use_cap: bool, emit: bool,
+                 tables: Optional[PlanTables] = None):
     """The episode over every configuration: the CUDA kernel on CUDA
     tensors (one launch), :func:`episode_plain` on CPU tensors. Takes the
     23 tensors of :func:`repro_torch.core.episode.episode_inputs`;
     returns ``(makespan, total_bytes, n_placed[, schedule])`` as
-    :func:`episode_plain` does."""
-    _check(args, n_steps)
+    :func:`episode_plain` does.
+
+    ``tables`` are the inputs' :class:`PlanTables` (``run_episodes``
+    passes the plan's, built once per device); they must have been derived
+    from these very tensors, else the call is refused. Without them the
+    card derives them here (:func:`plan_tables`: the order on the host,
+    every call). The plain version selects step by step and reads no
+    tables.
+    """
+    _check(args, n_steps, tables)
     dev = args[0].device
     if dev.type == "cpu":
         return episode_plain(*args, n_steps=n_steps, use_cap=use_cap, emit=emit)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    return _launch(args, n_steps=n_steps, use_cap=use_cap, emit=emit)
+    if tables is None:
+        tables = plan_tables(args)
+    return _launch(args, tables, n_steps=n_steps, use_cap=use_cap, emit=emit)
 
 
 episode_scan.launches = 0

@@ -64,8 +64,39 @@ def assorted_spec(seed: int = 0, n_tasks: int = 60, n_data: int = 14):
     return tasks
 
 
+def wide_spec(seed: int = 0, n_free: int = 320, n_classes: int = 4, n_joins: int = 6,
+              fan_in: int = 4):
+    """A seeded DAG whose ready set is wide and whose every selection is a
+    tie: ``n_free`` independent tasks in ``n_classes`` equal-cost classes
+    (kind, flops and output size alike; each reads one shared input and
+    writes its own output), then ``n_joins`` join tasks, each reading
+    ``fan_in`` outputs of one class. Tasks of a class that feed no join
+    share one priority, so the scan breaks each of their ties by index."""
+    rng = np.random.default_rng(seed)
+    kinds = ("gemm", "trsm", "potrf", "syrk")
+    classes = [(kinds[c % len(kinds)], float(rng.integers(1, 50)) * 1e8,
+                int(rng.integers(1, 8)) << 18) for c in range(n_classes)]
+    tasks = []
+    for i in range(n_free):
+        kind, flops, size = classes[i % n_classes]
+        tasks.append({"kind": kind, "flops": flops,
+                      "accesses": [("src", MIB, "r"), (f"o{i}", size, "w")]})
+    for j in range(n_joins):
+        c = j % n_classes
+        picks = rng.choice(np.arange(c, n_free, n_classes), size=fan_in, replace=False)
+        kind, flops, size = classes[c]
+        tasks.append({"kind": kind, "flops": flops,
+                      "accesses": [(f"o{i}", size, "r") for i in sorted(picks)]
+                      + [(f"join{j}", size, "w")]})
+    return tasks
+
+
+# the synthetic graphs' descriptions, by the name a case's graph key gives
+SYNTHETIC = {"evict": evict_spec, "assorted": assorted_spec, "wide": wide_spec}
+
+
 def synthetic_graph(name: str):
-    return graph_from_spec({"evict": evict_spec, "assorted": assorted_spec}[name]())
+    return graph_from_spec(SYNTHETIC[name]())
 
 
 def configs(graph, gpus, specs, seeds, caps=(0,), noise=NOISE):
@@ -109,6 +140,7 @@ def cases():
         ("evict8", ("evict",), (1,), ("heft", "dada?alpha=0.5", "dada?alpha=0.5&use_cp=1"),
          (3,), (EVICT_CAP,), None, 0),
         ("assorted", ("assorted",), (1, 3, 8), SMALL_SPECS, (11,), (0, 3 * MIB), None, 0),
+        ("wide", ("wide",), (2, 8), SMALL_SPECS, (5,), (0, 4 * MIB), None, 0),
         ("padded", ("cholesky", 4), (2, 5), FIGURE_SPECS, (9,), (0,), 24, 7),
     ]
     return out

@@ -4,6 +4,8 @@ torch, numpy and the port, so it runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -1041,8 +1043,9 @@ def _episode_check(cuda, items, pad_to=None, extra=0):
     args = ep.episode_inputs(plan, batch, torch.device("cpu"), pad_to)
     want = se.episode_plain(*args, n_steps=n_steps, use_cap=use_cap, emit=True)
     before = se.episode_scan.launches
-    got = se.episode_scan(*[a.to(cuda) for a in args], n_steps=n_steps, use_cap=use_cap,
-                          emit=True)
+    dargs = ep.episode_inputs(plan, batch, cuda, pad_to)
+    got = se.episode_scan(*dargs, n_steps=n_steps, use_cap=use_cap, emit=True,
+                          tables=ep.episode_tables(plan, cuda))
     torch.cuda.synchronize()
     assert se.episode_scan.launches == before + 1
     for g, w in zip(got[:3], want[:3]):
@@ -1057,6 +1060,58 @@ def test_cuda_episode_scan_equals_plain(cuda, case):
     label, graph_key, gpus, specs, seeds, caps, pad_to, extra = case
     items = configs(case_graph(graph_key), gpus, specs, seeds, caps)
     _episode_check(cuda, items, pad_to, extra)
+
+
+@pytest.mark.parametrize("label", ["assorted", "cap-mixed"])
+def test_cuda_episode_scan_spare_warp(cuda, label):
+    """An odd batch: the last block's spare warp leaves at once, and every
+    configuration still equals the plain scan."""
+    label, graph_key, gpus, specs, seeds, caps, pad_to, extra = next(
+        c for c in cases() if c[0] == label)
+    items = configs(case_graph(graph_key), gpus, specs, seeds, caps)
+    items = items[:len(items) - 1 + len(items) % 2]
+    assert len(items) % se.WARPS == 1
+    _episode_check(cuda, items, None, extra)
+
+
+def test_cuda_episode_plan_matches_the_launcher(cuda):
+    """launch_plan mirrors the launcher's own plan (repro_episode_plan) on
+    every case's shapes, and both refuse a warp whose shared memory cannot
+    fit and a machine of more than 32 resources."""
+    shapes = set()
+    for label, graph_key, gpus, specs, seeds, caps, pad_to, extra in cases():
+        plan, _ = plan_and_batch(configs(case_graph(graph_key), gpus, specs[:1], seeds[:1]))
+        shapes.add((plan.n_res, plan.r_pad, plan.w_pad, plan.s_pad))
+    shapes |= {(12, 2048, 2, 16), (12, 16384, 2, 16), (32, 64, 32, 128), (33, 4, 2, 16)}
+    shapes.add((12, 8192, 2, 16))  # one warp a block
+    for shape in sorted(shapes):
+        assert se.launcher_plan(*shape) == se.launch_plan(*shape), shape
+    assert se.launcher_plan(12, 16384, 2, 16) is None and se.launcher_plan(33, 4, 2, 16) is None
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cuda_episode_scan_on_tied_and_cut_priorities(cuda, seed):
+    """Priorities of three values with a few -inf (the order ends early and
+    later steps are inactive on task 0): the kernel, reading the order of
+    those priorities (derived from the inputs, or by the wrapper when none
+    are passed), equals the plain scan; the plan's tables are refused."""
+    items = configs(tile_graph("cholesky", 6), (2, 8), FIGURE_SPECS, (seed,))
+    plan, batch = plan_and_batch(items)
+    args = list(ep.episode_inputs(plan, batch, torch.device("cpu")))
+    rng = np.random.default_rng(seed)
+    prio = rng.choice(np.array([1.0, 2.0, 3.0], np.float32), size=plan.n_pad)
+    prio[rng.choice(np.arange(1, plan.n), size=seed, replace=False)] = -np.inf
+    args[7] = torch.from_numpy(prio)
+    want = se.episode_plain(*args, n_steps=plan.n + 2, use_cap=False, emit=True)
+    dargs = list(ep.episode_inputs(plan, batch, cuda))
+    dargs[7] = args[7].to(cuda)
+    run = partial(se.episode_scan, *dargs, n_steps=plan.n + 2, use_cap=False, emit=True)
+    with pytest.raises(ValueError, match="derived from other inputs"):
+        run(tables=ep.episode_tables(plan, cuda))
+    for got in (run(tables=se.plan_tables(dargs)), run()):
+        for g, w in zip((*got[:3], *got[3]), (*want[:3], *want[3])):
+            assert torch.equal(g.cpu(), w)
+    assert (want[2] < plan.n).all() == (seed > 0)
 
 
 @pytest.mark.parametrize("kind", ["cholesky", "lu", "qr"])

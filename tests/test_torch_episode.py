@@ -27,11 +27,11 @@ from _episode_cases import (  # noqa: E402
     NOISE,
     PARITY_SPECS,
     SMALL_SPECS,
+    SYNTHETIC,
     assorted_spec,
     case_graph,
     cases,
     configs,
-    evict_spec,
     plan_and_batch,
     tile_graph,
 )
@@ -66,7 +66,7 @@ def ref_graph(graph_key):
     if len(graph_key) == 2:
         kind, nt = graph_key
         return ref_cached_graph(partial(REF_GRAPHS[kind], nt, 256, with_fns=False))
-    spec = {"evict": evict_spec, "assorted": assorted_spec}[graph_key[0]]()
+    spec = SYNTHETIC[graph_key[0]]()
     g = RefGraph()
     for t in spec:
         g.add_task(t["kind"], [(RefData(n, int(sz)), RefMode(m)) for n, sz, m in t["accesses"]],
@@ -196,9 +196,12 @@ def test_plain_scan_equals_reference_on_seeded_graphs(seed):
 def test_cases_exercise_what_they_claim(parity_runs):
     """The capacity cases evict (write-backs show in ``evict_b``), the
     chain case needs all eight LRU rounds in one step (with seven, that
-    step writes back less), and the assorted graph has no two equal
-    sizes."""
-    for label in ("cap8MiB", "cap-mixed", "evict8", "assorted"):
+    step writes back less), the assorted graph has no two equal sizes, and
+    the wide graph's priorities are a handful of values, so its selections
+    tie."""
+    plan = parity_runs["wide"][2]
+    assert len(np.unique(plan.prio.astype(np.float32)[:plan.n])) <= 8 and plan.n > 300
+    for label in ("cap8MiB", "cap-mixed", "evict8", "assorted", "wide"):
         assert (parity_runs[label][-1]["schedule"]["evict_b"] > 0).any(), label
     graph_key, items, plan, batch, pad_to, extra, got = parity_runs["evict8"]
     assert (got["schedule"]["evict_b"][:, 10] == 8 * MIB).all()  # the 11th placement
@@ -233,6 +236,190 @@ def test_fma_f32_is_a_single_rounding():
     want = np.array([nearest(*v) for v in zip(a, b, c)], dtype=np.float32)
     assert np.array_equal(got, want)
     assert not np.array_equal(unfused, want)
+
+
+# ---------------------------------------------------------------------------
+# the selection order: a property of the plan, which the kernel reads
+
+
+@pytest.mark.parametrize("label", [c[0] for c in cases()])
+def test_plan_order_is_the_plain_scans_selection(parity_runs, label):
+    """Every configuration of a case selects the same tasks, and the plan's
+    order is that selection: equal on the active steps, as long as they
+    are; the other steps take task 0."""
+    graph_key, items, plan, batch, pad_to, extra, got = parity_runs[label]
+    tid, act = got["schedule"]["tid"], got["schedule"]["act"]
+    assert (tid == tid[:1]).all() and (act == act[:1]).all()
+    assert plan.order.dtype == np.int32 and len(plan.order) == act[0].sum() == plan.n
+    np.testing.assert_array_equal(tid[0][act[0]], plan.order)
+    assert (tid[0][~act[0]] == 0).all() and not act[0][plan.n:].any()
+
+
+@pytest.mark.parametrize("kind", ["cholesky", "lu", "qr"])
+def test_plan_order_on_the_nt16_tile_graphs(kind):
+    """The paper's NT 16 graphs: the order is the plain scan's selection."""
+    items = configs(tile_graph(kind, 16, 512), (8,), ("heft",), (1234,))
+    plan, batch = plan_and_batch(items)
+    got = ep.run_episodes(plan, batch, device="cpu", emit_schedule=True)
+    assert got["schedule"]["act"].all() and len(plan.order) == plan.n
+    np.testing.assert_array_equal(got["schedule"]["tid"][0], plan.order)
+    want = se.selection_order(plan.indeg0, plan.prio.astype(np.float32), plan.succ_ids)
+    np.testing.assert_array_equal(plan.order, want)
+
+
+def test_order_breaks_f32_ties_by_index():
+    """Two f64 ranks that round to one f32 value tie, and the lesser index
+    wins though its f64 rank is the greater one's: the order is built from
+    the f32 priorities the scan compares, as the plain scan selects."""
+    plan, batch = _small_setup()
+    args = list(ep.episode_inputs(plan, batch, torch.device("cpu")))
+    assert np.flatnonzero(plan.indeg0[:plan.n] == 0).tolist() == [0]  # one source
+    lo, hi = sorted(s for s in plan.succ_ids[0] if s < plan.n)[:2]  # two of its successors
+    prio64 = np.full(plan.n_pad, 2.0)
+    prio64[0] = 4.0
+    prio64[lo], prio64[hi] = 3.0, 3.0 + 2.0 ** -30
+    prio32 = prio64.astype(np.float32)
+    assert prio64[hi] > prio64[lo] and prio32[hi] == prio32[lo]
+    order = se.selection_order(plan.indeg0, prio32, plan.succ_ids)
+    assert order[:3].tolist() == [0, lo, hi]
+    args[7] = torch.from_numpy(prio32)
+    *_, sched = se.episode_plain(*args, n_steps=plan.n, use_cap=False, emit=True)
+    np.testing.assert_array_equal(sched[0][0].numpy(), order)
+    with pytest.raises(ValueError, match="f32"):
+        se.selection_order(plan.indeg0, prio64, plan.succ_ids)
+    with pytest.raises(ValueError, match="NaN"):
+        se.selection_order(plan.indeg0, np.full_like(prio32, np.nan), plan.succ_ids)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4, 5])
+def test_order_follows_the_plain_scan_on_tied_and_cut_priorities(seed):
+    """Priorities drawn from three values (most selections tie), a few of
+    them -inf (such a task, and all it feeds, is never taken): the order
+    is the plain scan's selection on its active steps, and every later
+    step is inactive on task 0."""
+    plan, batch = _small_setup()
+    args = list(ep.episode_inputs(plan, batch, torch.device("cpu")))
+    rng = np.random.default_rng(seed)
+    prio = rng.choice(np.array([1.0, 2.0, 3.0], np.float32), size=plan.n_pad)
+    prio[rng.choice(np.arange(1, plan.n), size=seed % 3, replace=False)] = -np.inf
+    args[7] = torch.from_numpy(prio)
+    order = se.selection_order(plan.indeg0, prio, plan.succ_ids)
+    assert (len(order) == plan.n) == (seed % 3 == 0)
+    *_, sched = se.episode_plain(*args, n_steps=plan.n + 3, use_cap=False, emit=True)
+    tid, act = sched[0].numpy(), sched[2].numpy()
+    assert (tid == tid[:1]).all() and (act == act[:1]).all()
+    assert act[0].sum() == len(order) and act[0][:len(order)].all()
+    np.testing.assert_array_equal(tid[0][:len(order)], order)
+    assert (tid[0][len(order):] == 0).all()
+
+
+def test_state_words_hold_no_ready_set():
+    """A configuration's state is ready_t, res_mask and writer and, with a
+    capacity, touch: QR NT 16 on the paper machine takes about 9.3 KB."""
+    assert se.state_words(128, 10, 3, False) == 128 + 2 * 10
+    assert se.state_words(128, 10, 3, True) == 128 + 2 * 10 + 3 * 10
+    plan = ep.build_plan(tile_graph("qr", 16, 512), paper_machine(8), n_u=9)
+    assert 4 * se.state_words(plan.n_pad, plan.n_data + 1, plan.n_u, False) == 9288
+
+
+def test_plan_tables_are_built_once_and_bound_to_their_inputs():
+    """The plan's tables on a device (order and task records) are made once
+    and bound to the plan tensors episode_inputs hands out there: the
+    order is the plan's, the records pack those tensors' rows."""
+    plan, batch = _small_setup()
+    cpu = torch.device("cpu")
+    args = ep.episode_inputs(plan, batch, cpu)
+    tables = ep.episode_tables(plan, cpu)
+    assert ep.episode_tables(plan, "cpu") is tables
+    assert all(a is b for a, b in zip(ep.episode_inputs(plan, batch, cpu, len(batch) + 1)[:13],
+                                      args[:13]))
+    assert tables.matches(args) and tables.order.dtype == torch.int32
+    np.testing.assert_array_equal(tables.order.numpy(), plan.order)
+    assert torch.equal(tables.records, se.task_records(args))
+    derived = se.plan_tables(args)
+    assert torch.equal(derived.order, tables.order) and torch.equal(derived.records, tables.records)
+
+
+def test_wrapper_refuses_tables_of_other_inputs():
+    """Tables go only with the tensors they were derived from, unchanged:
+    new priorities (a new tensor, or the same one changed in place) with
+    the plan's tables are refused, on the CPU as on the card; tables
+    derived from the new inputs are taken, and their order follows the new
+    priorities, as the plain scan does."""
+    plan, batch = _small_setup()
+    args = list(ep.episode_inputs(plan, batch, torch.device("cpu")))
+    tables = ep.episode_tables(plan, "cpu")
+    run = partial(se.episode_scan, n_steps=plan.n, use_cap=False, emit=True)
+    run(*args, tables=tables)
+    prio = torch.from_numpy(np.arange(plan.n_pad, dtype=np.float32))  # last task first
+    new = list(args)
+    new[7] = prio
+    with pytest.raises(ValueError, match="derived from other inputs"):
+        run(*new, tables=tables)
+    mine = se.plan_tables(new)
+    got = run(*new, tables=mine)
+    assert not np.array_equal(mine.order.numpy(), plan.order)
+    np.testing.assert_array_equal(got[3][0][0].numpy(), mine.order.numpy())
+    copy = [a.clone() for a in args]
+    copied = se.plan_tables(copy)
+    run(*copy, tables=copied)
+    copy[7].mul_(-1.0)  # in place: the version moves on
+    with pytest.raises(ValueError, match="changed in place"):
+        run(*copy, tables=copied)
+    with pytest.raises(ValueError, match="derived from other inputs"):
+        run(*copy, tables=tables)
+
+
+def test_task_records_pack_the_plan_rows():
+    """Each task's record, as the kernel fetches it: reads, one-hop times
+    and sizes, writes and their sizes, successors, then the two durations
+    (the floats' bits), each section zero-padded to 16 bytes."""
+    plan, batch = _small_setup()
+    args = ep.episode_inputs(plan, batch, torch.device("cpu"))
+    rec = se.task_records(args)
+    r, w, s_ = plan.r_pad, plan.w_pad, plan.s_pad
+    assert rec.shape == (plan.n_pad, se.record_words(r, w, s_)) and rec.dtype == torch.int32
+    assert rec.is_contiguous() and rec.shape[1] % 4 == 0
+    f = rec.view(torch.float32)
+    at = 0
+    for want, width in zip((*args[:6], torch.stack([args[8], args[9]], dim=1)),
+                           (r, r, r, w, w, s_, 2)):
+        span = -(-width // 4) * 4
+        got = rec[:, at:at + width] if want.dtype == torch.int32 else f[:, at:at + width]
+        assert torch.equal(got, want) and (rec[:, at + width:at + span] == 0).all()
+        at += span
+    assert at == rec.shape[1]
+
+
+def _assert_plans_fit(label, R, r_pad, w_pad, s_pad):
+    per = 4 * se.warp_words(R, r_pad, w_pad, s_pad)
+    assert se.launch_plan(R, r_pad, w_pad, s_pad) == (se.WARPS, se.WARPS * per), label
+    assert se.WARPS * per <= se.SMEM_LIMIT, label
+
+
+def test_launch_plan_fits_every_case():
+    """The kernel's launch plan (configurations a block, shared bytes):
+    :data:`WARPS` configurations a block fit the card's 227 KB on every
+    case; a warp whose share cannot fit, or a machine of more than 32
+    resources (one lane each), is refused, and a block takes one warp
+    where two would not fit."""
+    for label, graph_key, gpus, specs, seeds, caps, pad_to, extra in cases():
+        plan, _ = plan_and_batch(configs(case_graph(graph_key), gpus, specs[:1], seeds[:1]))
+        _assert_plans_fit(label, plan.n_res, plan.r_pad, plan.w_pad, plan.s_pad)
+    assert se.launch_plan(12, 16384, 2, 16) is None
+    assert se.launch_plan(se.MAX_RES + 1, 4, 2, 16) is None
+    assert se.launch_plan(se.MAX_RES, 4, 2, 16) is not None
+    per = 4 * se.warp_words(12, 8192, 2, 16)
+    assert 2 * per > se.SMEM_LIMIT >= per
+    assert se.launch_plan(12, 8192, 2, 16) == (1, per)
+
+
+@pytest.mark.parametrize("kind", ["cholesky", "lu", "qr"])
+def test_launch_plan_fits_at_scale(kind):
+    """The plan fits at NT 16, 32 and 64 on the paper machine."""
+    for nt in (16, 32, 64):
+        plan = ep.build_plan(tile_graph(kind, nt, 512), paper_machine(8), n_u=9)
+        _assert_plans_fit(f"{kind}{nt}", plan.n_res, plan.r_pad, plan.w_pad, plan.s_pad)
 
 
 # ---------------------------------------------------------------------------

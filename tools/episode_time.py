@@ -8,13 +8,14 @@ Cholesky, LU and QR at ``--nt`` (tile 512, ``paper_machine(1..8)`` x the
 five figure specs x 30 seeds, noise 0.03: 1 200 configurations a graph,
 one group each) and times one ``episode_scan`` launch on it: CUDA events
 around ``--reps`` launches back to back after a warm-up launch, the
-wrapper's argument checks left out, so only the kernel is timed. A tree
-whose wrapper takes ``layout=`` (state in shared or in global memory) is
-timed in each layout. Trees run in the order given and then in reverse
-(A, B, B, A), each in a fresh interpreter so that two versions of
-``repro_torch`` never meet in one process. Prints one JSON line per
-(tree, graph, layout) and, last, each one's median ms. Fails unless every
-tree and layout gives the same makespans. Needs one CUDA device.
+wrapper's argument checks left out, so only the kernel is timed (a tree
+whose kernel reads the plan's tables gets them built beforehand, with the
+plan: variant ``tables``; an older tree's launch packs nothing: variant
+``global``). Trees run in the order given and then in reverse (A, B, B, A), each in a
+fresh interpreter so that two versions of ``repro_torch`` never meet in
+one process. Prints one JSON line per (tree, graph, variant) and, last,
+each one's median ms. Fails unless every tree and variant gives the same
+makespans. Needs one CUDA device.
 """
 from __future__ import annotations
 
@@ -42,12 +43,10 @@ SPECS = ("heft", "ws", "dada?alpha=0", "dada?alpha=0.5", "dada?alpha=0.5&use_cp=
 builders = {"cholesky": cholesky_graph, "lu": lu_graph, "qr": qr_graph}
 machines = {n: paper_machine(n) for n in range(1, 9)}
 dev = torch.device("cuda")
-if hasattr(se, "_launch"):
-    layouts = {"global": lambda args, **kw: se._launch(args, **kw)}
-else:  # a tree with both layouts and the checks inside the wrapper
-    se._check = lambda args, n_steps: None
-    layouts = {name: (lambda args, name=name, **kw: se.episode_scan(*args, layout=name, **kw))
-               for name in ("shared", "global")}
+if "tables" in inspect.signature(se._launch).parameters:
+    variant = "tables"
+else:  # a tree whose kernel scans the ready set
+    variant = "global"
 
 
 def time_ms(fn):
@@ -70,14 +69,14 @@ for gname in GRAPHS:
     plan = ep.build_plan(g, machines[8], n_u=9)
     batch = ep.config_batch(plan, items)
     args = ep.episode_inputs(plan, batch, dev, len(batch))
-    for name, launch in layouts.items():
-        ms, out = time_ms(lambda: launch(args, n_steps=plan.n, use_cap=False, emit=False))
-        mk = out[0].cpu().numpy()
-        assert (out[2].cpu().numpy() == plan.n).all()
-        print(json.dumps(dict(src=SRC, graph=gname, nt=NT, layout=name, configs=len(items),
-                              steps=plan.n, n_pad=plan.n_pad, reps=REPS, ms=ms,
-                              makespans=hashlib.sha256(mk.tobytes()).hexdigest()[:16])),
-              flush=True)
+    lead = (args, ep.episode_tables(plan, dev)) if variant == "tables" else (args,)
+    ms, out = time_ms(lambda: se._launch(*lead, n_steps=plan.n, use_cap=False, emit=False))
+    mk = out[0].cpu().numpy()
+    assert (out[2].cpu().numpy() == plan.n).all()
+    print(json.dumps(dict(src=SRC, graph=gname, nt=NT, variant=variant, configs=len(items),
+                          steps=plan.n, n_pad=plan.n_pad, reps=REPS, ms=ms,
+                          makespans=hashlib.sha256(mk.tobytes()).hexdigest()[:16])),
+          flush=True)
 """
 
 
@@ -108,10 +107,10 @@ def main() -> int:
     for gname in GRAPHS:
         same = {r["makespans"] for r in rows if r["graph"] == gname}
         if len(same) != 1:
-            raise SystemExit(f"{gname}: makespans differ between trees or layouts: {same}")
-    for key in dict.fromkeys((r["src"], r["graph"], r["layout"]) for r in rows):
-        mine = [r["ms"] for r in rows if (r["src"], r["graph"], r["layout"]) == key]
-        print(json.dumps(dict(src=key[0], graph=key[1], nt=args.nt, layout=key[2], runs=len(mine),
+            raise SystemExit(f"{gname}: makespans differ between trees: {same}")
+    for key in dict.fromkeys((r["src"], r["graph"], r["variant"]) for r in rows):
+        mine = [r["ms"] for r in rows if (r["src"], r["graph"], r["variant"]) == key]
+        print(json.dumps(dict(src=key[0], graph=key[1], nt=args.nt, variant=key[2], runs=len(mine),
                               ms=mine, median_ms=statistics.median(mine))))
     return 0
 
