@@ -160,8 +160,27 @@ non-zero and no phase carries on past its own failure):
               device="cpu" field for field (both timed).
               Prints every row, the claim tables, wall s per figure,
               runs/s and configs/s, and a paper JSON line;
- 12. report   a JSON line of every ported kernel (launches_paper: each
-              kernel's launches in the paper phase), then the last line
+ 12. verify   the audit log and the independent verifier
+              (repro_torch.verify) over the main path, the kernels' counts
+              set to 0 just before and read just after: HEFT, DADA(0.5)+CP
+              and ws over the Cholesky, LU and QR tile DAGs at NT 16 (tile
+              512) on paper_machine(8), every activation scored and placed
+              on the card, with audit=True. Each log must verify with 0
+              errors, equal the port's own device="cpu" run's log record for
+              record, and the result must equal the audit-off run's; the
+              card's logs are written under build/verify/ and
+              ``python -m repro_torch.verify schedule`` must pass them. Then
+              64 surrogate configurations a graph (2 / 4 / 6 / 8 GPUs x heft
+              and dada?alpha=0.5&use_cp=1 x 8 seeds) through one
+              episode_scan launch with the schedule emitted, each turned
+              into an audit log by episode_audit_logs: 0 errors each, every
+              log equal to the CPU plain scan's. Prints records a run, wall
+              s audit off and on (medians of three, off, on, on, off, off,
+              on, after an untimed run), the verifier's s a log,
+              and a verify JSON line;
+ 13. report   a JSON line of every ported kernel (launches_paper and
+              launches_verify: each kernel's launches in the paper and
+              verify phases), then the last line
               ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits 2 without printing a result when there is
@@ -172,6 +191,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1665,6 +1685,175 @@ def paper_phase(ss, sp, se):
     return entry, total
 
 
+AUDIT_LISTS = ("execs", "hops", "landings", "evictions", "faults", "notices", "retries",
+               "timeouts", "arrivals", "admits", "rejects")
+
+
+def same_log(a, b) -> bool:
+    """Two audit logs hold the same records, field for field (floats ==)."""
+    return (a.engine, a.machine, a.graphs, a.result) == (b.engine, b.machine, b.graphs, b.result) and all(
+        getattr(a, k) == getattr(b, k) for k in AUDIT_LISTS)
+
+
+def n_records(log) -> int:
+    return sum(len(getattr(log, k)) for k in AUDIT_LISTS)
+
+
+def verify_phase(ss, sp, se):
+    """The main path under audit (exact engine and surrogate), every log
+    re-checked by repro_torch.verify and held against the CPU's. Returns
+    the ``verify`` JSON entry and the launches by kernel."""
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.core import Simulator
+    from repro_torch.core import episode as ep
+    from repro_torch.linalg.cholesky import cholesky_graph
+    from repro_torch.linalg.lu import lu_graph
+    from repro_torch.linalg.qr import qr_graph
+    from repro_torch.sched import resolve
+    from repro_torch.verify import errors, verify_audit
+
+    from _episode_cases import configs, plan_and_batch
+
+    counters = {"score_activation": ss.score_activation, "dada_place": sp.dada_place,
+                "heft_select": sp.heft_select, "episode_scan": se.episode_scan}
+    builders = {"cholesky": cholesky_graph, "lu": lu_graph, "qr": qr_graph}
+    machine = paper_machine(8)
+    out_dir = ROOT / "build" / "verify"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("*.jsonl"):
+        old.unlink()
+
+    def strategy(spec, device):
+        return resolve(spec) if spec == "ws" else resolve(spec, device=device)
+
+    def run(gname, spec, device, audit):
+        sim = Simulator(builders[gname](16, 512), machine, strategy(spec, device), seed=0,
+                        audit=audit)
+        w0 = time.perf_counter()
+        res = sim.run()
+        torch.cuda.synchronize()
+        return sim, res, time.perf_counter() - w0
+
+    for fn in counters.values():
+        fn.launches = 0
+    exact, card_logs = [], []
+    for gname in builders:
+        for spec in ("heft", "dada?alpha=0.5&use_cp=1", "ws"):
+            walls = {False: [], True: []}
+            plain0 = sp.dada_place_plain.calls + sp.heft_select_plain.calls
+            run(gname, spec, "cuda", False)  # warm-up: first-use costs, not timed
+            for audit in (False, True, True, False, False, True):  # A B B A A B on the card
+                sim, res, wall = run(gname, spec, "cuda", audit)
+                walls[audit].append(wall)
+                if audit:
+                    card, card_res = sim, res
+                else:
+                    off_res = res
+            if sp.dada_place_plain.calls + sp.heft_select_plain.calls != plain0:
+                raise SystemExit(f"verify {gname} {spec}: a plain search ran in a card run")
+            cpu, _, _ = run(gname, spec, "cpu", True)
+            log = card.audit
+            v0 = time.perf_counter()
+            findings = verify_audit(log)
+            verify_s = time.perf_counter() - v0
+            errs = errors(findings)
+            path = out_dir / f"{gname}-{card_res.strategy}.jsonl"
+            log.to_jsonl(str(path))
+            card_logs.append(path)
+            row = dict(graph=gname, nt=16, strategy=card_res.strategy, tasks=len(card.graph),
+                       records=n_records(log), execs=len(log.execs), hops=len(log.hops),
+                       landings=len(log.landings), errors=len(errs),
+                       warnings=len(findings) - len(errs), verify_s=verify_s,
+                       wall_off_s=float(np.median(walls[False])),
+                       wall_on_s=float(np.median(walls[True])),
+                       walls_off_s=walls[False], walls_on_s=walls[True],
+                       jsonl_bytes=path.stat().st_size)
+            row["audit_overhead"] = row["wall_on_s"] / row["wall_off_s"]
+            exact.append(row)
+            print(f"verify exact graph={gname} NT=16 strategy={card_res.strategy} "
+                  f"tasks={row['tasks']} records={row['records']} (execs {row['execs']}, hops "
+                  f"{row['hops']}, landings {row['landings']}) errors={len(errs)} "
+                  f"warnings={row['warnings']} verify_s={verify_s:.6f} wall off "
+                  f"{row['wall_off_s']:.6f} s, on {row['wall_on_s']:.6f} s "
+                  f"(x{row['audit_overhead']:.3f}; runs off {walls[False]}, on {walls[True]})",
+                  flush=True)
+            for f in errs[:5]:
+                print(f"  {f}")
+            if errs:
+                raise SystemExit(f"verify {gname} {spec}: {len(errs)} verifier errors on the card's log")
+            if not same_log(log, cpu.audit):
+                raise SystemExit(f"verify {gname} {spec}: the card's audit log differs from the CPU's")
+            if fingerprint(card_res) != fingerprint(off_res):
+                raise SystemExit(f"verify {gname} {spec}: the audited result differs from audit off")
+            if len(log.execs) != len(card.graph) or not log.hops:
+                raise SystemExit(f"verify {gname} {spec}: log malformed")
+    exact_launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"verify exact: launches {exact_launches}", flush=True)
+    if not (exact_launches["dada_place"] and exact_launches["heft_select"]
+            and exact_launches["score_activation"]
+            == exact_launches["dada_place"] + exact_launches["heft_select"]
+            and not exact_launches["episode_scan"]):
+        raise SystemExit(f"verify exact: launches {exact_launches}")
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.verify", "schedule", *map(str, card_logs)],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+    summary = [line for line in cli.stdout.splitlines() if "error(s)" in line]
+    clean = sum(" 0 error(s)" in line for line in summary)
+    print(f"verify CLI (python -m repro_torch.verify schedule) over the card's {len(card_logs)} "
+          f"logs: exit {cli.returncode}, {clean} with 0 errors", flush=True)
+    if cli.returncode != 0 or clean != len(card_logs):
+        raise SystemExit(f"python -m repro_torch.verify failed:\n{cli.stdout[-2000:]}{cli.stderr[-2000:]}")
+
+    for fn in counters.values():
+        fn.launches = 0
+    surrogate = []
+    for gname, build in builders.items():
+        items = configs(build(16, 512, with_fns=False), (2, 4, 6, 8),
+                        ("heft", "dada?alpha=0.5&use_cp=1"), tuple(range(1234, 1242)))
+        plan, batch = plan_and_batch(items)
+        w0 = time.perf_counter()
+        out = ep.run_episodes(plan, batch, device="cuda", emit_schedule=True)
+        card_s = time.perf_counter() - w0
+        want = ep.run_episodes(plan, batch, device="cpu", emit_schedule=True)
+        graph = items[0]["graph"]
+        w0 = time.perf_counter()
+        logs = ep.episode_audit_logs(graph, batch, out)
+        logs_s = time.perf_counter() - w0
+        cpu_logs = ep.episode_audit_logs(graph, batch, want)
+        w0 = time.perf_counter()
+        n_errs = [len(errors(verify_audit(log))) for log in logs]
+        verify_s = time.perf_counter() - w0
+        equal = sum(same_log(a, b) for a, b in zip(logs, cpu_logs))
+        records = [n_records(log) for log in logs]
+        row = dict(graph=gname, nt=16, configs=len(logs), records_min=min(records),
+                   records_max=max(records), errors=sum(n_errs), equal_cpu=equal,
+                   scan_s=card_s, logs_s=logs_s, verify_s=verify_s,
+                   verify_s_per_log=verify_s / len(logs))
+        surrogate.append(row)
+        print(f"verify surrogate graph={gname} NT=16: {len(logs)} configs, records a log "
+              f"{min(records)}..{max(records)}, errors {sum(n_errs)}, logs equal to the CPU's "
+              f"{equal}/{len(logs)}; scan {card_s:.6f} s, logs {logs_s:.6f} s, verify "
+              f"{verify_s:.6f} s ({row['verify_s_per_log']:.6f} s a log)", flush=True)
+        if len(logs) != 64 or sum(n_errs) or equal != len(logs):
+            raise SystemExit(f"verify surrogate {gname}: {sum(n_errs)} errors, {equal} of "
+                             f"{len(logs)} logs equal to the CPU's")
+        if not all(len(log.execs) == len(graph) for log in logs):
+            raise SystemExit(f"verify surrogate {gname}: not every task placed")
+    surrogate_launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"verify surrogate: launches {surrogate_launches}", flush=True)
+    if surrogate_launches != {"score_activation": 0, "dada_place": 0, "heft_select": 0,
+                              "episode_scan": len(builders)}:
+        raise SystemExit(f"verify surrogate: launches {surrogate_launches}, want one "
+                         f"episode_scan per graph")
+    launches = {k: exact_launches[k] + surrogate_launches[k] for k in counters}
+    entry = dict(card=card_line(), exact=exact, surrogate=surrogate, launches=launches,
+                 exact_launches=exact_launches, surrogate_launches=surrogate_launches,
+                 cli_exit=cli.returncode)
+    return entry, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2178,7 +2367,12 @@ def main() -> int:
     paper, paper_launches = paper_phase(ss, sp, se)
     done("paper", t0)
 
-    # ---- 11. report ----------------------------------------------------------
+    # ---- 12. verify ----------------------------------------------------------
+    t0 = phase("verify")
+    verified, verify_launches = verify_phase(ss, sp, se)
+    done("verify", t0)
+
+    # ---- 13. report ----------------------------------------------------------
     kernels = [{
         "name": "score_activation",
         "route": "cuda",
@@ -2201,6 +2395,7 @@ def main() -> int:
         "shape": score_shape,
         "launch_structure_cholesky_nt16": launch_structure,
         "launches_paper": paper_launches["score_activation"],
+        "launches_verify": verify_launches["score_activation"],
     }, {
         "name": "place",
         "route": "cuda",
@@ -2211,6 +2406,7 @@ def main() -> int:
         "launches_by_kernel": place_launches,
         "launches_paper": paper_launches["dada_place"] + paper_launches["heft_select"],
         "launches_paper_by_kernel": {k: paper_launches[k] for k in ("dada_place", "heft_select")},
+        "launches_verify": verify_launches["dada_place"] + verify_launches["heft_select"],
         "exact": place_max_err == 0.0,
         "max_abs_err": place_max_err,
         "cases": place_cases,
@@ -2298,9 +2494,11 @@ def main() -> int:
             "timings": rows,
         })
     episode_entry["launches_paper"] = paper_launches["episode_scan"]
+    episode_entry["launches_verify"] = verify_launches["episode_scan"]
     kernels.append(episode_entry)
     print(json.dumps({"serve": served}))
     print(json.dumps({"paper": paper}))
+    print(json.dumps({"verify": verified}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

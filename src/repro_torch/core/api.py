@@ -11,6 +11,7 @@ import numpy as np
 
 from ..device import resolve_device
 from ..sched.registry import resolve
+from ..verify import errors, verify_audit
 from .dag import TaskGraph
 from .machine import MachineModel
 from .simulator import SimResult, Simulator
@@ -22,12 +23,26 @@ def run_simulation(
     strategy,
     seed: int = 0,
     noise: float = 0.03,
+    audit: bool = False,
 ) -> SimResult:
     """Simulate ``graph`` on ``machine`` under ``strategy`` (a strategy
     object, or a registry spec such as ``"dada?alpha=0.5&use_cp=1"``,
-    which builds it for the card)."""
-    sim = Simulator(graph, machine, resolve(strategy), seed=seed, noise=noise)
-    return sim.run()
+    which builds it for the card).
+
+    ``audit=True`` records the run's audit log and re-checks it with the
+    independent verifier (:func:`repro_torch.verify.verify_audit`):
+    precedence, data arrival, byte conservation, exactly-once execution,
+    the makespan. Any error raises ``RuntimeError``."""
+    sim = Simulator(graph, machine, resolve(strategy), seed=seed, noise=noise, audit=audit)
+    res = sim.run()
+    if sim.audit is not None:
+        errs = errors(verify_audit(sim.audit))
+        if errs:
+            detail = "; ".join(f"{f.code}: {f.message}" for f in errs[:5])
+            raise RuntimeError(
+                f"schedule verification failed ({len(errs)} error(s)): {detail}"
+            )
+    return res
 
 
 @dataclass

@@ -45,6 +45,7 @@ from ..kernels.sched_episode import (
     episode_scan,
     selection_order,
 )
+from ..verify.audit import AuditLog, graph_accesses
 from .dag import TaskGraph
 from .machine import HOST_MEM, MachineModel
 
@@ -468,3 +469,66 @@ def run_episodes(
             name: col.cpu().numpy()[:B] for name, col in zip(SCHEDULE_COLUMNS, res[3])
         }
     return out
+
+
+def episode_audit_logs(graph: TaskGraph, batch: EpisodeBatch, out: Mapping) -> List[AuditLog]:
+    """Convert a ``run_episodes(..., emit_schedule=True)`` output (from the
+    card or the CPU) into one audit log per configuration.
+
+    Each batch row becomes one :class:`repro_torch.verify.AuditLog` with
+    ``engine="surrogate"``: per-step placements as exec records (start
+    after the step's transfer time, end at the step's finish), demand
+    transfers and capacity write-backs as hop records, and the episode's
+    claimed makespan / total bytes as the result footer — the schema the
+    exact engine emits, so :func:`repro_torch.verify.verify_audit`
+    re-checks surrogate schedules with no engine-specific code. The logs
+    equal ``repro.core.episode.episode_audit_logs``'s on the same batch.
+    """
+    sched = out["schedule"]
+    accesses = graph_accesses(graph)
+    n = len(accesses)
+    n_res = batch.mem_col.shape[1]
+    logs = []
+    for b in range(len(batch)):
+        log = AuditLog(engine="surrogate")
+        log.machine = {
+            "host_mem": 0,
+            "resources": [
+                {
+                    "rid": r,
+                    "mem": int(batch.mem_col[b, r]),
+                    "valid": bool(batch.valid_res[b, r]),
+                    "link": int(batch.link_grp[b, r]),
+                }
+                for r in range(n_res)
+            ],
+        }
+        log.graphs[0] = {"submit_at": 0.0, "tasks": accesses}
+        for k in range(sched["tid"].shape[1]):
+            if not sched["act"][b, k]:
+                continue
+            tid = int(sched["tid"][b, k])
+            if tid >= n:
+                continue  # padded step ids never activate; defensive
+            rid = int(sched["rid"][b, k])
+            start = float(sched["start"][b, k])
+            xt = float(sched["xfer_t"][b, k])
+            xb = float(sched["xfer_b"][b, k])
+            eb = float(sched["evict_b"][b, k])
+            fin = float(sched["fin"][b, k])
+            log.log_exec(0, tid, rid, int(batch.mem_col[b, rid]), start + xt, fin)
+            grp = int(batch.link_grp[b, rid])
+            if xb > 0:
+                log.log_hop("copy", int(round(xb)), grp, start, start + xt)
+            if eb > 0:
+                log.log_hop("writeback", int(round(eb)), grp, start, fin)
+        log.result = {
+            "total_bytes": float(out["total_bytes"][b]),
+            "n_transfers": None,
+            "makespan": float(out["makespan"][b]),
+            "per_graph": {
+                0: {"finish": float(out["makespan"][b]), "submit_at": 0.0}
+            },
+        }
+        logs.append(log)
+    return logs

@@ -27,10 +27,11 @@ class Simulator(Engine):
         seed: int = 0,
         noise: float = 0.03,
         transfer_model: Optional[TransferModel] = None,
+        audit: bool = False,
     ) -> None:
         super().__init__(
             machine, strategy, seed=seed, noise=noise,
-            transfer_model=transfer_model,
+            transfer_model=transfer_model, audit=audit,
         )
         self._primary: GraphContext = self.submit(graph)
 

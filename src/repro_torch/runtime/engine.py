@@ -13,9 +13,16 @@ Reproduces the paper's execution flow (§2.1-2.2):
     performance model, which therefore calibrates online (§2.3).
 
 Counterpart of ``repro.runtime.engine`` on its default path: unbounded
-device memories, no faults, no audit log, no serving mode. Several graphs
-may be submitted before :meth:`Engine.run`; their roots are placed in
-submit order when the run starts.
+device memories, no faults, no serving mode. Several graphs may be
+submitted before :meth:`Engine.run`; their roots are placed in submit
+order when the run starts.
+
+``audit=True`` records the run in a :class:`repro_torch.verify.AuditLog`
+(``engine.audit``): the machine, every submitted graph's accesses, each
+execution, each link hop and each landing, with the same records in the
+same order as ``repro``'s engine on the same run. Every hook sits behind
+an ``is not None`` check, so an audit-off run takes the code path it
+took before the hooks existed.
 
 Determinism: all randomness flows through one seeded numpy Generator (the
 per-task duration noise of each graph is drawn, in tid order, when the
@@ -39,6 +46,7 @@ from ..core.perfmodel import (
     Residency,
     TransferModel,
 )
+from ..verify.audit import AuditLog
 from .events import EventQueue
 from .metrics import Metrics, ScheduledInterval, SimResult
 from .queues import Worker, eligible_victims
@@ -67,7 +75,7 @@ class GraphContext:
     __slots__ = (
         "gid", "graph", "arrays", "residency", "inflight", "waiting",
         "noise_mult", "preds", "succ", "done", "n_done", "n_tasks",
-        "rid_static", "predictors", "finish", "intervals",
+        "rid_static", "predictors", "finish", "intervals", "submit_at",
     )
 
     def __init__(self, gid: int, graph: TaskGraph) -> None:
@@ -91,6 +99,8 @@ class GraphContext:
         self.noise_mult: Optional[List[float]] = None
         self.finish = 0.0
         self.intervals: List[ScheduledInterval] = []
+        # every graph is submitted before the run starts
+        self.submit_at = 0.0
 
 
 class Engine:
@@ -109,6 +119,7 @@ class Engine:
         seed: int = 0,
         noise: float = 0.03,
         transfer_model: Optional[TransferModel] = None,
+        audit: bool = False,
     ) -> None:
         self.machine = machine
         self.strategy = strategy
@@ -132,6 +143,18 @@ class Engine:
 
         self.metrics = Metrics(machine)
         self.transfers = TransferEngine(machine, self.events, self.metrics)
+
+        # opt-in structured audit log (repro_torch.verify), logged with the
+        # settings of the reference's default path: unbounded memories,
+        # LRU named, no stale cancellation, drain faults (none happen)
+        self.audit: Optional[AuditLog] = None
+        if audit:
+            self.audit = AuditLog(engine="exact")
+            self.audit.log_machine(
+                machine, host_mem=HOST_MEM, capacity=0, eviction="lru",
+                cancel_stale=False, fault_mode="drain", seed=seed, noise=noise,
+            )
+        self.transfers.audit = self.audit
 
         self._ctxs: List[GraphContext] = []
         self._ctx_of: Dict[int, GraphContext] = {}  # id(task) -> context
@@ -166,6 +189,8 @@ class Engine:
         self._ctxs.append(ctx)
         if self._cur is None:
             self._set_ctx(ctx)
+        if self.audit is not None:
+            self.audit.log_graph(ctx.gid, ctx.submit_at, graph)
         return ctx
 
     def _set_ctx(self, ctx: GraphContext) -> None:
@@ -283,6 +308,8 @@ class Engine:
             write_id(did, name, bit)
             # invalidate any stale dedup entries for this data
             inflight_pop(name, None)
+        if self.audit is not None:
+            self.audit.log_exec(ctx.gid, tid, rid, self._mem_of[rid], w.run_start, self.now)
         # load time-stamp correction (§2.3: runtime corrects predictions)
         if not w.queue:
             self.load_ts[rid] = self.now
@@ -318,6 +345,7 @@ class Engine:
         events = self.events.heap
         heappop = heapq.heappop
         workers = self.workers
+        audit = self.audit
         n_events = 0
         while events:
             t, _, kind, payload = heappop(events)
@@ -332,6 +360,8 @@ class Engine:
                     if not flights:
                         del inflight[name]
                 ctx.residency.add_copy(name, mem)
+                if audit is not None:
+                    audit.log_landing(ctx.gid, name, mem, t, True, "ok")
                 waiters = ctx.waiting.pop((name, mem), None)
                 if waiters:
                     for rid in waiters:
@@ -346,6 +376,8 @@ class Engine:
                 rid, ctx, tid, dur = payload
                 self._complete(rid, ctx, tid, dur)
         self.metrics.n_events = n_events
+        if audit is not None:
+            audit.finalize(self)
         for ctx in self._ctxs:
             if ctx.n_done != ctx.n_tasks:
                 missing = [t.tid for t in ctx.graph.tasks if not ctx.done[t.tid]]

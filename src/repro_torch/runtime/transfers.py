@@ -12,6 +12,10 @@
 A transfer in flight when its data is overwritten still lands as a valid
 copy: ``repro``'s engine keeps that modeling artifact by default, and
 this engine matches it bit for bit.
+
+With an audit log attached (``audit``, wired by the engine), every hop is
+logged as a ``copy`` hop and every request notes its time, so the landing
+record can carry it.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ class TransferEngine:
     """Link timing + transfer routing for one engine."""
 
     __slots__ = (
-        "events", "metrics", "mem_link", "link_free", "_link_lat", "_link_bw",
+        "events", "metrics", "mem_link", "link_free", "_link_lat", "_link_bw", "audit",
     )
 
     def __init__(
@@ -43,6 +47,7 @@ class TransferEngine:
                 self.mem_link.setdefault(r.mem, r.link)
         self._link_lat = machine.link.latency
         self._link_bw = machine.link.bandwidth
+        self.audit = None  # repro_torch.verify AuditLog, wired by the engine
 
     def one_hop(self, nbytes: int, group: Optional[int], t: float) -> float:
         """Serialize the transfer on its link group (FIFO = shared bandwidth)."""
@@ -53,6 +58,8 @@ class TransferEngine:
             self.link_free[group] = done
         self.metrics.total_bytes += nbytes
         self.metrics.n_transfers += 1
+        if self.audit is not None:
+            self.audit.log_hop("copy", nbytes, group, t, done)
         return done
 
     def request(
@@ -92,11 +99,15 @@ class TransferEngine:
                     flights = inflight[name] = {}
                 flights[HOST_MEM] = mid
                 post(mid, "xfer", (ctx, name, HOST_MEM))
+                if self.audit is not None:
+                    self.audit.note_request(ctx.gid, name, HOST_MEM, mid, now)
             done = self.one_hop(size, mem_link.get(dst_mem), mid)
         if flights is None:
             flights = inflight[name] = {}
         flights[dst_mem] = done
         post(done, "xfer", (ctx, name, dst_mem))
+        if self.audit is not None:
+            self.audit.note_request(ctx.gid, name, dst_mem, done, now)
         return done
 
     def prefetch(self, ctx, task, mem: int, bit: int, now: float) -> None:

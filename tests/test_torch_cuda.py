@@ -1173,3 +1173,50 @@ def test_cuda_two_engine_sweep(cuda, engine):
     assert launched[0] > 0 or engine == "surrogate"
     ws = [s for _, label, s in got if label == "ws"]
     assert ws and (engine == "surrogate" or all(s.steals_mean > 0 for s in ws))
+
+
+@pytest.mark.parametrize("spec", ["heft", "dada?alpha=0.5&use_cp=1", "ws"])
+@pytest.mark.parametrize("kind", ["cholesky", "lu", "qr"])
+def test_cuda_audited_run_equals_cpu_and_verifies(cuda, kind, spec):
+    """An audited run scored and placed on the card: its log equals the CPU
+    run's record for record, verifies clean, and the result equals the
+    audit-off run's."""
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.core import Simulator
+    from repro_torch.sched import resolve
+    from repro_torch.verify import errors, verify_audit
+
+    def run(device, audit):
+        strategy = resolve(spec) if spec == "ws" else resolve(spec, device=device)
+        sim = Simulator(tile_graph(kind, 8), paper_machine(8), strategy, seed=3, audit=audit)
+        return sim, sim.run()
+
+    card, res = run("cuda", True)
+    cpu, _ = run("cpu", True)
+    _, off = run("cuda", False)
+    log, want = card.audit, cpu.audit
+    assert (log.machine, log.graphs, log.result) == (want.machine, want.graphs, want.result)
+    assert (log.execs, log.hops, log.landings) == (want.execs, want.hops, want.landings)
+    assert errors(verify_audit(log)) == []
+    assert [(iv.tid, iv.rid, iv.start, iv.end) for iv in res.intervals] == [
+        (iv.tid, iv.rid, iv.start, iv.end) for iv in off.intervals]
+
+
+def test_cuda_surrogate_audit_logs_equal_cpu(cuda):
+    """episode_audit_logs over one episode_scan launch with the schedule
+    emitted equals the CPU plain scan's logs, and every log verifies."""
+    from repro_torch.verify import errors, verify_audit
+
+    items = configs(tile_graph("lu", 8), (2, 8), ("heft", "dada?alpha=0.5&use_cp=1"), (1, 2, 3))
+    plan, batch = plan_and_batch(items)
+    se.episode_scan.launches = 0
+    got = ep.episode_audit_logs(items[0]["graph"], batch,
+                                ep.run_episodes(plan, batch, device="cuda", emit_schedule=True))
+    assert se.episode_scan.launches == 1
+    want = ep.episode_audit_logs(items[0]["graph"], batch,
+                                 ep.run_episodes(plan, batch, device="cpu", emit_schedule=True))
+    for a, b in zip(got, want):
+        assert (a.machine, a.graphs, a.result, a.execs, a.hops) == (
+            b.machine, b.graphs, b.result, b.execs, b.hops)
+        assert errors(verify_audit(a)) == []
+    assert len(got) == len(want) == len(items)
