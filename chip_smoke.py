@@ -58,7 +58,7 @@ non-zero and no phase carries on past its own failure):
               for the activations narrower than min_wide; prints wall s
               beside PR 18's, the ms per placed activation on the card and
               the CPU, and the full garbage collections (count, seconds)
-              inside each timed run;
+              inside each timed run (beside PR 25's walls too);
   5. gemm     the gemm_update kernel against its plain version on the card
               and on the CPU, over shapes (64,64,64) .. (1024,512,1024) x
               {f32, bf16} x alpha {-1, 1, 0.5} x trans_b, at the reference's
@@ -178,9 +178,26 @@ non-zero and no phase carries on past its own failure):
               s audit off and on (medians of three, off, on, on, off, off,
               on, after an untimed run), the verifier's s a log,
               and a verify JSON line;
- 13. report   a JSON line of every ported kernel (launches_paper and
-              launches_verify: each kernel's launches in the paper and
-              verify phases), then the last line
+ 13. memory   the score-matrix policies and the capacity-bounded
+              memories, the kernels' counts set to 0 just before and read
+              just after: locality, priority, wfq and random over the
+              Cholesky, LU and QR tile DAGs at NT 16 (tile 512) on
+              paper_machine(8), seed 0, unbounded and at 64 MB with
+              affinity eviction; HEFT and DADA(0.5)+CP at 128 / 64 / 32 MB,
+              affinity and LRU. Every run audited: its fingerprint,
+              evictions, write-backs, write-back bytes and highest resident
+              bytes must equal the device="cpu" run's, its log must equal
+              the CPU's and verify with 0 errors, and every activation
+              placed on the card must be one score_activation launch (plus
+              one placement launch for HEFT and DADA; random none). Then two
+              Cholesky NT 16 tenants at priorities 1 and 2 under priority and
+              wfq (results, WFQ's virtual times and logs equal the CPU's),
+              then C7's capacity sweep on the card (rows equal the CPU's,
+              the claim must pass). Prints wall s a run, ms per placed
+              activation, evictions a run and a memory JSON line;
+ 14. report   a JSON line of every ported kernel (launches_paper,
+              launches_verify and launches_memory: each kernel's launches
+              in the paper, verify and memory phases), then the last line
               ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits 2 without printing a result when there is
@@ -274,6 +291,17 @@ PR18_WALL_S = {
     ("lu", 64, "heft", 1): 2.351, ("lu", 64, "dada(0.5)+cp", 1): 3.205,
     ("qr", 64, "heft", 1): 8.284, ("qr", 64, "dada(0.5)+cp", 1): 12.413,
     ("cholesky", 64, "heft", 32): 1.233, ("cholesky", 64, "dada(0.5)+cp", 32): 2.049,
+}
+# the card's wall s of each main-path run in PR 25's final run (PR 18's
+# keys), printed beside this run's
+PR25_WALL_S = {
+    ("cholesky", 16, "heft", 1): 0.048635, ("cholesky", 16, "dada(0.5)+cp", 1): 0.070351,
+    ("lu", 16, "heft", 1): 0.079148, ("lu", 16, "dada(0.5)+cp", 1): 0.103392,
+    ("qr", 16, "heft", 1): 0.117612, ("qr", 16, "dada(0.5)+cp", 1): 0.144821,
+    ("cholesky", 64, "heft", 1): 1.826565, ("cholesky", 64, "dada(0.5)+cp", 1): 2.401103,
+    ("lu", 64, "heft", 1): 3.572438, ("lu", 64, "dada(0.5)+cp", 1): 3.354999,
+    ("qr", 64, "heft", 1): 12.137716, ("qr", 64, "dada(0.5)+cp", 1): 13.638914,
+    ("cholesky", 64, "heft", 32): 1.492611, ("cholesky", 64, "dada(0.5)+cp", 32): 2.395884,
 }
 DECODE_32K = (16, 32768)  # (B, S) of the decode_32k-like timing and check
 # flash_decode cases: (B, hq, hk, S, hd, length)
@@ -1854,6 +1882,207 @@ def verify_phase(ss, sp, se):
     return entry, launches
 
 
+MB = 1024 * 1024
+# the memory phase: the score-matrix policies (unbounded and at 64 MB) and
+# the paper's two strategies under capacities, every run audited
+MEMORY_POLICIES = ("locality", "priority", "wfq", "random")
+MEMORY_CAPS = (128 * MB, 64 * MB, 32 * MB)
+
+
+def memory_fingerprint(sim, res):
+    """A run's fingerprint plus the memory's counters."""
+    m = sim.metrics
+    return fingerprint(res) + (m.n_evictions, m.n_writebacks, m.writeback_bytes,
+                               tuple(sorted(sim.memory.max_resident.items())))
+
+
+def memory_phase(ss, sp, se):
+    """The score-matrix policies and the capacity-bounded memories on the
+    card, the kernels' counts set to 0 just before and read just after,
+    every run audited, verified and held against its device="cpu" twin;
+    two tenants at priorities 1 and 2; C7's sweep on the card against the
+    CPU's. Returns the ``memory`` JSON entry and the launches by kernel."""
+    from repro_torch.bench import paper_validation as pv
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.core import Simulator
+    from repro_torch.linalg.cholesky import cholesky_graph
+    from repro_torch.linalg.lu import lu_graph
+    from repro_torch.linalg.qr import qr_graph
+    from repro_torch.runtime import Engine
+    from repro_torch.sched import resolve
+    from repro_torch.verify import errors, verify_audit
+
+    counters = {"score_activation": ss.score_activation, "dada_place": sp.dada_place,
+                "heft_select": sp.heft_select, "episode_scan": se.episode_scan}
+    builders = {"cholesky": cholesky_graph, "lu": lu_graph, "qr": qr_graph}
+    machine = paper_machine(8)
+
+    def read():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def strategy(spec, device):
+        # the device goes to every factory that declares one (random takes none)
+        return resolve(spec) if spec == "random" else resolve(spec, device=device)
+
+    def counted(strat, method):
+        """Count ``strat``'s activations and time its backend calls."""
+        acts, calls, call_s = [0], [0], [0.0]
+        place = strat.place
+
+        def counted_place(sim, ready, src):
+            acts[0] += 1
+            place(sim, ready, src)
+
+        strat.place = counted_place
+        if method is not None:
+            fn = getattr(strat.backend, method)
+
+            def timed(*args, **kwargs):
+                s0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                call_s[0] += time.perf_counter() - s0
+                calls[0] += 1
+                return out
+
+            setattr(strat.backend, method, timed)
+        return acts, calls, call_s
+
+    method_of = {"heft": "place_heft", "dada?alpha=0.5&use_cp=1": "place_dada",
+                 "random": None}
+    cases = [(g, spec, 0, "lru") for g in builders for spec in MEMORY_POLICIES]
+    cases += [(g, spec, 64 * MB, "affinity") for g in builders for spec in MEMORY_POLICIES]
+    cases += [(g, spec, cap, ev) for g in builders for spec in ("heft", "dada?alpha=0.5&use_cp=1")
+              for cap in MEMORY_CAPS for ev in ("affinity", "lru")]
+    for fn in counters.values():
+        fn.launches = 0
+    rows = []
+    for gname, spec, cap, eviction in cases:
+        out = {}
+        for device in ("cuda", "cpu"):
+            strat = strategy(spec, device)
+            acts, calls, call_s = counted(strat, method_of.get(spec, "score_matrices"))
+            sim = Simulator(builders[gname](16, 512), machine, strat, seed=0, audit=True,
+                            mem_capacity=cap, eviction=eviction)
+            before = read()
+            w0 = time.perf_counter()
+            res = sim.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+            launches = {k: v - before[k] for k, v in read().items()}
+            out[device] = dict(sim=sim, res=res, wall=wall, acts=acts[0], calls=calls[0],
+                               call_s=call_s[0], launches=launches)
+        card, cpu = out["cuda"], out["cpu"]
+        sim, res, n = card["sim"], card["res"], len(card["sim"].graph)
+        v0 = time.perf_counter()
+        errs = errors(verify_audit(sim.audit))
+        verify_s = time.perf_counter() - v0
+        launches = card["launches"]
+        placed = card["calls"]
+        row = dict(graph=gname, nt=16, strategy=res.strategy, capacity=cap, eviction=eviction,
+                   tasks=n, activations=card["acts"], placed=placed, launches=launches,
+                   makespan=res.makespan, total_bytes=res.total_bytes,
+                   evictions=sim.metrics.n_evictions, writebacks=sim.metrics.n_writebacks,
+                   writeback_bytes=sim.metrics.writeback_bytes,
+                   max_resident=max(sim.memory.max_resident.values(), default=0),
+                   wall_s=card["wall"], ms_per_placed=card["call_s"] / max(placed, 1) * 1e3,
+                   cpu_wall_s=cpu["wall"],
+                   cpu_ms_per_placed=cpu["call_s"] / max(cpu["calls"], 1) * 1e3,
+                   verify_errors=len(errs), verify_s=verify_s)
+        rows.append(row)
+        print(f"memory graph={gname} NT=16 strategy={res.strategy} capacity={cap // MB}MB "
+              f"eviction={eviction} tasks={n} activations={card['acts']} placed={placed} "
+              f"launches={launches} makespan={res.makespan!r} total_bytes={res.total_bytes} "
+              f"evictions={row['evictions']} writebacks={row['writebacks']} "
+              f"writeback_bytes={row['writeback_bytes']} max_resident={row['max_resident']} "
+              f"wall_s={card['wall']:.6f} ms_per_placed={row['ms_per_placed']:.6f} "
+              f"cpu_wall_s={cpu['wall']:.6f} cpu_ms_per_placed={row['cpu_ms_per_placed']:.6f} "
+              f"verify_errors={len(errs)} verify_s={verify_s:.6f}", flush=True)
+        label = f"memory {gname} {spec} {cap // MB}MB {eviction}"
+        if memory_fingerprint(sim, res) != memory_fingerprint(cpu["sim"], cpu["res"]):
+            raise SystemExit(f"{label}: the card run differs from the CPU run")
+        if not same_log(sim.audit, cpu["sim"].audit):
+            raise SystemExit(f"{label}: the card's audit log differs from the CPU's")
+        if errs or sim.audit.machine["capacity"] != cap:
+            raise SystemExit(f"{label}: {len(errs)} verifier errors, capacity "
+                             f"{sim.audit.machine['capacity']} in the log")
+        if sorted(iv.tid for iv in res.intervals) != list(range(n)):
+            raise SystemExit(f"{label}: not every task ran exactly once")
+        if cap and row["max_resident"] > cap:
+            raise SystemExit(f"{label}: {row['max_resident']} B resident over {cap}")
+        if any(cpu["launches"].values()):
+            raise SystemExit(f"{label}: the CPU run launched a kernel")
+        n_place = launches["dada_place"] + launches["heft_select"]
+        if spec == "random":
+            ok = not any(launches.values()) and placed == 0
+        elif spec in MEMORY_POLICIES:
+            ok = launches["score_activation"] == placed == card["acts"] and not n_place
+        else:
+            ok = launches["score_activation"] == n_place == placed == card["acts"]
+        if not ok or launches["episode_scan"]:
+            raise SystemExit(f"{label}: launches {launches} for {card['acts']} activations "
+                             f"({placed} placed on the card)")
+    if not any(r["evictions"] for r in rows):
+        raise SystemExit("memory: no run evicted anything")
+    runs_launches = read()
+
+    # two Cholesky NT 16 tenants at priorities 1 and 2
+    tenants = []
+    for spec in ("priority", "wfq"):
+        got = {}
+        for device in ("cuda", "cpu"):
+            eng = Engine(machine, resolve(spec, device=device), seed=0, audit=True)
+            for prio in (1.0, 2.0):
+                eng.submit(cholesky_graph(16, 512), priority=prio)
+            w0 = time.perf_counter()
+            results = eng.run()
+            torch.cuda.synchronize()
+            got[device] = (eng, results, time.perf_counter() - w0)
+        (eng, results, wall), (cpu_eng, cpu_results, cpu_wall) = got["cuda"], got["cpu"]
+        errs = errors(verify_audit(eng.audit))
+        vt = list(getattr(eng.strategy, "_vt", {}).items())
+        row = dict(strategy=spec, priorities=[1.0, 2.0], makespans=[r.makespan for r in results],
+                   wall_s=wall, cpu_wall_s=cpu_wall, verify_errors=len(errs), virtual_times=vt)
+        tenants.append(row)
+        print(f"memory tenants strategy={spec} priorities 1, 2: makespans "
+              f"{row['makespans']} wall_s={wall:.6f} cpu_wall_s={cpu_wall:.6f} "
+              f"verify_errors={len(errs)} virtual times {vt}", flush=True)
+        if [fingerprint(r) for r in results] != [fingerprint(r) for r in cpu_results] or (
+                vt != list(getattr(cpu_eng.strategy, "_vt", {}).items())):
+            raise SystemExit(f"memory tenants {spec}: the card run differs from the CPU run")
+        if errs or not same_log(eng.audit, cpu_eng.audit):
+            raise SystemExit(f"memory tenants {spec}: {len(errs)} verifier errors or logs differ")
+    tenant_launches = {k: v - runs_launches[k] for k, v in read().items()}
+
+    # C7: the capacity sweep on the card, its rows against the CPU's
+    before = read()
+    w0 = time.perf_counter()
+    c7_rows = pv.capacity_sweep(device="cuda")
+    c7_s = time.perf_counter() - w0
+    c7_launches = {k: v - before[k] for k, v in read().items()}
+    w0 = time.perf_counter()
+    cpu_rows = pv.capacity_sweep(device="cpu")
+    c7_cpu_s = time.perf_counter() - w0
+    c7 = pv.check_c7(rows=c7_rows)
+    pv.print_checks([c7])
+    print(f"memory C7: wall card {c7_s:.6f} s, CPU {c7_cpu_s:.6f} s; launches {c7_launches}",
+          flush=True)
+    if c7_rows != cpu_rows:
+        raise SystemExit("memory C7: the card's rows differ from the CPU's")
+    if not c7["passed"]:
+        raise SystemExit("memory C7: the claim failed")
+    if not (c7_launches["dada_place"] and c7_launches["heft_select"]
+            and c7_launches["score_activation"]
+            == c7_launches["dada_place"] + c7_launches["heft_select"]):
+        raise SystemExit(f"memory C7: launches {c7_launches}")
+    launches = read()
+    print(f"memory: launches {launches} (runs {runs_launches}, tenants {tenant_launches}, "
+          f"C7 {c7_launches})", flush=True)
+    entry = dict(card=card_line(), runs=rows, tenants=tenants, c7=dict(
+        passed=True, measured=c7["measured"], rows=c7_rows, wall_s=c7_s, cpu_wall_s=c7_cpu_s,
+        launches=c7_launches), launches=launches)
+    return entry, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2129,12 +2358,13 @@ def main() -> int:
                    cpu_gc_full=cpu["gc_full"], cpu_gc_full_s=cpu["gc_full_s"])
         main_rows.append(row)
         pr18 = PR18_WALL_S.get((gname, nt, res.strategy, min_wide))
+        pr25 = PR25_WALL_S.get((gname, nt, res.strategy, min_wide))
         print(
             f"run graph={gname} NT={nt} strategy={res.strategy} min_wide={min_wide} "
             f"tasks={n_tasks} activations={card['acts']} placed={n_placed} "
             f"score_launches={card['score_launches']} place_launches={launches} "
             f"plain_calls={card['plain']} makespan={res.makespan!r} total_bytes={res.total_bytes} "
-            f"wall_s={card['wall']:.6f} (PR 18: {pr18}) place_s={card['place_s']:.6f} "
+            f"wall_s={card['wall']:.6f} (PR 18: {pr18}, PR 25: {pr25}) place_s={card['place_s']:.6f} "
             f"place_ms_per_act={row['place_ms_per_act']:.6f} gc_full={card['gc_full']} "
             f"gc_full_s={card['gc_full_s']:.6f} cpu_wall_s={cpu['wall']:.6f} "
             f"cpu_place_ms_per_act={row['cpu_place_ms_per_act']:.6f} cpu_gc_full={cpu['gc_full']} "
@@ -2372,7 +2602,12 @@ def main() -> int:
     verified, verify_launches = verify_phase(ss, sp, se)
     done("verify", t0)
 
-    # ---- 13. report ----------------------------------------------------------
+    # ---- 13. memory ----------------------------------------------------------
+    t0 = phase("memory")
+    memory, memory_launches = memory_phase(ss, sp, se)
+    done("memory", t0)
+
+    # ---- 14. report ----------------------------------------------------------
     kernels = [{
         "name": "score_activation",
         "route": "cuda",
@@ -2396,6 +2631,7 @@ def main() -> int:
         "launch_structure_cholesky_nt16": launch_structure,
         "launches_paper": paper_launches["score_activation"],
         "launches_verify": verify_launches["score_activation"],
+        "launches_memory": memory_launches["score_activation"],
     }, {
         "name": "place",
         "route": "cuda",
@@ -2407,6 +2643,8 @@ def main() -> int:
         "launches_paper": paper_launches["dada_place"] + paper_launches["heft_select"],
         "launches_paper_by_kernel": {k: paper_launches[k] for k in ("dada_place", "heft_select")},
         "launches_verify": verify_launches["dada_place"] + verify_launches["heft_select"],
+        "launches_memory": memory_launches["dada_place"] + memory_launches["heft_select"],
+        "launches_memory_by_kernel": {k: memory_launches[k] for k in ("dada_place", "heft_select")},
         "exact": place_max_err == 0.0,
         "max_abs_err": place_max_err,
         "cases": place_cases,
@@ -2495,10 +2733,12 @@ def main() -> int:
         })
     episode_entry["launches_paper"] = paper_launches["episode_scan"]
     episode_entry["launches_verify"] = verify_launches["episode_scan"]
+    episode_entry["launches_memory"] = memory_launches["episode_scan"]
     kernels.append(episode_entry)
     print(json.dumps({"serve": served}))
     print(json.dumps({"paper": paper}))
     print(json.dumps({"verify": verified}))
+    print(json.dumps({"memory": memory}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,19 +1,19 @@
-"""Validate the port against the paper's experimental claims C1–C6: the
+"""Validate the port against the paper's experimental claims C1–C7: the
 counterpart of the reference's ``benchmarks/paper_validation.py``.
 
 Runs the fig1–fig4 sweeps on one engine, then checks the claims on their
-rows with the reference's formulas and thresholds, and prints every row,
-a PASS/FAIL table, the wall seconds of each figure and the engine's rate
-(simulation runs a second on the exact engine, configurations a second on
-the surrogate)::
+rows with the reference's formulas and thresholds, then C7 (the capacity
+sweep, on the exact engine whatever ``--engine`` says), and prints every
+row, a PASS/FAIL table, the wall seconds of each figure and the engine's
+rate (simulation runs a second on the exact engine, configurations a
+second on the surrogate)::
 
     python -m repro_torch.bench.paper_validation [--engine exact|surrogate]
         [--runs 30] [--gpus 1,2,3,4,5,6,7,8] [--device cuda|cpu]
 
 The defaults are the paper's depth: 30 runs and 1..8 GPUs, on the card.
-Exits 1 when a claim fails. C7, C8 and the verifier rows of the reference
-need the capacity-bounded memories, the fault-injected runtime and the
-schedule verifier, which the port does not have yet.
+Exits 1 when a claim fails. C8 and the verifier rows of the reference
+need the fault-injected runtime, which the port does not have yet.
 """
 from __future__ import annotations
 
@@ -21,16 +21,21 @@ import argparse
 import sys
 import time
 from functools import partial
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from ..configs.paper_machine import paper_machine
-from ..core import run_many
+from ..core import Simulator, run_many
 from ..linalg.cholesky import cholesky_graph
+from ..verify import errors, verify_audit
 from .common import ENGINES, NT, PAPER_GPUS, PAPER_RUNS, TILE, format_row, strategy_for, sweep
 from .figures import FIGURES
 
-NOT_CHECKED = ("C7, C8 and the verifier rows are not checked: the port has no "
-               "capacity-bounded memories, fault-injected runtime or schedule verifier yet")
+NOT_CHECKED = ("C8 and the verifier rows are not checked: the port has no "
+               "fault-injected runtime yet")
+
+_MB = 1024 * 1024
+# the capacity sweep's points: unbounded (0) down to 32 MB a GPU memory
+C7_CAPACITIES = (0, 128 * _MB, 64 * _MB, 32 * _MB)
 
 
 def _get(rows: List[dict], strategy: str, n_gpus: int, field: str):
@@ -125,6 +130,56 @@ def validate(fig1: List[dict], fig2: List[dict], fig3: List[dict], fig4: List[di
     return validate_rows(fig1, fig2, fig3, fig4) + [check_c6(n_runs, device)]
 
 
+def capacity_sweep(capacities=C7_CAPACITIES, device="cuda") -> List[dict]:
+    """Total transferred bytes of HEFT against DADA(0.5)+CP on Cholesky NT
+    16 (``paper_machine(8)``) as the device-memory capacity shrinks, with
+    affinity eviction, noise 0 and seed 0: the reference's rows (bytes and
+    write-back bytes a strategy, the gap), plus each run's verifier
+    errors, every run audited and verified."""
+    machine = paper_machine(8)
+    graph = cholesky_graph(16, 512, with_fns=False)
+    rows = []
+    for cap in capacities:
+        row = dict(capacity=cap)
+        for label, spec in (("heft", "heft"), ("dada", "dada?alpha=0.5&use_cp=1")):
+            sim = Simulator(graph, machine, strategy_for(spec, device), seed=0, noise=0.0,
+                            mem_capacity=cap, eviction="affinity", audit=True)
+            res = sim.run()
+            row[label] = res.total_bytes
+            row[f"{label}_writeback"] = sim.metrics.writeback_bytes
+            row[f"{label}_verify_errors"] = len(errors(verify_audit(sim.audit)))
+        row["gap"] = row["heft"] - row["dada"]
+        rows.append(row)
+    return rows
+
+
+def check_c7(device="cuda", rows: Optional[List[dict]] = None) -> dict:
+    """C7 — under memory pressure DADA moves no more data than HEFT at
+    every capacity, and the gap does not shrink as the capacity drops;
+    every run of the sweep must also verify with no error. ``rows``: the
+    sweep's rows when the caller has run it, else it runs here."""
+    if rows is None:
+        rows = capacity_sweep(device=device)
+    le_everywhere = all(r["dada"] <= r["heft"] for r in rows)
+    gaps = [r["gap"] for r in rows]
+    non_shrinking = all(b >= a for a, b in zip(gaps, gaps[1:]))
+    verified = all(r["heft_verify_errors"] == r["dada_verify_errors"] == 0 for r in rows)
+
+    def cap(c):
+        return "inf" if c == 0 else f"{c // _MB}MB"
+
+    return dict(
+        claim="C7 capacity sweep: DADA bytes <= HEFT, gap non-shrinking as memory shrinks",
+        measured="; ".join(
+            f"{cap(r['capacity'])}: heft {r['heft'] / 1e9:.3f}GB "
+            f"dada {r['dada'] / 1e9:.3f}GB (gap {r['gap'] / 1e6:+.1f}MB)"
+            for r in rows
+        ) + f"; verifier errors {sum(r['heft_verify_errors'] + r['dada_verify_errors'] for r in rows)}",
+        passed=le_everywhere and non_shrinking and verified,
+        rows=rows,
+    )
+
+
 def print_checks(checks: List[dict]) -> bool:
     ok = True
     print("\n== paper-claim validation ==")
@@ -175,13 +230,16 @@ def main(argv=None) -> int:
         for row in f["rows"]:
             print(format_row(row))
     checks = validate(*(f["rows"] for f in figs.values()), device=args.device)
+    t7 = time.perf_counter()
+    checks.append(check_c7(args.device))
+    c7_s = time.perf_counter() - t7
     ok = print_checks(checks)
     unit = "runs/s" if args.engine == "exact" else "configs/s"
     print(f"\nengine {args.engine} on {args.device}: {args.runs} runs x gpus {gpus}")
     for name, f in figs.items():
         print(f"  {name}: wall {f['wall_s']:.3f} s")
-    print(f"  {rate(figs):.2f} {unit} over the figures; "
-          f"total wall {time.perf_counter() - t0:.3f} s (C6 included)")
+    print(f"  {rate(figs):.2f} {unit} over the figures; C7 {c7_s:.3f} s; "
+          f"total wall {time.perf_counter() - t0:.3f} s (C6 and C7 included)")
     if not ok:
         print("some paper claims did not reproduce — see above", file=sys.stderr)
     return 0 if ok else 1

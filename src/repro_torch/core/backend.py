@@ -257,44 +257,48 @@ class TorchScoringBackend:
 
     def place_dada(self, sim, tids: Sequence[int], resources, *, p_cpu, p_gpu, use_cp: bool,
                    affinity: Optional[str], area_bound: bool, cpu_rids, gpu_rids,
-                   **section) -> DadaPlacement:
+                   x_bias: Optional[np.ndarray] = None, **section) -> DadaPlacement:
         """DADA's placement of one activation, scored and searched on the
         device (counterpart of ``dada_lambda_search`` and the ``try_build``
         after it): the cost matrix from ``p_cpu`` / ``p_gpu`` and, with
-        ``use_cp``, the transfers; the affinity matrix of ``affinity``
+        ``use_cp``, the transfers plus ``x_bias`` (the memory-pressure
+        penalty under a capacity); the affinity matrix of ``affinity``
         (None: no affinity phase); the rest of the section as
         :func:`~repro_torch.kernels.sched_place.pack_dada` takes it. With
         ``device="cpu"``: the scorer's plain version, then the search's,
         over the host values (no section to pack)."""
         if self.device.type == "cpu":
             m = self.score_matrices(sim, tids, resources, p_cpu=p_cpu, p_gpu=p_gpu,
-                                    use_cp=use_cp, affinity=affinity)
+                                    use_cp=use_cp, affinity=affinity, x_bias=x_bias)
             return dada_place_plain(C=m["C"], S=m["S_np"], x_max=m["X_rowmax"], p_cpu=p_cpu,
                                     p_gpu=p_gpu, tids=tids, area_bound=area_bound,
                                     cpu_rids=cpu_rids, gpu_rids=gpu_rids, **section)
         spec = place_spec("dada", len(tids), len(resources), len(cpu_rids), len(gpu_rids), 0,
                           area_bound)
         layout, packed, machine = self.pack(sim, tids, resources, p_cpu=p_cpu, p_gpu=p_gpu,
-                                            use_cp=use_cp, affinity=affinity, place=spec)
+                                            use_cp=use_cp, affinity=affinity, x_bias=x_bias,
+                                            place=spec)
         pack_dada(self._host_in_np[:layout.n_in], layout, tids=tids, cpu_rids=cpu_rids,
                   gpu_rids=gpu_rids, **section)
         return self._place(layout, packed, machine)
 
     def place_heft(self, sim, tids: Sequence[int], resources, *, order, durations, cls_of_res,
-                   load_ts, now: float) -> HeftPlacement:
+                   load_ts, now: float, x_bias: Optional[np.ndarray] = None) -> HeftPlacement:
         """HEFT's placement of one activation, scored and scanned on the
         device (counterpart of ``heft_select``): the transfer rows of the
-        ready tasks, then the EFT scan in priority ``order`` over the class
+        ready tasks plus ``x_bias`` (the memory-pressure penalty under a
+        capacity), then the EFT scan in priority ``order`` over the class
         ``durations`` (``cls_of_res``: each resource's class), from
         ``load_ts`` at ``now``. With ``device="cpu"``: the scorer's plain
         version, then the scan's, over the host values."""
         scan = dict(order=order, durations=durations, cls_of_res=cls_of_res, load_ts=load_ts,
                     now=now)
         if self.device.type == "cpu":
-            X = self.score_matrices(sim, tids, resources, use_cp=True, x_rows=True)["X_np"]
+            X = self.score_matrices(sim, tids, resources, use_cp=True, x_rows=True,
+                                    x_bias=x_bias)["X_np"]
             return heft_select_plain(X=X.tolist(), **scan)
         spec = place_spec("heft", len(tids), len(resources), 0, 0, len(durations), False)
         layout, packed, machine = self.pack(sim, tids, resources, use_cp=True, x_rows=True,
-                                            place=spec)
+                                            x_bias=x_bias, place=spec)
         pack_heft(self._host_in_np[:layout.n_in], layout, **scan)
         return self._place(layout, packed, machine)

@@ -25,6 +25,12 @@ activations take the host rows and the kernel's plain version. Either
 way the preferences, the bisection and ``try_build`` follow the
 reference's order, so decisions (including tie-breaks) are bit-identical
 to ``repro``'s.
+
+Under +CP and a memory capacity the predicted eviction seconds
+(:func:`repro_torch.runtime.memory.pressure_rows_for`) are folded into the
+transfer rows before the cost matrix, as the reference folds them:
+through the scorer's ``x_bias`` section on the device, through
+``fold_pressure`` on the host.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..kernels.sched_place import STATUS_OK, dada_place_plain
+from ..runtime.memory import fold_pressure, pressure_rows_for
 from .affinity import RESIDENT_WEIGHTED, affinity_rows
 from .backend import TorchScoringBackend, check_min_wide
 from .dag import Task
@@ -131,17 +138,23 @@ class DADA(Strategy):
         tids = [t.tid for t in ready]
         p_cpu, p_gpu, section = self.preamble(sim, tids)
         affinity = self.affinity_name if self.alpha > 0.0 else None
+        # memory-pressure penalty under +CP (None unless the memories are
+        # bounded)
+        P = pressure_rows_for(sim, tids, resources) if self.use_cp else None
 
         if n >= self.min_wide:
             # scored and placed on the device; only the placement comes back
             placed = self.backend.place_dada(
                 sim, tids, resources, p_cpu=p_cpu, p_gpu=p_gpu, use_cp=self.use_cp,
-                affinity=affinity, area_bound=self.area_bound, **section,
+                affinity=affinity, area_bound=self.area_bound, x_bias=P, **section,
             )
         else:
             X = (
-                sim.transfer_model.task_input_transfer_rows(
-                    sim.arrays, tids, [r.mem for r in resources], sim.residency
+                fold_pressure(
+                    sim.transfer_model.task_input_transfer_rows(
+                        sim.arrays, tids, [r.mem for r in resources], sim.residency
+                    ),
+                    P,
                 )
                 if self.use_cp
                 else None
@@ -180,6 +193,32 @@ class DADA(Strategy):
             sim.push(t, rid)
         for j, r in enumerate(resources):
             sim.load_ts[r.rid] = sim.now + placed.loads[j]
+
+    def score_matrix(self, sim: Simulator, ready: List[Task]) -> np.ndarray:
+        """DADA's λ-independent cost matrix, (ready × resources): the class
+        duration (+ the predicted transfer and the memory pressure under
+        +CP), the rows every probe of the search folds. An introspection
+        view on the host; ``place`` stays authoritative."""
+        tids = [t.tid for t in ready]
+        resources = sim.machine.resources
+        cpus, gpus = sim.machine.cpus, sim.machine.gpus
+        cpu_cls = cpus[0].cls if cpus else gpus[0].cls
+        gpu_cls = gpus[0].cls if gpus else cpu_cls
+        p_cpu = sim.predictor(cpu_cls).times_list(tids)
+        p_gpu = sim.predictor(gpu_cls).times_list(tids)
+        accel = np.array([r.is_accelerator for r in resources])
+        C = np.where(accel[None, :], np.asarray(p_gpu)[:, None], np.asarray(p_cpu)[:, None])
+        if self.use_cp:
+            X = np.asarray(
+                sim.transfer_model.task_input_transfer_rows(
+                    sim.arrays, tids, [r.mem for r in resources], sim.residency
+                )
+            )
+            P = pressure_rows_for(sim, tids, resources)
+            if P is not None:
+                X = X + P
+            C = C + X
+        return C
 
 
 class DualApprox(DADA):

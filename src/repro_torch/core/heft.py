@@ -14,6 +14,11 @@ the card right after it, returning only each task's rid and finish time
 host rows and the scan's plain version. The scan keeps the reference's
 strict-improvement rule (ties within 1e-15 keep the lower rid), so
 placements are bit-identical to ``repro``'s.
+
+Under a memory capacity the predicted eviction seconds
+(:func:`repro_torch.runtime.memory.pressure_rows_for`) are folded into the
+transfer rows, as the reference folds them: through the scorer's
+``x_bias`` section on the device, through ``fold_pressure`` on the host.
 """
 from __future__ import annotations
 
@@ -22,8 +27,10 @@ from typing import List, Optional
 import numpy as np
 
 from ..kernels.sched_place import heft_select_plain
+from ..runtime.memory import fold_pressure, pressure_rows_for
 from .backend import TorchScoringBackend, check_min_wide
 from .dag import Task
+from .perfmodel import class_duration_matrix
 from .simulator import Simulator, Strategy
 
 _WIDE = 32  # ready-set size from which the batched numpy predictions win
@@ -80,17 +87,41 @@ class HEFT(Strategy):
         n = len(ready)
         tids = [t.tid for t in ready]
         scan = self.preamble(sim, tids)
+        # memory-pressure penalty (None unless the memories are bounded)
+        P = pressure_rows_for(sim, tids, resources)
 
         # --- worker selection: earliest finish time ----------------------
         if n >= self.min_wide:
             # scored and scanned on the device; only the placement comes back
-            placed = self.backend.place_heft(sim, tids, resources, **scan)
+            placed = self.backend.place_heft(sim, tids, resources, x_bias=P, **scan)
         else:
-            X = sim.transfer_model.task_input_transfer_rows(
-                sim.arrays, tids, [r.mem for r in resources], sim.residency
+            X = fold_pressure(
+                sim.transfer_model.task_input_transfer_rows(
+                    sim.arrays, tids, [r.mem for r in resources], sim.residency
+                ),
+                P,
             )
             placed = heft_select_plain(X=X, **scan)
         load_ts = sim.load_ts
         for i, rid, eft in zip(scan["order"], placed.rids, placed.efts):
             load_ts[rid] = eft
             sim.push(ready[i], rid)
+
+    def score_matrix(self, sim: Simulator, ready: List[Task]) -> np.ndarray:
+        """Earliest-finish-time scores, (ready × resources): start +
+        transfer (+ the memory pressure, as ``place`` folds it) +
+        duration. An introspection view on the host; ``place`` stays
+        authoritative."""
+        tids = [t.tid for t in ready]
+        resources = sim.machine.resources
+        X = np.asarray(
+            sim.transfer_model.task_input_transfer_rows(
+                sim.arrays, tids, [r.mem for r in resources], sim.residency
+            )
+        )
+        P = pressure_rows_for(sim, tids, resources)
+        if P is not None:
+            X = X + P
+        dur = class_duration_matrix(sim, tids)
+        start = np.array([lt if lt > sim.now else sim.now for lt in sim.load_ts])
+        return start[None, :] + X + dur

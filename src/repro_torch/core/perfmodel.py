@@ -127,6 +127,19 @@ class ClassPredictor:
         return out
 
 
+def class_duration_matrix(sim, tids: Sequence[int]) -> np.ndarray:
+    """(ready × resources) predicted durations from ``sim``'s per-class
+    predictors (one lookup per class)."""
+    cols = {}
+    out = np.empty((len(tids), len(sim.machine.resources)), dtype=np.float64)
+    for j, r in enumerate(sim.machine.resources):
+        col = cols.get(r.cls.name)
+        if col is None:
+            col = cols[r.cls.name] = sim.predictor(r.cls).times_list(list(tids))
+        out[:, j] = col
+    return out
+
+
 @dataclass
 class TransferModel:
     """Asymptotic-bandwidth estimator for host<->device transfers.
@@ -271,26 +284,38 @@ class Residency:
     bitmask per data object in a name-keyed dict; :meth:`attach` binds
     the tracker to a :class:`GraphArrays` id space and mirrors the masks
     into ``mask_list`` (indexed by data id) for the array paths.
+
+    ``observer``, when set, is called as ``observer(did, name, old, new)``
+    on every attached-mode mask change: the capacity-bounded memory layer
+    (:mod:`repro_torch.runtime.memory`) installs it to mirror residency
+    into its per-memory accounting. With no observer (the default) the
+    hot paths pay one ``is not None`` check.
     """
 
     def __init__(self) -> None:
         self._mask: Dict[str, int] = {}
         self._name_to_id: Optional[Dict[str, int]] = None
         self.mask_list: Optional[List[int]] = None
+        self._sizes: Optional[List[int]] = None
+        self.observer = None
 
     def attach(self, arr: GraphArrays) -> None:
         """Bind to a graph's data-id space (enables the array paths)."""
         self._name_to_id = arr.name_to_id
         self.mask_list = [0] * len(arr.data_names)
+        self._sizes = arr.data_sizes.tolist()
         for name, did in arr.name_to_id.items():
             self.mask_list[did] = self._mask.get(name, 0)
 
     def _set_mask(self, name: str, new: int) -> None:
+        old = self._mask.get(name, 0)
         self._mask[name] = new
         if self._name_to_id is not None:
             did = self._name_to_id.get(name)
             if did is not None:
                 self.mask_list[did] = new
+                if self.observer is not None and old != new:
+                    self.observer(did, name, old, new)
 
     def mask_of_ids(self, ids: np.ndarray) -> np.ndarray:
         """Bitmask vector for data ids (attached mode only)."""
@@ -300,14 +325,30 @@ class Residency:
     def add_copy(self, name: str, mem: int) -> None:
         self._set_mask(name, self._mask.get(name, 0) | _mem_bit(mem))
 
+    def drop_copy(self, name: str, mem: int) -> None:
+        """Invalidate the copy of ``name`` at ``mem`` (eviction), leaving
+        any other valid copy; a no-op when no copy is there."""
+        self._set_mask(name, self._mask.get(name, 0) & ~_mem_bit(mem))
+
+    def has_any(self, name: str) -> bool:
+        return self._mask.get(name, 0) != 0
+
     def write(self, name: str, mem: int) -> None:
         self._set_mask(name, _mem_bit(mem))
 
     def write_id(self, did: int, name: str, new_mask: int) -> None:
         """Attached-mode fast write: caller supplies the data id and the
         (validated) single-bit mask. Semantically ``write(name, mem)``."""
+        ml = self.mask_list
+        observer = self.observer
+        if observer is not None:
+            old = ml[did]
+            self._mask[name] = ml[did] = new_mask
+            if old != new_mask:
+                observer(did, name, old, new_mask)
+            return
         self._mask[name] = new_mask
-        self.mask_list[did] = new_mask
+        ml[did] = new_mask
 
     def initialize(self, names: Iterable[str], mem: int) -> None:
         for n in names:

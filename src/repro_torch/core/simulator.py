@@ -1,7 +1,10 @@
 """The single-graph simulation facade over :class:`repro_torch.runtime.engine.Engine`.
 
 Construct with one graph, ``run()`` one :class:`SimResult` — the
-counterpart of ``repro.core.simulator.Simulator`` on its default path.
+counterpart of ``repro.core.simulator.Simulator`` on its default path,
+with the capacity-bounded memories as arguments: ``mem_capacity`` bytes
+per device memory (0: unbounded) and ``eviction`` (``"lru"`` or
+``"affinity"``).
 """
 from __future__ import annotations
 
@@ -28,10 +31,13 @@ class Simulator(Engine):
         noise: float = 0.03,
         transfer_model: Optional[TransferModel] = None,
         audit: bool = False,
+        mem_capacity: int = 0,
+        eviction: str = "lru",
     ) -> None:
         super().__init__(
             machine, strategy, seed=seed, noise=noise,
             transfer_model=transfer_model, audit=audit,
+            mem_capacity=mem_capacity, eviction=eviction,
         )
         self._primary: GraphContext = self.submit(graph)
 

@@ -12,10 +12,16 @@ Reproduces the paper's execution flow (§2.1-2.2):
   * the runtime observes real (noisy) durations and feeds the history-based
     performance model, which therefore calibrates online (§2.3).
 
-Counterpart of ``repro.runtime.engine`` on its default path: unbounded
-device memories, no faults, no serving mode. Several graphs may be
-submitted before :meth:`Engine.run`; their roots are placed in submit
-order when the run starts.
+Counterpart of ``repro.runtime.engine`` on its default path (no faults,
+no serving mode, no stale-transfer cancellation), with the reference's
+capacity-bounded memories as an option: ``mem_capacity`` bytes per device
+memory (0, the default: unbounded) and ``eviction`` (``"lru"`` or
+``"affinity"``), see :mod:`repro_torch.runtime.memory`. Every memory hook
+sits behind the ``bounded`` flag, so an unbounded run takes the code path
+it took before the hooks existed. Several graphs may be submitted before
+:meth:`Engine.run`, each with a tenant ``priority`` that the ``priority``
+and ``wfq`` policies read; their roots are placed in submit order when
+the run starts.
 
 ``audit=True`` records the run in a :class:`repro_torch.verify.AuditLog`
 (``engine.audit``): the machine, every submitted graph's accesses, each
@@ -48,6 +54,7 @@ from ..core.perfmodel import (
 )
 from ..verify.audit import AuditLog
 from .events import EventQueue
+from .memory import MemoryManager
 from .metrics import Metrics, ScheduledInterval, SimResult
 from .queues import Worker, eligible_victims
 from .transfers import TransferEngine
@@ -76,6 +83,7 @@ class GraphContext:
         "gid", "graph", "arrays", "residency", "inflight", "waiting",
         "noise_mult", "preds", "succ", "done", "n_done", "n_tasks",
         "rid_static", "predictors", "finish", "intervals", "submit_at",
+        "readers_left", "priority",
     )
 
     def __init__(self, gid: int, graph: TaskGraph) -> None:
@@ -101,6 +109,9 @@ class GraphContext:
         self.intervals: List[ScheduledInterval] = []
         # every graph is submitted before the run starts
         self.submit_at = 0.0
+        self.readers_left: List[int] = []  # per-did pending readers (bounded)
+        # the tenant's weight for the priority / weighted-fair policies
+        self.priority = 1.0
 
 
 class Engine:
@@ -108,8 +119,8 @@ class Engine:
 
     Strategies see the surface ``push``, ``load_ts``, ``now``,
     ``predictor``, ``residency``, ``arrays``, ``graph``, ``machine``,
-    ``transfer_model`` and ``model``; during an activation these views
-    point at the graph whose tasks became ready.
+    ``transfer_model``, ``model`` and ``memory``; during an activation
+    these views point at the graph whose tasks became ready.
     """
 
     def __init__(
@@ -120,6 +131,8 @@ class Engine:
         noise: float = 0.03,
         transfer_model: Optional[TransferModel] = None,
         audit: bool = False,
+        mem_capacity: int = 0,
+        eviction: str = "lru",
     ) -> None:
         self.machine = machine
         self.strategy = strategy
@@ -144,14 +157,23 @@ class Engine:
         self.metrics = Metrics(machine)
         self.transfers = TransferEngine(machine, self.events, self.metrics)
 
+        # capacity-bounded device memories (opt-in): an unbounded manager is
+        # inert, and the transfers see it only when bounded
+        self.memory = MemoryManager(machine, mem_capacity, eviction)
+        self.memory.transfers = self.transfers
+        self._bounded = self.memory.bounded
+        if self._bounded:
+            self.transfers.memory = self.memory
+
         # opt-in structured audit log (repro_torch.verify), logged with the
-        # settings of the reference's default path: unbounded memories,
-        # LRU named, no stale cancellation, drain faults (none happen)
+        # reference's settings for this engine: the capacity and eviction
+        # policy, no stale cancellation, drain faults (none happen)
         self.audit: Optional[AuditLog] = None
         if audit:
             self.audit = AuditLog(engine="exact")
             self.audit.log_machine(
-                machine, host_mem=HOST_MEM, capacity=0, eviction="lru",
+                machine, host_mem=HOST_MEM,
+                capacity=self.memory.capacity if self._bounded else 0, eviction=eviction,
                 cancel_stale=False, fault_mode="drain", seed=seed, noise=noise,
             )
         self.transfers.audit = self.audit
@@ -165,9 +187,13 @@ class Engine:
         self.residency: Optional[Residency] = None
 
     # ------------------------------------------------------------------
-    def submit(self, graph: TaskGraph) -> GraphContext:
+    def submit(self, graph: TaskGraph, priority: float = 1.0) -> GraphContext:
         """Add a task graph to the run; its roots are placed when the run
-        starts. Returns the graph's :class:`GraphContext`."""
+        starts. ``priority`` (> 0) weights the tenant for the ``priority``
+        and ``wfq`` policies; the other strategies ignore it. Returns the
+        graph's :class:`GraphContext`."""
+        if not (float(priority) > 0.0):
+            raise ValueError(f"priority must be > 0, got {priority!r}")
         if graph.tasks and id(graph.tasks[0]) in self._ctx_of:
             raise ValueError(
                 "this TaskGraph object is already submitted to the engine; "
@@ -180,10 +206,12 @@ class Engine:
             ctx.noise_mult = np.exp(
                 self.rng.normal(0.0, self.noise, size=len(graph))
             ).tolist()
+        ctx.priority = float(priority)
         ctx.rid_static = [
             self._predictor(ctx, r.cls).static_list
             for r in self.machine.resources
         ]
+        self.memory.attach_ctx(ctx)
         for t in graph.tasks:
             self._ctx_of[id(t)] = ctx
         self._ctxs.append(ctx)
@@ -248,6 +276,14 @@ class Engine:
                         self._try_start(w)
                         progress = True
 
+    def _unpin_worker(self, w: Worker) -> None:
+        if w.pins is not None:
+            mem, dids, ctx = w.pins
+            unpin = self.memory.unpin
+            for did in dids:
+                unpin(ctx, did, mem)
+            w.pins = None
+
     def _try_start(self, w: Worker) -> None:
         if w.running is not None or not w.queue:
             return
@@ -262,14 +298,28 @@ class Engine:
         waiting = ctx.waiting
         request = self.transfers.request
         now = self.now
+        bounded = self._bounded
+        reads = ctx.arrays.task_reads[task.tid]
+        if bounded:
+            # re-pin this head's resident inputs (dropping the pins of a
+            # previous head evaluation)
+            self._unpin_worker(w)
+            pinned: List[int] = []
+            protect = frozenset(d for d, _, _ in reads)
         missing = 0
-        for did, name, size in ctx.arrays.task_reads[task.tid]:
+        for did, name, size in reads:
             if not mask_list[did] & bit:
                 fl = inflight.get(name)
                 if fl is None or mem not in fl:
-                    request(ctx, name, size, mem, now)
+                    request(ctx, name, size, mem, now, protect if bounded else None)
                 waiting.setdefault((name, mem), []).append(rid)
                 missing += 1
+            elif bounded and mem != HOST_MEM:
+                self.memory.pin(ctx, did, mem)
+                self.memory.touch(ctx, did, mem)
+                pinned.append(did)
+        if bounded and (pinned or missing):
+            w.pins = (mem, pinned, ctx)
         if missing:
             w.blocked_on = missing
             return
@@ -302,6 +352,22 @@ class Engine:
         ctx.intervals.append(iv)
         self.model.observe(task, res.cls, dur)
         bit = self._bit_of[rid]
+        bounded = self._bounded
+        if bounded:
+            self._unpin_worker(w)
+            mem = self._mem_of[rid]
+            if mem != HOST_MEM:
+                # make room for the outputs this completion materializes
+                incoming = 0
+                mask_list = ctx.residency.mask_list
+                for did, _, size in ctx.arrays.task_writes[tid]:
+                    if not mask_list[did] & bit:
+                        incoming += size
+                if incoming:
+                    protect = frozenset(
+                        d for d, _, _ in ctx.arrays.task_writes[tid]
+                    ) | frozenset(d for d, _, _ in ctx.arrays.task_reads[tid])
+                    self.memory.ensure_capacity(mem, incoming, self.now, ctx, protect)
         write_id = ctx.residency.write_id
         inflight_pop = ctx.inflight.pop
         for did, name, size in ctx.arrays.task_writes[tid]:
@@ -309,7 +375,11 @@ class Engine:
             # invalidate any stale dedup entries for this data
             inflight_pop(name, None)
         if self.audit is not None:
+            # after the write loop: the eviction records ensure_capacity
+            # emitted above come first, as the verifier replays them
             self.audit.log_exec(ctx.gid, tid, rid, self._mem_of[rid], w.run_start, self.now)
+        if bounded:
+            self.memory.note_task_done(ctx, tid)
         # load time-stamp correction (§2.3: runtime corrects predictions)
         if not w.queue:
             self.load_ts[rid] = self.now
@@ -346,6 +416,8 @@ class Engine:
         heappop = heapq.heappop
         workers = self.workers
         audit = self.audit
+        bounded = self._bounded
+        memory = self.memory
         n_events = 0
         while events:
             t, _, kind, payload = heappop(events)
@@ -359,6 +431,12 @@ class Engine:
                     flights.pop(mem, None)
                     if not flights:
                         del inflight[name]
+                did = None
+                if bounded and mem != HOST_MEM:
+                    memory.release(ctx, name, mem)
+                    did = ctx.arrays.name_to_id.get(name)
+                    if did is not None and not (ctx.residency.mask_list[did] & (1 << (mem + 1))):
+                        memory.ensure_capacity(mem, ctx.residency._sizes[did], t, ctx, (did,))
                 ctx.residency.add_copy(name, mem)
                 if audit is not None:
                     audit.log_landing(ctx.gid, name, mem, t, True, "ok")
@@ -368,6 +446,13 @@ class Engine:
                         w = workers[rid]
                         if w.blocked_on > 0:
                             w.blocked_on -= 1
+                            if (did is not None and w.pins is not None and w.pins[0] == mem
+                                    and w.pins[2] is ctx and w.blocked_on > 0):
+                                # keep the landed input of a still-blocked
+                                # head pinned until its next evaluation
+                                # (only while the head is this graph's task)
+                                memory.pin(ctx, did, mem)
+                                w.pins[1].append(did)
                             if w.blocked_on == 0:
                                 self._try_start(w)
                 if steal_on:
@@ -384,6 +469,7 @@ class Engine:
                 raise RuntimeError(
                     f"simulation stalled: graph {ctx.gid} has "
                     f"{len(missing)} tasks unfinished, e.g. {missing[:5]}"
+                    + (" (capacity-bounded run: check mem_capacity)" if self._bounded else "")
                 )
 
     def run(self) -> List[SimResult]:

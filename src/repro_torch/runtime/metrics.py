@@ -2,7 +2,8 @@
 
 One :class:`Metrics` instance per engine accumulates the machine-global
 counters (transferred bytes, transfer/steal/event counts, per-worker busy
-time, the interval timeline)."""
+time, the interval timeline) and, under a memory capacity, the
+evictions and their write-back traffic."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -45,7 +46,10 @@ class SimResult:
 class Metrics:
     """Engine-global counters."""
 
-    __slots__ = ("total_bytes", "n_transfers", "n_steals", "n_events", "busy", "intervals")
+    __slots__ = (
+        "total_bytes", "n_transfers", "n_steals", "n_events", "busy", "intervals",
+        "n_evictions", "n_writebacks", "writeback_bytes",
+    )
 
     def __init__(self, machine: MachineModel) -> None:
         self.total_bytes = 0
@@ -54,3 +58,7 @@ class Metrics:
         self.n_events = 0
         self.busy: Dict[int, float] = {r.rid: 0.0 for r in machine.resources}
         self.intervals: List[ScheduledInterval] = []
+        # eviction traffic (capacity-bounded memories only)
+        self.n_evictions = 0
+        self.n_writebacks = 0
+        self.writeback_bytes = 0

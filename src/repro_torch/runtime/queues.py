@@ -22,7 +22,7 @@ from typing import List, Optional
 class Worker:
     """One worker: a ready deque plus its running/blocked state."""
 
-    __slots__ = ("rid", "queue", "running", "run_start", "blocked_on")
+    __slots__ = ("rid", "queue", "running", "run_start", "blocked_on", "pins")
 
     def __init__(self, rid: int) -> None:
         self.rid = rid
@@ -30,6 +30,9 @@ class Worker:
         self.running = None
         self.run_start: float = 0.0
         self.blocked_on: int = 0  # pending input transfers for head task
+        # (mem, [data ids], ctx) pinned against eviction while the head
+        # task is blocked or running; None outside capacity-bounded runs
+        self.pins: Optional[tuple] = None
 
 
 def eligible_victims(workers: List[Worker], thief_rid: int) -> List[Worker]:
@@ -64,3 +67,7 @@ class WorkSteal:
         rid = src if src is not None else 0
         for t in ready:
             sim.push(t, rid)
+
+    def score_matrix(self, sim, ready) -> None:
+        """Work stealing is model-oblivious: there is no score matrix."""
+        return None

@@ -13,9 +13,15 @@ A transfer in flight when its data is overwritten still lands as a valid
 copy: ``repro``'s engine keeps that modeling artifact by default, and
 this engine matches it bit for bit.
 
+Capacity-bounded memories (:mod:`repro_torch.runtime.memory`, wired by
+the engine as ``memory``) hook in at request time: space at the
+destination is reserved before the hop is scheduled, so any eviction
+write-back the reservation triggers queues ahead of the incoming copy on
+the same link. Unbounded runs never reach the hook.
+
 With an audit log attached (``audit``, wired by the engine), every hop is
-logged as a ``copy`` hop and every request notes its time, so the landing
-record can carry it.
+logged with its kind (``copy``, or ``writeback`` for a dirty eviction)
+and every request notes its time, so the landing record can carry it.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ class TransferEngine:
 
     __slots__ = (
         "events", "metrics", "mem_link", "link_free", "_link_lat", "_link_bw", "audit",
+        "memory",
     )
 
     def __init__(
@@ -48,8 +55,9 @@ class TransferEngine:
         self._link_lat = machine.link.latency
         self._link_bw = machine.link.bandwidth
         self.audit = None  # repro_torch.verify AuditLog, wired by the engine
+        self.memory = None  # MemoryManager, wired by the engine when bounded
 
-    def one_hop(self, nbytes: int, group: Optional[int], t: float) -> float:
+    def one_hop(self, nbytes: int, group: Optional[int], t: float, kind: str = "copy") -> float:
         """Serialize the transfer on its link group (FIFO = shared bandwidth)."""
         start = max(t, self.link_free.get(group, 0.0)) if group is not None else t
         dur = 0.0 if nbytes <= 0 else self._link_lat + nbytes / self._link_bw
@@ -59,15 +67,18 @@ class TransferEngine:
         self.metrics.total_bytes += nbytes
         self.metrics.n_transfers += 1
         if self.audit is not None:
-            self.audit.log_hop("copy", nbytes, group, t, done)
+            self.audit.log_hop(kind, nbytes, group, t, done)
         return done
 
     def request(
-        self, ctx, name: str, size: int, dst_mem: int, now: float
+        self, ctx, name: str, size: int, dst_mem: int, now: float, protect=None
     ) -> Optional[float]:
         """Ensure a valid copy of ``name`` will exist at ``dst_mem``.
 
         Returns the completion time, or None if already resident.
+        ``protect`` (capacity-bounded runs) names data ids of ``ctx`` that
+        the reservation's eviction pass must not victimize: the
+        requesting task's own working set.
         """
         mask = ctx.residency._mask.get(name, 0)
         if mask & (1 << (dst_mem + 1)):
@@ -80,6 +91,10 @@ class TransferEngine:
                 return done
         if mask == 0:
             raise RuntimeError(f"no valid copy of {name} anywhere")
+        if self.memory is not None and dst_mem != HOST_MEM:
+            # reserve destination space first: eviction write-backs queue
+            # on the link ahead of this copy
+            self.memory.reserve(ctx, name, size, dst_mem, now, protect)
         mem_link = self.mem_link
         post = self.events.post
         if (mask & 1) and dst_mem != HOST_MEM:
@@ -114,8 +129,12 @@ class TransferEngine:
         """Start transfers for every non-resident input of ``task``."""
         mask_list = ctx.residency.mask_list
         inflight = ctx.inflight
-        for did, name, size in ctx.arrays.task_reads[task.tid]:
+        reads = ctx.arrays.task_reads[task.tid]
+        protect = None
+        for did, name, size in reads:
             if not mask_list[did] & bit:
                 fl = inflight.get(name)
                 if fl is None or mem not in fl:
-                    self.request(ctx, name, size, mem, now)
+                    if protect is None and self.memory is not None:
+                        protect = frozenset(d for d, _, _ in reads)
+                    self.request(ctx, name, size, mem, now, protect)

@@ -9,20 +9,31 @@ exactly the same objects as direct Python calls.
 from __future__ import annotations
 
 import inspect
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 from urllib.parse import parse_qsl, urlsplit
 
 _REGISTRY: Dict[str, Callable] = {}
 
 
-def register(name: str, factory: Callable) -> Callable:
+def register(name: str, factory: Optional[Callable] = None, *, overwrite: bool = False):
     """Register a policy factory (any callable returning a policy, e.g. a
-    class) under ``name``; re-registering a name raises."""
+    class) under ``name``; usable as a decorator (``@register("name")``).
+    Re-registering a name raises unless ``overwrite=True``: silently
+    shadowing a built-in policy is almost always a bug."""
+    if factory is None:
+        return lambda f: register(name, f, overwrite=overwrite)
     key = name.lower()
-    if key in _REGISTRY:
-        raise ValueError(f"policy {key!r} is already registered")
+    if not overwrite and key in _REGISTRY:
+        raise ValueError(
+            f"policy {key!r} is already registered (pass overwrite=True to replace it)"
+        )
     _REGISTRY[key] = factory
     return factory
+
+
+def unregister(name: str) -> None:
+    """Remove a registered policy (plugin teardown, tests)."""
+    _REGISTRY.pop(name.lower(), None)
 
 
 def registered() -> Tuple[str, ...]:

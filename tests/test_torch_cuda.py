@@ -1220,3 +1220,126 @@ def test_cuda_surrogate_audit_logs_equal_cpu(cuda):
             b.machine, b.graphs, b.result, b.execs, b.hops)
         assert errors(verify_audit(a)) == []
     assert len(got) == len(want) == len(items)
+
+
+MB = 1024 * 1024
+
+
+def _memory_fp(sim, res):
+    m = sim.metrics
+    return ([(iv.tid, iv.rid, iv.start, iv.end) for iv in res.intervals], res.makespan,
+            res.total_bytes, res.n_transfers, m.n_evictions, m.n_writebacks, m.writeback_bytes,
+            sorted(sim.memory.max_resident.items()))
+
+
+@pytest.mark.parametrize("cap,eviction", [(0, "lru"), (24 * MB, "affinity"), (12 * MB, "lru")])
+@pytest.mark.parametrize("spec", ["locality", "priority", "wfq", "heft",
+                                  "dada?alpha=0.5&use_cp=1"])
+def test_cuda_policy_and_bounded_runs_equal_cpu(cuda, spec, cap, eviction):
+    """The score-matrix policies and the paper's strategies, unbounded and
+    under a capacity, scored (and placed) on the card: the result, the
+    memory's counters and the audit log equal the CPU run's, the log
+    verifies clean, and every activation is one scoring launch (plus one
+    placement launch for HEFT and DADA)."""
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.core import Simulator
+    from repro_torch.sched import resolve
+    from repro_torch.verify import errors, verify_audit
+
+    def run(device):
+        strategy = resolve(spec, device=device)
+        acts = [0]
+        place = strategy.place
+
+        def counted(sim, ready, src):
+            acts[0] += 1
+            place(sim, ready, src)
+
+        strategy.place = counted
+        sim = Simulator(tile_graph("lu", 8, 512), paper_machine(4), strategy, seed=3, audit=True,
+                        mem_capacity=cap, eviction=eviction)
+        before = (port.score_activation.launches, sp.dada_place.launches + sp.heft_select.launches)
+        res = sim.run()
+        after = (port.score_activation.launches, sp.dada_place.launches + sp.heft_select.launches)
+        return sim, res, acts[0], (after[0] - before[0], after[1] - before[1])
+
+    card, res, acts, launches = run("cuda")
+    cpu, cpu_res, cpu_acts, cpu_launches = run("cpu")
+    assert _memory_fp(card, res) == _memory_fp(cpu, cpu_res) and acts == cpu_acts
+    assert (card.audit.execs, card.audit.hops, card.audit.landings, card.audit.evictions) == (
+        cpu.audit.execs, cpu.audit.hops, cpu.audit.landings, cpu.audit.evictions)
+    assert card.audit.machine["capacity"] == cap and errors(verify_audit(card.audit)) == []
+    assert cpu_launches == (0, 0)
+    placing = spec in ("heft", "dada?alpha=0.5&use_cp=1")
+    assert launches == (acts, acts if placing else 0)
+    assert (card.metrics.n_evictions > 0) == (cap > 0)
+
+
+def test_cuda_random_policy_launches_nothing(cuda):
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.core import Simulator
+    from repro_torch.sched import resolve
+
+    before = port.score_activation.launches
+    res = Simulator(tile_graph("qr", 6), paper_machine(8), resolve("random"), seed=1,
+                    mem_capacity=32 * MB).run()
+    assert port.score_activation.launches == before and res.makespan > 0
+
+
+@pytest.mark.parametrize("spec", ["priority", "wfq"])
+def test_cuda_two_tenants_equal_cpu(cuda, spec):
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.runtime import Engine
+    from repro_torch.sched import resolve
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        eng = Engine(paper_machine(4), resolve(spec, device=device), seed=2, mem_capacity=32 * MB)
+        eng.submit(tile_graph("cholesky", 8), priority=1.0)
+        eng.submit(tile_graph("lu", 6), priority=2.0)
+        results = eng.run()
+        out[device] = ([[(iv.tid, iv.rid, iv.start, iv.end) for iv in r.intervals]
+                        for r in results], list(getattr(eng.strategy, "_vt", {}).items()))
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("spec", ["heft", "dada?alpha=0.5&use_cp=1"])
+def test_cuda_x_bias_reaches_the_placement(cuda, spec):
+    """place_heft / place_dada with a memory-pressure x_bias: the card's
+    placement equals the CPU backend's bit for bit, and the bias moves
+    it (the same call without it places otherwise)."""
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.core import Simulator
+    from repro_torch.runtime.memory import pressure_rows_for
+    from repro_torch.sched import resolve
+
+    tids = list(range(40))
+    p_cpu, p_gpu = [1e-3 * (1.0 + t) for t in tids], [1e-3 * (0.5 + 0.25 * t) for t in tids]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        sim = Simulator(tile_graph("qr", 6), paper_machine(8), resolve(spec, device=dev), seed=7,
+                        mem_capacity=2 * MB)
+        for k, name in enumerate(sim.arrays.data_names):
+            sim.residency.write(name, k % 8)  # every memory past its capacity
+        bias = pressure_rows_for(sim, tids, sim.machine.resources)
+        assert bias is not None and bias.max() > 0.0
+        be, res, st = sim.strategy.backend, sim.machine.resources, sim.strategy
+        for x_bias in (bias, None):
+            if spec == "heft":
+                placed = be.place_heft(sim, tids, res, order=tids[::-1],
+                                       durations=[p_cpu, p_gpu],
+                                       cls_of_res=[int(r.is_accelerator) for r in res],
+                                       load_ts=[0.0] * len(res), now=0.0, x_bias=x_bias)
+            else:
+                placed = be.place_dada(
+                    sim, tids, res, p_cpu=p_cpu, p_gpu=p_gpu, use_cp=True,
+                    affinity="accel_write", area_bound=False, offsets=[0.0] * len(res),
+                    flex_order=tids, max_off=0.0,
+                    sum_max=sum(max(a, b) for a, b in zip(p_cpu, p_gpu)), area=0.0,
+                    off_total=0.0, alpha=0.5, eps_rel=st.eps_rel, max_iters=st.max_iters,
+                    cpu_rids=[r.rid for r in sim.machine.cpus],
+                    gpu_rids=[r.rid for r in sim.machine.gpus], x_bias=x_bias)
+            got[dev, x_bias is None] = placed
+    assert got["cuda", False] == got["cpu", False]
+    assert got["cuda", True] == got["cpu", True]
+    assert got["cuda", False] != got["cuda", True]

@@ -293,5 +293,6 @@ def test_main_prints_rows_claims_and_walls(capsys, monkeypatch):
     assert out.count(" gpus=") == (10 + 3 * 5) * 2
     for claim in ("C1", "C2", "C3", "C4", "C5", "C6"):
         assert f"] {claim} " in out
-    assert "configs/s" in out and "fig4_qr: wall" in out and "C7, C8" in out
+    assert "] C7 " in out and "verifier errors 0" in out  # C7 runs on the exact engine
+    assert "configs/s" in out and "fig4_qr: wall" in out and "(C8 and the verifier rows" in out
     assert rc == (1 if "[FAIL]" in out else 0)

@@ -272,6 +272,9 @@ def test_registry_specs_build_the_direct_objects():
     lambda: DADA(alpha=0.5, use_cp=True),
     lambda: resolve("dada?alpha=0.5&use_cp=1"),
     lambda: resolve("heft"),
+    lambda: resolve("locality"),
+    lambda: resolve("priority"),
+    lambda: resolve("wfq?min_wide=8"),
 ])
 def test_entry_points_demand_the_card(make, monkeypatch):
     """Without device="cpu" a strategy is built for the card, and on a
