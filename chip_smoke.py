@@ -13,7 +13,10 @@ non-zero and no phase carries on past its own failure):
               the CPU, over n 1..256, n_u 9/25/30/40, every one of the 29
               flag combinations, tasks without reads or accesses, masks 0
               and host-only masks: every output must be exactly equal
-              (torch.equal). Then, at the main path's widest activation
+              (torch.equal); then the same with x_bias columns at +inf (a
+              detached resource) and finite notice penalties, as HEFT's
+              pressure fold gives them on a machine that lost resources,
+              equal too (+inf where it belongs, no NaN). Then, at the main path's widest activation
               (n 128, LU NT 64, DADA+CP's call): ms per score_matrices call
               from Python (copies and sync included, card and CPU), the
               kernel's ms and its device ms from a CUDA-graph replay on
@@ -34,17 +37,25 @@ non-zero and no phase carries on past its own failure):
               rule); searches cut short inside a tree round (max_iters 2..7,
               the stopping rule between levels); DADA at n 1 000..8 000
               (every staging level, shallower trees) and HEFT's ring (n
-              4 000 at 440 resources, 512 resources): every placement
+              4 000 at 440 resources, 512 resources); and liveness cases
+              (tests/_place_cases.py live_case / live_heft_case): a dead
+              rid 0, every GPU or every CPU dead but one, noticed columns
+              under recover with their penalties, a dead and a noticed
+              one, ±CP, ±area bound; +inf transfer columns and notice
+              penalties through HEFT: every placement
               buffer must be equal bit for bit (torch.equal), λ and the
               finish times ==. The launchers' plans (tree depth, staging,
-              ring) must equal PlaceSpec.plan; prints d and the ptxas
+              ring, with and without the liveness inputs) must equal
+              PlaceSpec.plan; prints d and the ptxas
               registers, shared memory and spills of sched_place.cu. Then
               at n 8 / 32 / 128 / 512 of LU NT 64 on paper_machine(8) (n 128
               is the main path's widest activation): each kernel's ms per
               launch, device ms from a CUDA-graph replay, d, probes and
               rounds, the plain version's ms on the host, a whole
               place_dada / place_heft call (card and CPU), the bound and the
-              length of the dependent chain;
+              length of the dependent chain; then both again at n 128 with
+              one GPU detached and one noticed (DADA with recover: the
+              liveness inputs; HEFT: +inf and the penalty in x_bias);
   4. main     HEFT and DADA(0.5)+CP on the paper machine with 8 GPUs over
               the Cholesky, LU and QR tile DAGs at NT 16 (tile 512, the
               paper's shape) and NT 64 (the reference's scaling size), every
@@ -195,9 +206,31 @@ non-zero and no phase carries on past its own failure):
               then C7's capacity sweep on the card (rows equal the CPU's,
               the claim must pass). Prints wall s a run, ms per placed
               activation, evictions a run and a memory JSON line;
- 14. report   a JSON line of every ported kernel (launches_paper,
-              launches_verify and launches_memory: each kernel's launches
-              in the paper, verify and memory phases), then the last line
+ 14. faults   the fault layer on the card, the kernels' counts set to 0
+              just before and read just after: C8's script (GPU 0 drained
+              at a quarter of each strategy's fault-free makespan, GPU 1
+              killed at two fifths, GPU 0 back at three fifths) on the
+              Cholesky, LU and QR tile DAGs at NT 16 (tile 512) on
+              paper_machine(8), seed 0, noise 0, under HEFT, DADA(0.5)+CP,
+              DADA(0.5)+CP with recover and each detach noticed ahead, ws
+              and locality; HEFT and DADA(0.5)+CP at 64 MB with affinity
+              eviction under the same script; one seeded churn run with a
+              notice; one run with link_flake 0.05. Every run audited: its
+              fingerprint, fault counters and log must equal the
+              device="cpu" run's, the log must verify with 0 errors, every
+              activation must be placed on the card as one score_activation
+              launch and (HEFT, DADA) one placement launch, dead or noticed
+              resources present or not, with no plain search. Then C8 from
+              the Cholesky rows (the claim must pass, its rows equal the
+              CPU's). Each faulted run has a fault-free twin, audited too
+              and held against the CPU's; both run three times on the card,
+              alternated. Prints each run's wall s and ms per placed
+              activation beside its twin's (medians of three), the
+              evacuated and proactive bytes, the phase's wall and a faults
+              JSON line;
+ 15. report   a JSON line of every ported kernel (launches_paper,
+              launches_verify, launches_memory and launches_faults: each
+              kernel's launches in those phases), then the last line
               ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits 2 without printing a result when there is
@@ -404,11 +437,14 @@ def flag_combinations():
     return out
 
 
-def activation_case(ss, rng, n, n_u, n_res, host, flags):
+def activation_case(ss, rng, n, n_u, n_res, host, flags, fault_bias=False):
     """A seeded packed activation: (layout, packed input, machine buffer) as
     int64 numpy arrays. Masks over the host bit and n_u memory shifts up to
     62, data that exists nowhere (mask 0), host-only data, reads of size 0,
-    task 0 without reads and task 1 without affinity accesses."""
+    task 0 without reads and task 1 without affinity accesses.
+    ``fault_bias``: x_bias as on a machine that lost resources, +inf over
+    a few columns (detached) and a finite penalty over others (noticed),
+    on top of the pressure."""
     shifts = np.sort(rng.choice(np.arange(1, ss.MAX_SHIFT + 1), n_u - host, replace=False))
     if host:
         shifts = np.concatenate([[0], shifts])
@@ -438,6 +474,10 @@ def activation_case(ss, rng, n, n_u, n_res, host, flags):
     if flags["want_bias"]:
         bias = rng.random((n, n_res)) * 1e-3
         bias[rng.random((n, n_res)) < 0.5] = 0.0
+        if fault_bias:
+            cols = rng.permutation(n_res)
+            bias[:, cols[:max(1, n_res // 5)]] = np.inf
+            bias[:, cols[n_res // 5 + 1:n_res // 5 + 3]] += rng.integers(1, 64) / 64.0
     layout = ss.score_layout(ss.ScoreSpec(
         n=n, nnz_r=len(reads[1]) if reads else 0, nnz_w=len(writes[1]) if writes else 0,
         n_u=n_u, n_res=n_res, **flags))
@@ -448,12 +488,233 @@ def activation_case(ss, rng, n, n_u, n_res, host, flags):
     return layout, packed, machine
 
 
+FAULT_SPECS = ("heft", "dada?alpha=0.5&use_cp=1", "dada?alpha=0.5&use_cp=1&recover=1", "ws",
+               "locality")
+FAULT_NOTICE = 0.1  # recover's notice window, as a fraction of the fault-free makespan
+FAULT_REPS = 3  # card runs of each faulted run and of its fault-free twin, for the medians
+
+
+def faults_phase(ss, sp, se):
+    """The fault layer on the card, the kernels' counts set to 0 just
+    before and read just after: C8's script over the three tile DAGs and
+    five strategies, two bounded runs, a churn run with a notice and a
+    flaky-link run; every run audited, verified and held against its
+    device="cpu" twin; C8 from the Cholesky rows. Returns the ``faults``
+    JSON entry and the launches by kernel."""
+    from repro_torch.bench import paper_validation as pv
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.core import Simulator
+    from repro_torch.linalg.cholesky import cholesky_graph
+    from repro_torch.linalg.lu import lu_graph
+    from repro_torch.linalg.qr import qr_graph
+    from repro_torch.runtime.metrics import recovery_report
+    from repro_torch.sched import resolve
+    from repro_torch.verify import errors, verify_audit
+
+    w_phase = time.perf_counter()
+    counters = {"score_activation": ss.score_activation, "dada_place": sp.dada_place,
+                "heft_select": sp.heft_select, "episode_scan": se.episode_scan}
+    graph_of = {"cholesky": cholesky_graph, "lu": lu_graph, "qr": qr_graph}
+    machine = paper_machine(8)
+    gpus = [r.rid for r in machine.gpus]
+
+    def read():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    def plain_calls():
+        return sp.dada_place_plain.calls + sp.heft_select_plain.calls
+
+    def strategy(spec, device):
+        return resolve(spec) if spec == "ws" else resolve(spec, device=device)
+
+    def method_of(spec):
+        name = spec.split("?")[0]
+        return {"heft": "place_heft", "dada": "place_dada", "ws": None}.get(name, "score_matrices")
+
+    def counted(strat, spec):
+        """Count ``strat``'s activations, and time its backend calls, with
+        those made while a resource was detached or noticed."""
+        acts, calls, call_s, live = [0], [0], [0.0], [0]
+        place = strat.place
+
+        def counted_place(sim, ready, src):
+            acts[0] += 1
+            place(sim, ready, src)
+
+        strat.place = counted_place
+        method = method_of(spec)
+        if method is not None:
+            fn = getattr(strat.backend, method)
+
+            def timed(sim, *args, **kwargs):
+                s0 = time.perf_counter()
+                out = fn(sim, *args, **kwargs)
+                call_s[0] += time.perf_counter() - s0
+                calls[0] += 1
+                live[0] += sim.faults.any_dead or bool(sim.faults.noticed)
+                return out
+
+            setattr(strat.backend, method, timed)
+        return acts, calls, call_s, live
+
+    def run(device, gname, spec, script=(), makespan=0.0, **kw):
+        """One audited run of ``spec`` on ``device`` with ``script``'s
+        faults at fractions of ``makespan``; what it did and took."""
+        strat = strategy(spec, device)
+        acts, calls, call_s, live = counted(strat, spec)
+        sim = Simulator(graph_of[gname](16, 512), machine, strat, seed=0, noise=0.0,
+                        audit=True, **kw)
+        for event, gi, frac, mode in script:
+            sim.inject(event, gpus[gi], at=makespan * frac, mode=mode)
+        before, plain0 = read(), plain_calls()
+        w0 = time.perf_counter()
+        res = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        return dict(sim=sim, res=res, wall=wall, acts=acts[0], calls=calls[0],
+                    ms=call_s[0] / max(calls[0], 1) * 1e3, live=live[0],
+                    plain=plain_calls() - plain0,
+                    launches={k: v - before[k] for k, v in read().items()})
+
+    def one(label, gname, spec, script=(), twin_kw=None, notice=0.0, **kw):
+        """One faulted run on the card and on the CPU, held against each
+        other, beside its fault-free twin (``twin_kw``: its arguments), also
+        audited and held against the CPU's; then two more card runs of
+        each, alternated, for the medians of three. ``notice``: each
+        detach announced that fraction of the twin's makespan ahead. Its
+        row."""
+        twin = {d: run(d, gname, spec, **twin_kw) for d in ("cuda", "cpu")}
+        if fingerprint(twin["cuda"]["res"]) != fingerprint(twin["cpu"]["res"]):
+            raise SystemExit(f"faults {gname} {spec}: the fault-free card run differs from the CPU's")
+        base = twin["cuda"]["res"]
+        if notice:
+            kw["notice_s"] = base.makespan * notice
+        out = {d: run(d, gname, spec, script, base.makespan, **kw) for d in ("cuda", "cpu")}
+        card, cpu = out["cuda"], out["cpu"]
+        reps = {"twin": [twin["cuda"]], "faulted": [card]}
+        for _ in range(FAULT_REPS - 1):
+            reps["twin"].append(run("cuda", gname, spec, **twin_kw))
+            reps["faulted"].append(run("cuda", gname, spec, script, base.makespan, **kw))
+        if any(r["launches"] != reps[k][0]["launches"] or r["plain"] for k in reps
+               for r in reps[k]):
+            raise SystemExit(f"faults {label} {gname} {spec}: a repeated card run launched "
+                             "otherwise than the first")
+        wall, ms = ({k: float(np.median([r[key] for r in reps[k]])) for k in reps}
+                    for key in ("wall", "ms"))
+        sim, res, n = card["sim"], card["res"], len(card["sim"].graph)
+        errs = errors(verify_audit(sim.audit)) + errors(verify_audit(twin["cuda"]["sim"].audit))
+        launches, placed = card["launches"], card["calls"]
+        f = res.faults or {}
+        results[(label, gname, spec)] = res
+        bases[(label, gname, spec)] = base
+        row = dict(case=label, graph=gname, nt=16, spec=spec, strategy=res.strategy, tasks=n,
+                   activations=card["acts"], placed=placed, placed_live=card["live"],
+                   launches=launches, plain_calls=card["plain"], makespan=res.makespan,
+                   total_bytes=res.total_bytes, faults=f, wall_s=wall["faulted"],
+                   ms_per_placed=ms["faulted"], cpu_wall_s=cpu["wall"], cpu_ms_per_placed=cpu["ms"],
+                   verify_errors=len(errs), base_makespan=base.makespan,
+                   base_bytes=base.total_bytes, base_wall_s=wall["twin"],
+                   base_ms_per_placed=ms["twin"],
+                   wall_s_runs=[r["wall"] for r in reps["faulted"]],
+                   base_wall_s_runs=[r["wall"] for r in reps["twin"]])
+        print(f"faults {label} graph={gname} NT=16 strategy={res.strategy} tasks={n} "
+              f"activations={card['acts']} placed={placed} placed_live={card['live']} "
+              f"launches={launches} plain_calls={card['plain']} makespan={res.makespan!r} "
+              f"total_bytes={res.total_bytes} detaches={f.get('n_detaches')} "
+              f"attaches={f.get('n_attaches')} notices={f.get('n_notices')} "
+              f"requeued={f.get('n_requeued')} killed={f.get('n_killed')} "
+              f"evacuated_bytes={f.get('evacuated_bytes')} "
+              f"proactive_bytes={f.get('proactive_bytes')} retries={f.get('n_retries')} "
+              f"timeouts={f.get('n_timeouts')} wall_s={wall['faulted']:.6f} "
+              f"ms_per_placed={ms['faulted']:.6f} cpu_wall_s={cpu['wall']:.6f} "
+              f"cpu_ms_per_placed={cpu['ms']:.6f} verify_errors={len(errs)} "
+              f"fault-free (audited): wall_s={wall['twin']:.6f} "
+              f"ms_per_placed={ms['twin']:.6f} makespan={base.makespan!r} "
+              f"(card medians of {FAULT_REPS}, alternated)", flush=True)
+        if fingerprint(res) != fingerprint(cpu["res"]) or res.faults != cpu["res"].faults:
+            raise SystemExit(f"faults {label} {gname} {spec}: the card run differs from the CPU run")
+        if not same_log(sim.audit, cpu["sim"].audit):
+            raise SystemExit(f"faults {label} {gname} {spec}: the card's log differs from the CPU's")
+        if errs:
+            raise SystemExit(f"faults {label} {gname} {spec}: {len(errs)} verifier errors: "
+                             f"{[(e.code, e.message) for e in errs[:3]]}")
+        if sorted(iv.tid for iv in res.intervals) != list(range(n)):
+            raise SystemExit(f"faults {label} {gname} {spec}: not every task ran exactly once")
+        if any(cpu["launches"].values()) or any(twin["cpu"]["launches"].values()):
+            raise SystemExit(f"faults {label} {gname} {spec}: the CPU run launched a kernel")
+        n_place = launches["dada_place"] + launches["heft_select"]
+        if spec == "ws":
+            ok = not any(launches.values()) and placed == 0
+        elif method_of(spec) == "score_matrices":
+            ok = launches["score_activation"] == placed == card["acts"] and not n_place
+        else:
+            ok = launches["score_activation"] == n_place == placed == card["acts"]
+            ok = ok and launches[{"heft": "heft_select"}.get(spec, "dada_place")] == placed
+        if not ok or launches["episode_scan"] or card["plain"]:
+            raise SystemExit(f"faults {label} {gname} {spec}: launches {launches}, "
+                             f"{card['plain']} plain searches for {card['acts']} activations "
+                             f"({placed} placed on the card)")
+        if spec != "ws" and script and not card["live"]:
+            raise SystemExit(f"faults {label} {gname} {spec}: no activation placed on the card "
+                             "while a resource was dead or noticed")
+        return row
+
+    for fn in counters.values():
+        fn.launches = 0
+    rows, bases, results = [], {}, {}
+    c8_script = [(event, gi, frac, mode) for frac, event, gi, mode in pv.C8_FAULTS]
+    for gname in graph_of:
+        for spec in FAULT_SPECS:
+            # the fault times are fractions of the strategy's own fault-free
+            # makespan
+            rows.append(one("c8", gname, spec, c8_script, {},
+                            FAULT_NOTICE if "recover" in spec else 0.0))
+    for spec in ("heft", "dada?alpha=0.5&use_cp=1"):
+        bounded = dict(mem_capacity=64 * MB, eviction="affinity")
+        rows.append(one("c8-64MB-affinity", "cholesky", spec, c8_script, bounded, **bounded))
+    rows.append(one("churn-notice", "cholesky", "dada?alpha=0.5&use_cp=1&recover=1", (), {},
+                    churn=40.0, fault_mode="kill", notice_s=0.01))
+    rows.append(one("flaky-0.05", "cholesky", "dada?alpha=0.5&use_cp=1", (), {}, link_flake=0.05))
+    launches = read()
+    if not (rows[-2]["faults"]["n_detaches"] and rows[-2]["faults"]["n_notices"]):
+        raise SystemExit("faults churn: no noticed detach happened")
+    if not rows[-1]["faults"]["n_retries"]:
+        raise SystemExit("faults flaky: no hop failed")
+    if not all(r["faults"]["proactive_bytes"] for r in rows
+               if r["case"] == "c8" and "recover" in r["spec"]):
+        raise SystemExit("faults: a noticed C8 run replicated nothing ahead of its deaths")
+
+    # C8 from the Cholesky rows (fault_recovery_runs' definition), against
+    # the CPU's own fault_recovery_runs
+    reps = {}
+    for label, spec in pv.C8_SPECS:
+        faulted, base = results[("c8", "cholesky", spec)], bases[("c8", "cholesky", spec)]
+        row = next(r for r in rows if (r["case"], r["graph"], r["spec"]) == ("c8", "cholesky", spec))
+        reps[label] = dict(recovery_report(faulted, base), bytes=faulted.total_bytes,
+                           baseline_bytes=base.total_bytes, verify_errors=row["verify_errors"])
+    c8 = pv.check_c8(reps=reps)
+    pv.print_checks([c8])
+    cpu_reps = pv.fault_recovery_runs(device="cpu")
+    if reps != cpu_reps:
+        raise SystemExit("faults C8: the card's rows differ from the CPU's fault_recovery_runs")
+    if not c8["passed"]:
+        raise SystemExit("faults C8: the claim failed")
+    wall = time.perf_counter() - w_phase
+    print(f"faults: {len(rows)} faulted runs on the card, each equal to the CPU's and verified "
+          f"clean; {sum(r['placed_live'] for r in rows)} activations placed on the card while a "
+          f"resource was dead or noticed; launches {launches}; phase wall {wall:.3f} s", flush=True)
+    entry = dict(card=card_line(), runs=rows, c8=dict(passed=True, measured=c8["measured"],
+                                                      rows=reps), launches=launches, wall_s=wall)
+    return entry, launches
+
+
 def place_check(sp, dev):
     """Both placement kernels against their plain versions over the case
     matrix (seeded activations of ``tests/_place_cases.py``, packed as the
     backend packs them); returns (cases, max |kernel - plain| over λ, loads
     and finish times)."""
-    from _place_cases import MID_ROUND, dada_case, heft_case, packed_dada, packed_heft
+    from _place_cases import (LIVE_KINDS, MID_ROUND, dada_case, heft_case, live_case,
+                              live_heft_case, packed_dada, packed_heft)
 
     n_cases, max_err = 0, 0.0
     cases = []
@@ -481,6 +742,18 @@ def place_check(sp, dev):
         for n_res in (2, 14, 40, 70):
             for _ in range(4):
                 cases.append(("heft", packed_heft(heft_case(len(cases), n=n, n_res=n_res))))
+    # liveness: dead and noticed resources (the plans take the penalties'
+    # shared memory), wide ones included
+    for n in (1, 37, 128, 1500):
+        for live in LIVE_KINDS:
+            for seed in range(8 if n < 1500 else 2):
+                accel = PLACE_MACHINES["paper"] if seed % 2 else None
+                cases.append(("dada", packed_dada(live_case(
+                    seed, live, n=n, accel=None if live in ("one_gpu", "one_cpu") else accel,
+                    area_bound=bool(seed % 3 == 1) if seed % 4 else None))))
+    for seed in range(24):
+        for dead, noticed in (((0,), ()), ((0, 2), (1,)), ((), (0, 3)), ((1, 3, 4, 5, 6), ())):
+            cases.append(("heft", packed_heft(live_heft_case(seed, dead=dead, noticed=noticed))))
     for kind, (layout, buf, scores) in cases:
         kernel = sp.dada_place if kind == "dada" else sp.heft_select
         want_t = kernel(buf, scores, layout)
@@ -499,6 +772,7 @@ def place_check(sp, dev):
             diffs = [abs(got.lam - want.lam)] + [abs(a - b) for a, b in zip(got.loads, want.loads)]
         else:
             exact = exact and got.efts == want.efts
+            # a finish time is +inf only where every resource is dead (none here)
             diffs = [abs(a - b) for a, b in zip(got.efts, want.efts)]
         if not exact:
             raise SystemExit(f"{kernel.__name__} disagrees with its plain version at {layout.spec}: "
@@ -516,12 +790,17 @@ def place_plan_check(sp):
     import ctypes
 
     got = (ctypes.c_int64 * 4)()
-    shapes = [("dada", n, 12, 4, 8, 0) for n in PLACE_WIDTHS + PLACE_WIDE_N]
-    shapes += [("heft", n, 12, 0, 0, 2) for n in PLACE_WIDTHS]
-    shapes += [("heft", n, n_res, 0, 0, 2) for n, n_res in PLACE_HEFT_RING]
-    for kind, n, n_res, n_cpu, n_gpu, n_cls in shapes:
-        spec = sp.PlaceSpec(kind, n, n_res, n_cpu=n_cpu, n_gpu=n_gpu, n_cls=n_cls)
-        err = sp._lib.repro_place_plan(int(kind == "heft"), n, n_res, n_cpu, n_gpu, n_cls, got)
+    shapes = [("dada", n, 12, 4, 8, 0, live) for n in PLACE_WIDTHS + PLACE_WIDE_N
+              for live in (False, True)]
+    shapes += [("dada", n, 12, 4, 6, 0, True) for n in (1500, 1900, 12880)]
+    shapes += [("heft", n, 12, 0, 0, 2, False) for n in PLACE_WIDTHS]
+    shapes += [("heft", n, n_res, 0, 0, 2, False) for n, n_res in PLACE_HEFT_RING]
+    for kind, n, n_res, n_cpu, n_gpu, n_cls, live in shapes:
+        spec = sp.PlaceSpec(kind, n, n_res, n_cpu=n_cpu, n_gpu=n_gpu, n_cls=n_cls, live=live)
+        if spec.plan is None:
+            continue
+        err = sp._lib.repro_place_plan(int(kind == "heft"), n, n_res, n_cpu, n_gpu, n_cls,
+                                       int(live), got)
         if err != 0 or tuple(got[:3]) != spec.plan:
             raise SystemExit(f"the launcher's plan {tuple(got)} (err {err}) differs from "
                              f"PlaceSpec.plan {spec.plan} at {spec}")
@@ -542,24 +821,30 @@ def place_timing(sp, ss, name, spec, sim, tids, machine, resolve, dev, place_ptx
     a whole place_dada / place_heft call on the card and on the CPU, the
     bound, the plan, and (DADA) probes and rounds of the tree. Checks the
     kernel and both calls against the plain placement."""
+    from repro_torch.runtime.memory import pressure_rows_for
+
     strategy, cpu_strategy = resolve(spec), resolve(spec, device="cpu")
     res = machine.resources
     if name == "dada_place":
         p_cpu, p_gpu, section = strategy.preamble(sim, tids)
-        pspec = sp.PlaceSpec("dada", len(tids), len(res), n_cpu=len(machine.cpus),
-                             n_gpu=len(machine.gpus))
+        pspec = sp.PlaceSpec("dada", len(tids), len(res), n_cpu=len(section["cpu_rids"]),
+                             n_gpu=len(section["gpu_rids"]), live="pen" in section)
         score_kw = dict(p_cpu=p_cpu, p_gpu=p_gpu, use_cp=True, affinity="accel_write")
         call_kw = dict(score_kw, area_bound=False, **section)
     else:
         scan = strategy.preamble(sim, tids)
         pspec = sp.PlaceSpec("heft", len(tids), len(res), n_cls=len(scan["durations"]))
-        score_kw = dict(use_cp=True, x_rows=True)
-        call_kw = scan
+        # the pressure channel: +inf over detached columns, notice penalties
+        P = pressure_rows_for(sim, tids, res)
+        score_kw = dict(use_cp=True, x_rows=True, x_bias=P)
+        call_kw = dict(scan, x_bias=P)
     layout, packed, mach = strategy.backend.pack(sim, tids, res, place=pspec, **score_kw)
     if name == "dada_place":
         sp.pack_dada(packed.numpy(), layout, tids=tids, **section)
     else:
         sp.pack_heft(packed.numpy(), layout, **scan)
+    live = "live " if (name == "dada_place" and pspec.live) or (
+        name == "heft_select" and score_kw["x_bias"] is not None) else ""
     kernel = getattr(sp, name)
     cpu_in = packed.clone()
     cpu_scores = ss.score_activation(cpu_in[:layout.score.n_in], layout.score, mach.cpu())
@@ -618,12 +903,12 @@ def place_timing(sp, ss, name, spec, sim, tids, machine, resolve, dev, place_ptx
         chain_steps=chain, ms=ms, device_ms=device_ms, plain_ms=plain_ms, call_ms=call["cuda"],
         cpu_call_ms=call["cpu"], bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes, flop=ops,
-        smem_bytes=layout.spec.smem_bytes,
+        smem_bytes=layout.spec.smem_bytes, live=bool(live),
         ptxas=[r for r in place_ptxas if name.split("_")[0] in r["function"]],
     )
     tree = (f"depth d={plan[0]}, staging level {plan[1]}, probes {got.iters}, rounds {rounds}"
             if name == "dada_place" else f"{plan[0]} tasks a buffer x {plan[1]} buffer(s)")
-    print(f"{name} at n={n} n_res={n_res} (LU NT 64's first {n} tasks): kernel {ms:.6f} ms per "
+    print(f"{live}{name} at n={n} n_res={n_res} (LU NT 64's first {n} tasks): kernel {ms:.6f} ms per "
           f"launch ({device_ms:.6f} ms on the device, from a CUDA graph), plain {plain_ms:.6f} ms "
           f"on the host; a whole {method} call {call['cuda']:.6f} ms on the card, "
           f"{call['cpu']:.6f} ms with device='cpu'; bound {row['bound_ms']:.3e} ms ({nbytes} "
@@ -2163,6 +2448,30 @@ def main() -> int:
                 n_score += 1
     print(f"score_activation exactly equal to its plain version (card and CPU) on {n_score} cases "
           f"(max |err| {score_max_err})")
+    # liveness: x_bias with +inf (detached) and finite notice columns
+    n_score_live = 0
+    for n in (1, 37, 128):
+        for n_u, n_res, host in ((9, 14, True), (9, 12, True), (25, 29, False)):
+            for flags in flag_combinations():
+                if not flags["want_bias"]:
+                    continue
+                layout, packed, mach = activation_case(ss, rng, n, n_u, n_res, host, flags,
+                                                       fault_bias=True)
+                cpu_args = (torch.from_numpy(packed), layout, torch.from_numpy(mach))
+                card_args = (cpu_args[0].to(dev), layout, cpu_args[2].to(dev))
+                g = ss.score_activation(*card_args).cpu()
+                plain_card = ss.score_activation_plain(*card_args).cpu()
+                plain_cpu = ss.score_activation_plain(*cpu_args)
+                if torch.isnan(g).any() or not torch.isinf(g).any():
+                    raise SystemExit(f"score_activation with +inf x_bias: NaN, or no +inf, at "
+                                     f"{layout.spec}")
+                for want in (plain_card, plain_cpu):
+                    if not torch.equal(g, want):
+                        raise SystemExit(f"score_activation disagrees with its plain version on "
+                                         f"+inf / notice x_bias at {layout.spec}")
+                n_score_live += 1
+    print(f"score_activation exactly equal to its plain version (card and CPU) on {n_score_live} "
+          f"cases with +inf and notice-penalty x_bias columns")
     # the main path's widest activation: n 128 ready tasks of LU NT 64 on
     # paper_machine(8), every third datum moved to a GPU, DADA+CP's call
     lu_sim = Simulator(lu_graph(64, 512), machine, resolve("dada?alpha=0.5&use_cp=1"), seed=0)
@@ -2291,6 +2600,19 @@ def main() -> int:
             place_by_width[name].append(row)
             if width == 128:
                 place_rows[name] = row
+    # n 128 again on a machine that lost a GPU and has another noticed:
+    # DADA with recover takes the liveness inputs, HEFT the +inf and the
+    # penalty through x_bias
+    lu_sim.faults.active = True
+    lu_sim.faults._mark(machine.gpus[0].rid, False)
+    lu_sim.faults.noticed[machine.gpus[1].rid] = (0.0, 0.25)
+    place_live = {}
+    for name, spec in (("dada_place", "dada?alpha=0.5&use_cp=1&recover=1"),
+                       ("heft_select", "heft")):
+        place_live[name] = place_timing(sp, ss, name, spec, lu_sim, list(range(128)), machine,
+                                        resolve, dev, place_ptxas)
+        if not place_live[name]["live"]:
+            raise SystemExit(f"{name}: the live timing took no liveness input")
     del lu_sim, tids
     done("place", t0)
 
@@ -2607,7 +2929,12 @@ def main() -> int:
     memory, memory_launches = memory_phase(ss, sp, se)
     done("memory", t0)
 
-    # ---- 14. report ----------------------------------------------------------
+    # ---- 14. faults ----------------------------------------------------------
+    t0 = phase("faults")
+    faults, fault_launches = faults_phase(ss, sp, se)
+    done("faults", t0)
+
+    # ---- 15. report ----------------------------------------------------------
     kernels = [{
         "name": "score_activation",
         "route": "cuda",
@@ -2632,6 +2959,8 @@ def main() -> int:
         "launches_paper": paper_launches["score_activation"],
         "launches_verify": verify_launches["score_activation"],
         "launches_memory": memory_launches["score_activation"],
+        "launches_faults": fault_launches["score_activation"],
+        "cases_live_x_bias": n_score_live,
     }, {
         "name": "place",
         "route": "cuda",
@@ -2645,6 +2974,9 @@ def main() -> int:
         "launches_verify": verify_launches["dada_place"] + verify_launches["heft_select"],
         "launches_memory": memory_launches["dada_place"] + memory_launches["heft_select"],
         "launches_memory_by_kernel": {k: memory_launches[k] for k in ("dada_place", "heft_select")},
+        "launches_faults": fault_launches["dada_place"] + fault_launches["heft_select"],
+        "launches_faults_by_kernel": {k: fault_launches[k] for k in ("dada_place", "heft_select")},
+        "live_n128": place_live,
         "exact": place_max_err == 0.0,
         "max_abs_err": place_max_err,
         "cases": place_cases,
@@ -2734,11 +3066,13 @@ def main() -> int:
     episode_entry["launches_paper"] = paper_launches["episode_scan"]
     episode_entry["launches_verify"] = verify_launches["episode_scan"]
     episode_entry["launches_memory"] = memory_launches["episode_scan"]
+    episode_entry["launches_faults"] = fault_launches["episode_scan"]
     kernels.append(episode_entry)
     print(json.dumps({"serve": served}))
     print(json.dumps({"paper": paper}))
     print(json.dumps({"verify": verified}))
     print(json.dumps({"memory": memory}))
+    print(json.dumps({"faults": faults}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -64,15 +64,17 @@ def strategy_for(spec: str, device="cuda"):
 Config = Tuple[int, str, str]  # (n_gpus, label, spec)
 
 
-def _summaries_exact(configs: Sequence[Config], graph_factory, n_runs: int, device) -> List[Summary]:
+def _summaries_exact(configs: Sequence[Config], graph_factory, n_runs: int, device,
+                     audit: bool = False) -> List[Summary]:
     return [
         run_many(graph_factory, paper_machine(n_gpus), partial(strategy_for, spec, device),
-                 n_runs=n_runs)
+                 n_runs=n_runs, audit=audit)
         for n_gpus, _, spec in configs
     ]
 
 
-def _summaries_batched(configs: Sequence[Config], graph_factory, n_runs: int, device) -> List[Summary]:
+def _summaries_batched(configs: Sequence[Config], graph_factory, n_runs: int,
+                       device) -> List[Summary]:
     """Surrogate path: every (strategy × GPU-count × seed) cell is one
     configuration of a single ``run_batch`` call."""
     graph = cached_graph(graph_factory)
@@ -108,17 +110,26 @@ def sweep_summaries(
     device="cuda",
     nt: int = NT,
     tile: int = TILE,
+    audit: bool = False,
 ) -> List[Tuple[int, str, Summary]]:
     """(n_gpus, label, Summary) of every strategy × GPU count, GPU count
-    major, unrounded."""
+    major, unrounded. ``audit``: every exact run is audited and verified
+    (an error raises); the surrogate refuses it, its logs come from
+    ``episode_audit_logs``."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r} (use one of {ENGINES})")
+    if audit and engine != "exact":
+        raise ValueError("audit= audits the exact engine's runs; the surrogate's logs come "
+                         "from episode_audit_logs")
     dev = resolve_device(device)
     configs = [(n_gpus, label, spec) for n_gpus in gpu_counts for label, spec in strategies.items()]
     if not configs:
         return []
-    run = _summaries_exact if engine == "exact" else _summaries_batched
-    summaries = run(configs, graphs_for(nt, tile)[kernel], n_runs, dev)
+    graph_factory = graphs_for(nt, tile)[kernel]
+    if engine == "exact":
+        summaries = _summaries_exact(configs, graph_factory, n_runs, dev, audit)
+    else:
+        summaries = _summaries_batched(configs, graph_factory, n_runs, dev)
     return [(n_gpus, label, s) for (n_gpus, label, _), s in zip(configs, summaries)]
 
 
@@ -149,12 +160,14 @@ def sweep(
     device="cuda",
     nt: int = NT,
     tile: int = TILE,
+    audit: bool = False,
 ) -> List[dict]:
     """Run strategies × GPU counts on ``engine``; return the row dicts."""
     return [
         row_of(fig, kernel, label, n_gpus, s)
         for n_gpus, label, s in sweep_summaries(
-            kernel, strategies, n_runs, gpu_counts, engine=engine, device=device, nt=nt, tile=tile)
+            kernel, strategies, n_runs, gpu_counts, engine=engine, device=device, nt=nt, tile=tile,
+            audit=audit)
     ]
 
 

@@ -1,19 +1,23 @@
-"""Validate the port against the paper's experimental claims C1–C7: the
+"""Validate the port against the paper's experimental claims: the
 counterpart of the reference's ``benchmarks/paper_validation.py``.
 
 Runs the fig1–fig4 sweeps on one engine, then checks the claims on their
-rows with the reference's formulas and thresholds, then C7 (the capacity
-sweep, on the exact engine whatever ``--engine`` says), and prints every
-row, a PASS/FAIL table, the wall seconds of each figure and the engine's
-rate (simulation runs a second on the exact engine, configurations a
-second on the surrogate)::
+rows with the reference's formulas and thresholds (C1–C6), then, on the
+exact engine whatever ``--engine`` says, C7 (the capacity sweep), C8 (GPU
+churn: two of eight GPUs lost mid-run, one back late) and the two
+verifier rows CV (the claim strategies' schedules, exact and surrogate,
+re-checked by :mod:`repro_torch.verify`). Prints every row, a PASS/FAIL
+table, the wall seconds of each figure and the engine's rate (simulation
+runs a second on the exact engine, configurations a second on the
+surrogate)::
 
     python -m repro_torch.bench.paper_validation [--engine exact|surrogate]
-        [--runs 30] [--gpus 1,2,3,4,5,6,7,8] [--device cuda|cpu]
+        [--runs 30] [--gpus 1,2,3,4,5,6,7,8] [--device cuda|cpu] [--audit]
 
 The defaults are the paper's depth: 30 runs and 1..8 GPUs, on the card.
-Exits 1 when a claim fails. C8 and the verifier rows of the reference
-need the fault-injected runtime, which the port does not have yet.
+``--audit`` records every exact run of the figure sweeps and re-checks it
+with the verifier (an error raises), as the reference's audit switch
+does. Exits 1 when a claim fails.
 """
 from __future__ import annotations
 
@@ -25,13 +29,12 @@ from typing import Dict, List, Optional, Sequence
 
 from ..configs.paper_machine import paper_machine
 from ..core import Simulator, run_many
+from ..core import episode as ep
 from ..linalg.cholesky import cholesky_graph
+from ..runtime.metrics import recovery_report
 from ..verify import errors, verify_audit
 from .common import ENGINES, NT, PAPER_GPUS, PAPER_RUNS, TILE, format_row, strategy_for, sweep
 from .figures import FIGURES
-
-NOT_CHECKED = ("C8 and the verifier rows are not checked: the port has no "
-               "fault-injected runtime yet")
 
 _MB = 1024 * 1024
 # the capacity sweep's points: unbounded (0) down to 32 MB a GPU memory
@@ -180,6 +183,99 @@ def check_c7(device="cuda", rows: Optional[List[dict]] = None) -> dict:
     )
 
 
+# C8's fault script, as fractions of each strategy's own fault-free
+# makespan: lose 2 of the 8 GPUs mid-run (one drained, one killed), get one
+# back late
+C8_FAULTS = ((0.25, "detach", 0, "drain"), (0.40, "detach", 1, "kill"),
+             (0.60, "attach", 0, None))
+C8_SPECS = (("heft", "heft"), ("dada", "dada?alpha=0.5&use_cp=1"))
+
+
+def fault_recovery_runs(device="cuda") -> Dict[str, dict]:
+    """HEFT and DADA(0.5)+CP (``C8_SPECS``) through the fault script
+    ``C8_FAULTS`` on Cholesky NT 16, tile 512, ``paper_machine(8)``, seed
+    0, noise 0: a fault-free baseline, then the faulted run, reduced to
+    :func:`recovery_report` plus both runs' bytes and the faulted run's
+    verifier errors (it is audited). The reference's
+    ``fault_recovery_runs``, field for field."""
+    graph = cholesky_graph(16, 512, with_fns=False)
+    out = {}
+    for label, spec in C8_SPECS:
+        base = Simulator(graph, paper_machine(8), strategy_for(spec, device), seed=0,
+                         noise=0.0).run()
+        sim = Simulator(graph, paper_machine(8), strategy_for(spec, device), seed=0, noise=0.0,
+                        audit=True)
+        gpus = [r.rid for r in sim.machine.gpus]
+        for frac, event, gi, mode in C8_FAULTS:
+            sim.inject(event, gpus[gi], at=base.makespan * frac, mode=mode)
+        res = sim.run()
+        out[label] = dict(recovery_report(res, base), bytes=res.total_bytes,
+                          baseline_bytes=base.total_bytes,
+                          verify_errors=len(errors(verify_audit(sim.audit))))
+    return out
+
+
+def check_c8(device="cuda", reps: Optional[Dict[str, dict]] = None) -> dict:
+    """C8 — through the churn script DADA(0.5)+CP moves no more data than
+    HEFT, re-transfers and evacuations included, and both recover to
+    completion with both detaches seen; every faulted run must also
+    verify with no error. ``reps``: :func:`fault_recovery_runs`' output
+    when the caller has it."""
+    if reps is None:
+        reps = fault_recovery_runs(device)
+    dada_le = reps["dada"]["bytes"] <= reps["heft"]["bytes"]
+    both_recover = all(r["slowdown"] > 0 and r["n_detaches"] == 2 for r in reps.values())
+    verified = all(r["verify_errors"] == 0 for r in reps.values())
+    return dict(
+        claim="C8 GPU churn: DADA bytes <= HEFT through detach/reattach, both recover",
+        measured="; ".join(
+            f"{k}: {r['bytes'] / 1e9:.3f}GB ({r['extra_bytes'] / 1e6:+.1f}MB "
+            f"over no-fault), recovery +{r['recovery_makespan'] * 1e3:.2f}ms "
+            f"({r['slowdown']:.2f}x), evac {r['evacuated_bytes'] / 1e6:.1f}MB, "
+            f"requeued {r['n_requeued']:.0f}"
+            for k, r in reps.items()
+        ) + f"; verifier errors {sum(r['verify_errors'] for r in reps.values())}",
+        passed=dada_le and both_recover and verified,
+        rows=reps,
+    )
+
+
+CV_SPECS = ("heft", "dada?alpha=0.5&use_cp=1", "ws")
+
+
+def check_cv(device="cuda") -> List[dict]:
+    """CV — the claim strategies' schedules pass the independent verifier:
+    HEFT, DADA(0.5)+CP and ``ws`` on Cholesky NT 16 (``paper_machine(8)``,
+    seed 0, noise 0), audited on the exact engine, and the same three
+    through the surrogate (one episode batch with ``emit_schedule``, its
+    logs from ``episode_audit_logs``). Two rows, as the reference's."""
+    graph = cholesky_graph(16, 512, with_fns=False)
+    machine = paper_machine(8)
+    parts, n_err = [], 0
+    for spec in CV_SPECS:
+        sim = Simulator(graph, machine, strategy_for(spec, device), seed=0, noise=0.0,
+                        audit=True)
+        sim.run()
+        e = len(errors(verify_audit(sim.audit)))
+        n_err += e
+        parts.append(f"{spec}: {e} err")
+    exact = dict(claim="CV exact-engine claim schedules pass the independent verifier",
+                 measured="; ".join(parts), passed=n_err == 0)
+    max_mem = max(r.mem for r in machine.resources if r.is_accelerator)
+    plan = ep.build_plan(graph, machine, n_u=max_mem + 2)
+    batch = ep.config_batch(plan, [dict(machine=machine, strategy=spec, seed=0, noise=0.0)
+                                   for spec in CV_SPECS])
+    out = ep.run_episodes(plan, batch, device=device, emit_schedule=True)
+    parts, n_err = [], 0
+    for spec, log in zip(CV_SPECS, ep.episode_audit_logs(graph, batch, out)):
+        e = len(errors(verify_audit(log)))
+        n_err += e
+        parts.append(f"{spec}: {e} err")
+    surrogate = dict(claim="CV surrogate claim schedules pass the independent verifier",
+                     measured="; ".join(parts), passed=n_err == 0)
+    return [exact, surrogate]
+
+
 def print_checks(checks: List[dict]) -> bool:
     ok = True
     print("\n== paper-claim validation ==")
@@ -187,18 +283,18 @@ def print_checks(checks: List[dict]) -> bool:
         status = "PASS" if c["passed"] else "FAIL"
         ok &= c["passed"]
         print(f"  [{status}] {c['claim']}\n         measured: {c['measured']}")
-    print(f"  ({NOT_CHECKED})")
     return ok
 
 
 def run_figures(engine: str, n_runs: int, gpu_counts: Sequence[int], device="cuda",
-                nt: int = NT, tile: int = TILE) -> Dict[str, dict]:
-    """Every figure's rows and wall seconds: ``{name: {"rows", "wall_s"}}``."""
+                nt: int = NT, tile: int = TILE, audit: bool = False) -> Dict[str, dict]:
+    """Every figure's rows and wall seconds: ``{name: {"rows", "wall_s"}}``.
+    ``audit``: every exact run is audited and verified (an error raises)."""
     out = {}
     for name, (kernel, strategies) in FIGURES.items():
         t0 = time.perf_counter()
         rows = sweep(name, kernel, strategies, n_runs, gpu_counts, engine=engine, device=device,
-                     nt=nt, tile=tile)
+                     nt=nt, tile=tile, audit=audit)
         out[name] = {"rows": rows, "wall_s": time.perf_counter() - t0}
     return out
 
@@ -219,13 +315,17 @@ def main(argv=None) -> int:
     ap.add_argument("--gpus", default=",".join(map(str, PAPER_GPUS)),
                     help="comma list of GPU counts (0..8)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--audit", action="store_true",
+                    help="audit and verify every exact run of the figure sweeps")
     args = ap.parse_args(argv)
     gpus = [int(g) for g in args.gpus.split(",") if g.strip()]
     if not gpus:
         ap.error("--gpus needs at least one GPU count")
+    if args.audit and args.engine != "exact":
+        ap.error("--audit audits the exact engine's runs (the CV row audits the surrogate's)")
 
     t0 = time.perf_counter()
-    figs = run_figures(args.engine, args.runs, gpus, device=args.device)
+    figs = run_figures(args.engine, args.runs, gpus, device=args.device, audit=args.audit)
     for f in figs.values():
         for row in f["rows"]:
             print(format_row(row))
@@ -233,13 +333,17 @@ def main(argv=None) -> int:
     t7 = time.perf_counter()
     checks.append(check_c7(args.device))
     c7_s = time.perf_counter() - t7
+    t8 = time.perf_counter()
+    checks.append(check_c8(args.device))
+    checks.extend(check_cv(args.device))
+    c8_s = time.perf_counter() - t8
     ok = print_checks(checks)
     unit = "runs/s" if args.engine == "exact" else "configs/s"
     print(f"\nengine {args.engine} on {args.device}: {args.runs} runs x gpus {gpus}")
     for name, f in figs.items():
         print(f"  {name}: wall {f['wall_s']:.3f} s")
-    print(f"  {rate(figs):.2f} {unit} over the figures; C7 {c7_s:.3f} s; "
-          f"total wall {time.perf_counter() - t0:.3f} s (C6 and C7 included)")
+    print(f"  {rate(figs):.2f} {unit} over the figures; C7 {c7_s:.3f} s; C8 and CV "
+          f"{c8_s:.3f} s; total wall {time.perf_counter() - t0:.3f} s (C6-C8 and CV included)")
     if not ok:
         print("some paper claims did not reproduce — see above", file=sys.stderr)
     return 0 if ok else 1

@@ -110,9 +110,13 @@ def run_many(
     n_runs: int = 30,
     noise: float = 0.03,
     base_seed: int = 1234,
+    audit: bool = False,
 ) -> Summary:
     """Run ``n_runs`` seeded simulations (seeds ``base_seed + i``) and
-    summarize them: mean and 95% CI.
+    summarize them: mean and 95% CI. ``audit=True`` records every run and
+    re-checks it with the verifier (:func:`run_simulation`'s ``audit``:
+    an error raises), as the reference does for every sweep run under its
+    audit switch.
 
     ``graph_factory`` and ``strategy_factory`` are callables so each run
     gets a fresh strategy (the history model calibrates within a run); the
@@ -126,7 +130,7 @@ def run_many(
     name = ""
     for i in range(n_runs):
         strat = strategy_factory()
-        res = run_simulation(graph, machine, strat, seed=base_seed + i, noise=noise)
+        res = run_simulation(graph, machine, strat, seed=base_seed + i, noise=noise, audit=audit)
         gf.append(res.gflops)
         gb.append(res.gbytes)
         mk.append(res.makespan)

@@ -264,9 +264,13 @@ class TorchScoringBackend:
         ``use_cp``, the transfers plus ``x_bias`` (the memory-pressure
         penalty under a capacity); the affinity matrix of ``affinity``
         (None: no affinity phase); the rest of the section as
-        :func:`~repro_torch.kernels.sched_place.pack_dada` takes it. With
-        ``device="cpu"``: the scorer's plain version, then the search's,
-        over the host values (no section to pack)."""
+        :func:`~repro_torch.kernels.sched_place.pack_dada` takes it, with
+        the liveness inputs (``pen``, ``skip``, ``n_alive``, ``pen_top``)
+        when a resource is detached or noticed: then the layout is live.
+        Dead or alive, an activation is one copy in, two launches, one copy
+        out and one synchronisation. With ``device="cpu"``: the scorer's
+        plain version, then the search's, over the host values (no section
+        to pack)."""
         if self.device.type == "cpu":
             m = self.score_matrices(sim, tids, resources, p_cpu=p_cpu, p_gpu=p_gpu,
                                     use_cp=use_cp, affinity=affinity, x_bias=x_bias)
@@ -274,7 +278,7 @@ class TorchScoringBackend:
                                     p_gpu=p_gpu, tids=tids, area_bound=area_bound,
                                     cpu_rids=cpu_rids, gpu_rids=gpu_rids, **section)
         spec = place_spec("dada", len(tids), len(resources), len(cpu_rids), len(gpu_rids), 0,
-                          area_bound)
+                          area_bound, "pen" in section)
         layout, packed, machine = self.pack(sim, tids, resources, p_cpu=p_cpu, p_gpu=p_gpu,
                                             use_cp=use_cp, affinity=affinity, x_bias=x_bias,
                                             place=spec)

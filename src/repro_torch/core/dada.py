@@ -27,10 +27,23 @@ reference's order, so decisions (including tie-breaks) are bit-identical
 to ``repro``'s.
 
 Under +CP and a memory capacity the predicted eviction seconds
-(:func:`repro_torch.runtime.memory.pressure_rows_for`) are folded into the
-transfer rows before the cost matrix, as the reference folds them:
-through the scorer's ``x_bias`` section on the device, through
-``fold_pressure`` on the host.
+(:func:`repro_torch.runtime.memory.pressure_rows_for`, without its fault
+columns) are folded into the transfer rows before the cost matrix, as the
+reference folds them: through the scorer's ``x_bias`` section on the
+device, through ``fold_pressure`` on the host.
+
+On a machine that loses resources (:mod:`repro_torch.runtime.faults`) the
+placement takes their liveness, as the reference's scalar path does: a
+detached resource is out of the CPU and GPU pools, its backlog counts 0,
+the preference scan skips it and the area bound counts only the alive
+resources. With ``recover=True`` (``resolve("dada?recover=1")``) a
+noticed resource (a detach announced, not yet fired) is skipped by the
+preference scan too and its column of the cost matrix pays the remaining
+notice window, so new work steers off a condemned device before it dies;
+with no notice pending, ``recover`` changes nothing. These inputs travel
+in the placement section (:func:`~repro_torch.kernels.sched_place.pack_dada`),
+so every activation at least ``min_wide`` wide is still placed on the
+card, dead resources or not.
 """
 from __future__ import annotations
 
@@ -59,6 +72,7 @@ class DADA(Strategy):
         eps_rel: float = 0.01,
         max_iters: int = 30,
         area_bound: bool = False,
+        recover: bool = False,
         device="cuda",
         min_wide: int = 1,
     ) -> None:
@@ -66,6 +80,11 @@ class DADA(Strategy):
         exceeds λ x (number of resources) — a valid no-schedule
         certificate. Off by default (the paper's Algorithm 2 rejects only
         on the big-task criterion).
+
+        ``recover``: notice-aware placement. A noticed resource's cost
+        column pays the remaining notice window and the affinity phase
+        skips it. Off by default; outside notice windows it changes
+        nothing.
 
         ``device``: where each activation is scored and placed (raises if
         it is ``cuda`` and no GPU is present). ``min_wide``: the narrowest
@@ -84,17 +103,21 @@ class DADA(Strategy):
         self.eps_rel = eps_rel
         self.max_iters = max_iters
         self.area_bound = area_bound
+        self.recover = recover
         self.backend = TorchScoringBackend(device)
         self.min_wide = check_min_wide(min_wide)
         cp = "+cp" if use_cp else ""
-        self.name = f"dada({alpha:g}){cp}"
+        rec = "+rec" if recover else ""
+        self.name = f"dada({alpha:g}){cp}{rec}"
 
     # ------------------------------------------------------------------
     def preamble(self, sim: Simulator, tids: List[int]):
         """The λ-independent host values of one activation: ``(p_cpu,
         p_gpu, section)``, the class durations and the rest of the
         placement section (backlogs, the flexible order, the sums, α, the
-        search's limits, the CPU and GPU rids)."""
+        search's limits, the alive CPU and GPU rids and, when a resource
+        is detached or, under ``recover``, noticed, the liveness inputs)."""
+        resources = sim.machine.resources
         cpus, gpus = sim.machine.cpus, sim.machine.gpus
         cpu_cls = cpus[0].cls if cpus else gpus[0].cls
         gpu_cls = gpus[0].cls if gpus else cpu_cls
@@ -107,10 +130,25 @@ class DADA(Strategy):
             p_cpu = sim.predictor(cpu_cls).times_list(tids)
             p_gpu = sim.predictor(gpu_cls).times_list(tids)
 
+        # detached resources, and the notice penalties by resource position
+        # under recover: the remaining window where it is still positive
+        faults = getattr(sim, "faults", None)
+        dead = faults.dead_rids if faults is not None and faults.any_dead else frozenset()
+        pen = {}
+        if self.recover and faults is not None and faults.noticed:
+            for j, r in enumerate(resources):
+                pending = faults.noticed.get(r.rid)
+                if pending is not None and pending[1] - sim.now > 0.0:
+                    pen[j] = pending[1] - sim.now
         offsets = [
             lt - sim.now if lt - sim.now > 0.0 else 0.0
-            for lt in (sim.load_ts[r.rid] for r in sim.machine.resources)
+            for lt in (sim.load_ts[r.rid] for r in resources)
         ]
+        if dead:
+            # a dead resource receives no load and carries no backlog
+            for j, r in enumerate(resources):
+                if r.rid in dead:
+                    offsets[j] = 0.0
         # speedup sort keys for the flexible phase (λ-independent); per-probe
         # flex sets are subsets of ready, so filtering this order equals
         # sorting each subset
@@ -121,15 +159,27 @@ class DADA(Strategy):
             ).tolist()
         else:
             flex_order = sorted(range(n), key=lambda i: (skey[i], tids[i]))
-        return p_cpu, p_gpu, dict(
+        cpu_rids = [r.rid for r in cpus if r.rid not in dead]
+        gpu_rids = [r.rid for r in gpus if r.rid not in dead]
+        if not (cpu_rids or gpu_rids):
+            raise RuntimeError("DADA: every resource is detached")
+        section = dict(
             offsets=offsets, flex_order=flex_order,
             max_off=max(offsets, default=0.0),
             sum_max=sum(max(pc, pg) for pc, pg in zip(p_cpu, p_gpu)),
             area=sum(min(pc, pg) for pc, pg in zip(p_cpu, p_gpu)) if self.area_bound else 0.0,
             off_total=sum(offsets) if self.area_bound else 0.0,
             alpha=self.alpha, eps_rel=self.eps_rel, max_iters=self.max_iters,
-            cpu_rids=[r.rid for r in cpus], gpu_rids=[r.rid for r in gpus],
+            cpu_rids=cpu_rids, gpu_rids=gpu_rids,
         )
+        if dead or pen:
+            section.update(
+                pen=[pen.get(j, 0.0) for j in range(len(resources))],
+                skip=[r.rid in dead or j in pen for j, r in enumerate(resources)],
+                n_alive=len(resources) - len(dead),
+                pen_top=n * max(pen.values()) if pen else 0.0,
+            )
+        return p_cpu, p_gpu, section
 
     def place(self, sim: Simulator, ready: List[Task], src: Optional[int]) -> None:
         resources = sim.machine.resources
@@ -139,11 +189,14 @@ class DADA(Strategy):
         p_cpu, p_gpu, section = self.preamble(sim, tids)
         affinity = self.affinity_name if self.alpha > 0.0 else None
         # memory-pressure penalty under +CP (None unless the memories are
-        # bounded)
-        P = pressure_rows_for(sim, tids, resources) if self.use_cp else None
+        # bounded); without the fault columns: the dead and noticed
+        # resources are inputs of the placement (an +inf row maximum would
+        # blow up the search's upper bound)
+        P = pressure_rows_for(sim, tids, resources, fault_mask=False) if self.use_cp else None
 
         if n >= self.min_wide:
-            # scored and placed on the device; only the placement comes back
+            # scored and placed on the device, dead resources or not; only
+            # the placement comes back
             placed = self.backend.place_dada(
                 sim, tids, resources, p_cpu=p_cpu, p_gpu=p_gpu, use_cp=self.use_cp,
                 affinity=affinity, area_bound=self.area_bound, x_bias=P, **section,

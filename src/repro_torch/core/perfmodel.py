@@ -333,6 +333,16 @@ class Residency:
     def has_any(self, name: str) -> bool:
         return self._mask.get(name, 0) != 0
 
+    def locations(self, name: str) -> set:
+        """The memories holding a valid copy of ``name`` (host: -1)."""
+        mask, mem, out = self._mask.get(name, 0), -1, set()
+        while mask:
+            if mask & 1:
+                out.add(mem)
+            mask >>= 1
+            mem += 1
+        return out
+
     def write(self, name: str, mem: int) -> None:
         self._set_mask(name, _mem_bit(mem))
 

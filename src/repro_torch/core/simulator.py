@@ -1,10 +1,14 @@
 """The single-graph simulation facade over :class:`repro_torch.runtime.engine.Engine`.
 
 Construct with one graph, ``run()`` one :class:`SimResult` — the
-counterpart of ``repro.core.simulator.Simulator`` on its default path,
-with the capacity-bounded memories as arguments: ``mem_capacity`` bytes
-per device memory (0: unbounded) and ``eviction`` (``"lru"`` or
-``"affinity"``).
+counterpart of ``repro.core.simulator.Simulator``, with the reference's
+settings as arguments: the capacity-bounded memories (``mem_capacity``
+bytes per device memory, 0: unbounded; ``eviction``, ``"lru"`` or
+``"affinity"``), the faults (``churn``, ``fault_mode``, ``fault_trace``,
+``notice_s``; :meth:`Engine.inject` schedules one) and the flaky links
+(``link_flake``, ``retry_max``, ``backoff_s``), with the reference's
+defaults. ``SimResult.faults`` holds the fault counters of a run with a
+fault source or flaky links.
 """
 from __future__ import annotations
 
@@ -33,11 +37,20 @@ class Simulator(Engine):
         audit: bool = False,
         mem_capacity: int = 0,
         eviction: str = "lru",
+        churn: float = 0.0,
+        fault_mode: str = "drain",
+        fault_trace: Optional[str] = None,
+        notice_s: float = 0.0,
+        link_flake: float = 0.0,
+        retry_max: int = 3,
+        backoff_s: float = 1e-4,
     ) -> None:
         super().__init__(
             machine, strategy, seed=seed, noise=noise,
             transfer_model=transfer_model, audit=audit,
-            mem_capacity=mem_capacity, eviction=eviction,
+            mem_capacity=mem_capacity, eviction=eviction, churn=churn,
+            fault_mode=fault_mode, fault_trace=fault_trace, notice_s=notice_s,
+            link_flake=link_flake, retry_max=retry_max, backoff_s=backoff_s,
         )
         self._primary: GraphContext = self.submit(graph)
 
@@ -54,4 +67,5 @@ class Simulator(Engine):
             total_flops=self._primary.graph.total_flops(),
             n_events=m.n_events,
             n_steals=m.n_steals,
+            faults=self.fault_summary(),
         )

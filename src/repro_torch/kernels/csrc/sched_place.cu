@@ -12,7 +12,16 @@
 //   preferred resource, the (-score, tid) order of the preferences, the
 //   worst-case transfer sum, the upper bound and the bisection on lambda, and
 //   writes the rid of every task, the loads, lambda and a status word (1:
-//   lambda = upper was infeasible).
+//   lambda = upper was infeasible). On a machine that has lost resources
+//   (flag kLive) it places as the reference's scalar path does there
+//   (repro/core/dada.py:132-155, 203-218, 259-270, 282-310, 444-447): the
+//   detached rids are not in the CPU and GPU lists, the preference scan
+//   skips the columns the host marks (detached, and noticed under recover),
+//   a noticed column of C pays the remaining notice window (C + pen, added
+//   at every read of C, one rounding as the host's once-formed C), the area
+//   bound counts the alive resources, and the
+//   upper bound adds n * max(pen) after ((sum_max + max_off) + worst) +
+//   1e-12.
 // * heft_select_kernel replaces HEFT's earliest-finish-time scan, the jitted
 //   _build_heft_fn of repro/core/backend.py:877 (heft_select :843): tasks in
 //   priority order, each to the resource of least (start + X) + duration,
@@ -88,7 +97,7 @@ constexpr int kHeftMaxSlots = 16;   // HEFT: time stamps per lane (n_res <= 512)
 constexpr int kHeftGroup = 32;      // HEFT: tasks a ring buffer holds at most
 
 // flags of a DADA placement (sched_place.py's PLACE_*)
-constexpr int kWantS = 1, kWantX = 2, kAreaBound = 4;
+constexpr int kWantS = 1, kWantX = 2, kAreaBound = 4, kLive = 8;
 
 // Slot offsets, in the order of sched_place.py's SCORE_REFS + PLACE_IN_SECTIONS
 // + PLACE_OUT_SECTIONS: p_cpu and p_gpu in the input buffer; c, x, x_max and s
@@ -98,7 +107,8 @@ struct Layout {
   int64_t p_cpu, p_gpu;
   int64_t c, x, x_max, s;
   int64_t offsets, flex_order, tids, max_off, sum_max, area, off_total, alpha, two_alpha,
-      eps_rel, max_iters, cpu_rids, gpu_rids, order, durations, cls_of_res, load_ts, now;
+      eps_rel, max_iters, cpu_rids, gpu_rids, pen, skip, n_alive, pen_top, order, durations,
+      cls_of_res, load_ts, now;
   int64_t status, iters, lam, loads, rids, efts;
 };
 
@@ -113,13 +123,13 @@ int slot_class(int n_res) {  // rids a lane, rounded up to a power of two, as an
 
 // DADA's shared memory at tree depth d and staging level `stage` (0: nothing
 // staged; 1: the task vectors; 2: those and C). f64 words: the worst sum,
-// offsets, the preference scores, [p_cpu, p_gpu, x_max, tids, flex_order],
-// [C]; int32 words: next, the preferred rid, head, each rid's position in
-// the CPU / GPU list, two rounds of 32 verdicts; int16: each warp's rid a
-// task.
-size_t dada_smem(int n, int n_res, int depth, int stage) {
+// offsets, [the notice penalties, when live], the preference scores, [p_cpu,
+// p_gpu, x_max, tids, flex_order], [C]; int32 words: next, the preferred
+// rid, head, each rid's position in the CPU / GPU list, two rounds of 32
+// verdicts; int16: each warp's rid a task.
+size_t dada_smem(int n, int n_res, int depth, int stage, bool live) {
   const size_t N = n, NR = n_res, warps = (size_t(1) << depth) - 1;
-  size_t f64 = 1 + NR + N;
+  size_t f64 = 1 + NR + (live ? NR : 0) + N;
   if (stage >= 1) f64 += 5 * N;
   if (stage >= 2) f64 += N * NR;
   const size_t i32 = 2 * N + 3 * NR + 64;
@@ -133,18 +143,18 @@ struct DadaPlan {
 
 // The deepest tree whose unstaged layout fits, then the most staging that
 // fits beside it. depth 0: beyond the kernel.
-DadaPlan dada_plan(int n, int n_res, int n_cpu, int n_gpu) {
+DadaPlan dada_plan(int n, int n_res, int n_cpu, int n_gpu, bool live) {
   DadaPlan p{0, 0, 0};
   if (n < 1 || n_res < 1 || n_res > 32 * kMaxSlots || n_cpu + n_gpu < 1) return p;
   for (int d = kDadaMaxDepth[slot_class(n_res)]; d >= 1; --d) {
-    if (dada_smem(n, n_res, d, 0) <= size_t(kSmemLimit)) {
+    if (dada_smem(n, n_res, d, 0, live) <= size_t(kSmemLimit)) {
       p.depth = d;
       break;
     }
   }
   if (p.depth == 0) return p;
   for (int s = 2; s >= 0; --s) {
-    p.smem = dada_smem(n, n_res, p.depth, s);
+    p.smem = dada_smem(n, n_res, p.depth, s, live);
     if (p.smem <= size_t(kSmemLimit)) {
       p.stage = s;
       break;
@@ -238,13 +248,24 @@ struct Lanes {
   int cplace[R], gplace[R];
 };
 
+// C[t, r] from task t's cost row: plus the notice penalty of column r where
+// `pen` is given (a live machine) and it is positive, as the host adds it
+// once to each noticed column.
+__device__ __forceinline__ double cost_at(const double* crow, const double* pen, int r) {
+  const double c = crow[r];
+  if (pen == nullptr) return c;
+  const double p = pen[r];
+  return p > 0.0 ? __dadd_rn(c, p) : c;
+}
+
 // The host's EFT loop over a pool of rids: best = inf at the pool's first
 // rid, then best <- loads[r] (+ C[t, r]) wherever strictly smaller, in pool
 // order. `crow` is task t's cost row. Returns the value and the rid in
 // every lane.
 template <int R>
-__device__ __forceinline__ double pool_min(const Lanes<R>& w, const double* crow, bool gpu_pool,
-                                           bool with_cost, int lane, int& rid) {
+__device__ __forceinline__ double pool_min(const Lanes<R>& w, const double* crow,
+                                           const double* pen, bool gpu_pool, bool with_cost,
+                                           int lane, int& rid) {
   unsigned long long key = kNoKey;
   int place = INT_MAX;
 #pragma unroll
@@ -252,7 +273,8 @@ __device__ __forceinline__ double pool_min(const Lanes<R>& w, const double* crow
     const int p = gpu_pool ? w.gplace[s] : w.cplace[s];
     if (p == INT_MAX) continue;
     const unsigned long long k =
-        order_key(with_cost ? __dadd_rn(w.load[s], crow[lane + 32 * s]) : w.load[s]);
+        order_key(with_cost ? __dadd_rn(w.load[s], cost_at(crow, pen, lane + 32 * s))
+                            : w.load[s]);
     if (k < key || (k == key && p < place)) {
       key = k;
       place = p;
@@ -279,7 +301,9 @@ struct Dada {
   int n, n_res, n_cpu, n_gpu;
   bool area_bound, have_both, no_cpus, no_gpus;
   double alpha, two_alpha, area, off_total, max_off;
-  const double* C;            // n x n_res, the scorer's output
+  double n_alive;             // the resources the area bound counts
+  const double* C;            // n x n_res, the scorer's output (or staged)
+  const double* pen;          // n_res notice penalties still to add to C, or null
   const double* p_cpu;        // n
   const double* p_gpu;        // n
   const double* offsets;      // n_res
@@ -298,7 +322,7 @@ __device__ __forceinline__ bool try_build(const Dada& d, Lanes<R>& w, int16_t* r
   const double cap = __dadd_rn(__dmul_rn(d.two_alpha, lam), kTiny);
   if (d.max_off > cap) return false;
   if (d.area_bound) {
-    const double capacity = __dsub_rn(__dmul_rn(lam, static_cast<double>(d.n_res)), d.off_total);
+    const double capacity = __dsub_rn(__dmul_rn(lam, d.n_alive), d.off_total);
     if (d.area > __dadd_rn(capacity, kTiny)) return false;
   }
   for (int i = lane; i < d.n; i += 32) rid_of[i] = -1;
@@ -314,7 +338,7 @@ __device__ __forceinline__ bool try_build(const Dada& d, Lanes<R>& w, int16_t* r
     if (r < d.n_res) {
       for (int e = d.head[r]; e >= 0 && l <= budget; e = d.next[e]) {
         rid_of[e] = static_cast<int16_t>(r);
-        const double v = __dadd_rn(l, d.C[static_cast<int64_t>(e) * d.n_res + r]);
+        const double v = __dadd_rn(l, cost_at(d.C + static_cast<int64_t>(e) * d.n_res, d.pen, r));
         if (v > cap) {
           bad = true;
           break;
@@ -352,7 +376,8 @@ __device__ __forceinline__ bool try_build(const Dada& d, Lanes<R>& w, int16_t* r
         const int t = base + k;
         const bool g = (gmask >> k) & 1u;
         int r;
-        const double v = pool_min(w, d.C + static_cast<int64_t>(t) * d.n_res, g, true, lane, r);
+        const double v =
+            pool_min(w, d.C + static_cast<int64_t>(t) * d.n_res, d.pen, g, true, lane, r);
         if (v > cap) return false;
         assign(w, rid_of, t, r, v, lane);
       }
@@ -372,9 +397,9 @@ __device__ __forceinline__ bool try_build(const Dada& d, Lanes<R>& w, int16_t* r
         const int t = __shfl_sync(kFull, i, k);
         const double* crow = d.C + static_cast<int64_t>(t) * d.n_res;
         int r;
-        const double gl = pool_min(w, crow, true, false, lane, r);
-        const double v = gl <= gpu_budget ? __dadd_rn(gl, crow[r])
-                                          : pool_min(w, crow, false, true, lane, r);
+        const double gl = pool_min(w, crow, d.pen, true, false, lane, r);
+        const double v = gl <= gpu_budget ? __dadd_rn(gl, cost_at(crow, d.pen, r))
+                                          : pool_min(w, crow, d.pen, false, true, lane, r);
         if (v > cap) return false;
         assign(w, rid_of, t, r, v, lane);
       }
@@ -391,7 +416,8 @@ __device__ __forceinline__ bool try_build(const Dada& d, Lanes<R>& w, int16_t* r
         mask &= mask - 1;
         const int t = base + k;
         int r;
-        const double v = pool_min(w, d.C + static_cast<int64_t>(t) * d.n_res, gpus, true, lane, r);
+        const double v =
+            pool_min(w, d.C + static_cast<int64_t>(t) * d.n_res, d.pen, gpus, true, lane, r);
         if (v > cap) return false;
         assign(w, rid_of, t, r, v, lane);
       }
@@ -440,13 +466,18 @@ dada_place_kernel(const int64_t* __restrict__ in, const double* __restrict__ sco
   const int depth = 31 - __clz(warps + 1);
   const double* in_f = reinterpret_cast<const double*>(in);
   double* out_f = reinterpret_cast<double*>(out);
-  const bool want_x = flags & kWantX;
+  const bool want_x = flags & kWantX, live = flags & kLive;
 
   // the layout of dada_smem
   double* f = smem;
   double* worst_s = f++;
   double* offsets = f;
   f += n_res;
+  double* pen = nullptr;
+  if (live) {
+    pen = f;
+    f += n_res;
+  }
   double* pref_score = f;
   f += n;
   Dada d;
@@ -480,6 +511,7 @@ dada_place_kernel(const int64_t* __restrict__ in, const double* __restrict__ sco
     f += static_cast<int64_t>(n) * n_res;
   }
   stage_words(offsets, in_f + L.offsets, n_res, tid, threads);
+  if (live) stage_words(pen, in_f + L.pen, n_res, tid, threads);
   int* next = reinterpret_cast<int*>(f);
   int* pref_rid = next + n;
   int* head = pref_rid + n;
@@ -501,6 +533,9 @@ dada_place_kernel(const int64_t* __restrict__ in, const double* __restrict__ sco
   d.area = in_f[L.area];
   d.off_total = in_f[L.off_total];
   d.max_off = in_f[L.max_off];
+  d.n_alive = live ? in_f[L.n_alive] : static_cast<double>(n_res);
+  // a live machine's penalties, added at every read of C
+  d.pen = live ? pen : nullptr;
   d.offsets = offsets;
   d.next = next;
   d.head = head;
@@ -514,6 +549,7 @@ dada_place_kernel(const int64_t* __restrict__ in, const double* __restrict__ sco
   }
   const bool prefs = (flags & kWantS) && d.alpha > 0.0;
   const double* S = scores + L.s;
+  const int64_t* skip = in + L.skip;
   for (int i = tid; i < n; i += threads) {
     next[i] = -1;
     if (!prefs) continue;
@@ -521,6 +557,7 @@ dada_place_kernel(const int64_t* __restrict__ in, const double* __restrict__ sco
     double best = 0.0;
     int br = -1;
     for (int r = 0; r < n_res; ++r) {
+      if (live && skip[r]) continue;  // affinity to a dead or condemned memory
       const double sc = srow[r];
       if (sc > __dadd_rn(best, kTiny)) {
         best = sc;
@@ -582,8 +619,8 @@ dada_place_kernel(const int64_t* __restrict__ in, const double* __restrict__ sco
     w.cplace[s] = r < n_res && cpos[r] != INT_MAX ? (cpos[r] << 8) | r : INT_MAX;
     w.gplace[s] = r < n_res && gpos[r] != INT_MAX ? (gpos[r] << 8) | r : INT_MAX;
   }
-  const double upper0 =
-      __dadd_rn(__dadd_rn(__dadd_rn(in_f[L.sum_max], d.max_off), *worst_s), kTiny);
+  double upper0 = __dadd_rn(__dadd_rn(__dadd_rn(in_f[L.sum_max], d.max_off), *worst_s), kTiny);
+  if (live) upper0 = __dadd_rn(upper0, in_f[L.pen_top]);  // + n * max(pen): 0.0 without
   const double eps_rel = in_f[L.eps_rel];
   const int64_t max_iters = in[L.max_iters];
 
@@ -654,6 +691,18 @@ dada_place_kernel(const int64_t* __restrict__ in, const double* __restrict__ sco
 // occurs.) The condition is one vote, beside the reduction that finds m.
 // Otherwise the fold runs serially over the candidates, shuffled from their
 // lanes in rid order.
+//
+// Detached resources. Their X columns arrive as +inf through the scorer's
+// x_bias (pressure_rows_for's mask), so their candidates are (start + inf) +
+// d = +inf; no other input is infinite, so no NaN (inf - inf, 0 * inf)
+// arises. The proof holds with them: order_key(+inf) = 0xfff0000000000000
+// is below kNoKey, so a lane of dead rids only still reduces to a real key;
+// while one resource is alive, vm is finite and m is alive; an e = +inf is
+// != vm with fl(inf - 1e-15) = inf > vm, so it votes no margin and never
+// replaces m. In the serial fold a dead rid 0 is not taken either: +inf <
+// fl(inf - 1e-15) = inf is false, as in the host loop. With every candidate
+// +inf (no alive resource: the engine never detaches the last worker) both
+// paths return (inf, 0), as the host loop does.
 template <int RH>
 __device__ __forceinline__ double heft_fold(const double (&e)[RH], int n_res, int lane, int& bj) {
   unsigned long long key = kNoKey;
@@ -844,7 +893,7 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool& done) {
 // Plain C entry points (loaded with ctypes). Each launches one block on
 // `stream` (DADA: 32 (2^d - 1) threads; HEFT: 256), does not synchronize,
 // and returns cudaGetLastError() of the launch (0 = success). `layout` is a
-// host array of the 30 slot offsets of struct Layout. A placement beyond the
+// host array of the 34 slot offsets of struct Layout. A placement beyond the
 // kernel (dada_plan / heft_plan) is refused (cudaErrorInvalidValue); the
 // wrapper checks the same bound first.
 extern "C" int repro_dada_place(const void* in, const void* scores, void* out,
@@ -853,7 +902,7 @@ extern "C" int repro_dada_place(const void* in, const void* scores, void* out,
   static bool smem_set[4] = {false, false, false, false};
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const DadaPlan plan = dada_plan(n, n_res, n_cpu, n_gpu);
+  const DadaPlan plan = dada_plan(n, n_res, n_cpu, n_gpu, (flags & kLive) != 0);
   if (plan.depth == 0) return static_cast<int>(cudaErrorInvalidValue);
   Layout L;
   std::memcpy(&L, layout, sizeof(L));
@@ -899,15 +948,15 @@ extern "C" int repro_heft_select(const void* in, const void* scores, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launchers' plan for a placement (kind 0: DADA, 1: HEFT; n_cpu / n_gpu
-// are DADA's, n_cls HEFT's), for checking sched_place.py's mirror of it:
+// The launchers' plan for a placement (kind 0: DADA, 1: HEFT; n_cpu, n_gpu and
+// live are DADA's, n_cls HEFT's), for checking sched_place.py's mirror of it:
 // plan[0] the tree depth (DADA) or the tasks a buffer (HEFT), plan[1] the
 // staging level or the buffers, plan[2] the shared memory, plan[3] the
 // threads. Returns 0, or cudaErrorInvalidValue beyond the kernel.
 extern "C" int repro_place_plan(int kind, int n, int n_res, int n_cpu, int n_gpu, int n_cls,
-                                int64_t* plan) {
+                                int live, int64_t* plan) {
   if (kind == 0) {
-    const DadaPlan p = dada_plan(n, n_res, n_cpu, n_gpu);
+    const DadaPlan p = dada_plan(n, n_res, n_cpu, n_gpu, live != 0);
     if (p.depth == 0) return static_cast<int>(cudaErrorInvalidValue);
     plan[0] = p.depth;
     plan[1] = p.stage;

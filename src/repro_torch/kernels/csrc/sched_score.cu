@@ -23,6 +23,14 @@
 // or exists nowhere yet (mask 0, which is also every padded read); 1 if u
 // is the host or a host copy exists; 2 otherwise (device -> host -> device).
 //
+// x_bias is the pressure channel (repro_torch/runtime/memory.py,
+// pressure_rows_for): the memory pressure, +inf over a detached resource's
+// column and the remaining notice window over a noticed one. The kernel adds
+// it as it adds any value: x + inf = +inf in X, in the row maxima (fmax) and
+// in C; no other input is infinite, so no NaN arises. DADA asks for the
+// pressure without the fault columns (its row maxima feed the search's
+// bound) and takes liveness in dada_place instead; HEFT reads the full rows.
+//
 // Bit-exact f64 in the reference's op order. Every fold runs in CSR order
 // from +0.0, one (i, u) entry per thread, with no atomics and no split of a
 // fold. Additions, the product and the division are written as

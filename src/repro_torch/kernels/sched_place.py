@@ -13,7 +13,12 @@ buffer where it lies:
     ``X`` (+CP) it computes each task's preferred resource, their
     ``(-score, tid)`` order, the upper bound, the bisection on λ and the
     placement at the settled λ: the rid of every task (ready order), the
-    loads, λ and a status word;
+    loads, λ and a status word. On a machine that has lost resources
+    (``PlaceSpec.live``) it also takes their liveness: the detached
+    resources are absent from the CPU and GPU lists and skipped by the
+    preference scan, a noticed resource's column of ``C`` pays the
+    remaining notice window, and the area bound and the search's upper
+    bound count only what is alive (:func:`pack_dada`);
   * :func:`heft_select` — HEFT's earliest-finish-time scan. Counterpart
     of the jitted ``heft_select`` (``repro/core/backend.py:843``, body
     ``_build_heft_fn`` :877): tasks in priority order, each to the
@@ -65,15 +70,17 @@ PLACE_IN_SECTIONS = (
     # DADA
     "offsets", "flex_order", "tids", "max_off", "sum_max", "area", "off_total", "alpha",
     "two_alpha", "eps_rel", "max_iters", "cpu_rids", "gpu_rids",
+    # DADA on a machine that lost resources (PlaceSpec.live)
+    "pen", "skip", "n_alive", "pen_top",
     # HEFT
     "order", "durations", "cls_of_res", "load_ts", "now",
 )
 PLACE_OUT_SECTIONS = ("status", "iters", "lam", "loads", "rids", "efts")
 PLACE_F64 = frozenset((
     "offsets", "max_off", "sum_max", "area", "off_total", "alpha", "two_alpha", "eps_rel",
-    "durations", "load_ts", "now", "lam", "loads", "efts",
+    "pen", "n_alive", "pen_top", "durations", "load_ts", "now", "lam", "loads", "efts",
 ))
-PLACE_WANT_S, PLACE_WANT_X, PLACE_AREA_BOUND = 1, 2, 4
+PLACE_WANT_S, PLACE_WANT_X, PLACE_AREA_BOUND, PLACE_LIVE = 1, 2, 4, 8
 SMEM_LIMIT = 232448  # shared memory one block may use on an H100
 DADA_MAX_RES = 256  # the DADA kernel's registers hold up to 8 rids a lane
 # the DADA kernel's deepest midpoint tree (2^d - 1 warps) by rids a lane
@@ -90,29 +97,33 @@ def _slot_class(n_res: int) -> int:
     return max(0, ((n_res + 31) // 32 - 1).bit_length())
 
 
-def dada_smem(n: int, n_res: int, depth: int, stage: int) -> int:
+def dada_smem(n: int, n_res: int, depth: int, stage: int, live: bool = False) -> int:
     """The DADA kernel's shared memory (``dada_smem`` of csrc/sched_place.cu)
     at tree depth ``depth`` and staging level ``stage`` (0: nothing staged;
     1: the task vectors; 2: those and C): f64 words for the worst sum, the
-    offsets, the preference scores, [p_cpu, p_gpu, x_max, tids,
-    flex_order], [C]; int32 words for the chains, the preferred rids, the
-    heads, each rid's position in the CPU / GPU list and two rounds of
-    verdicts; one int16 rid a task for each of the 2^depth - 1 warps."""
-    f64 = 1 + n_res + n + (5 * n if stage >= 1 else 0) + (n * n_res if stage >= 2 else 0)
+    offsets, [the notice penalties, when ``live``], the preference scores,
+    [p_cpu, p_gpu, x_max, tids, flex_order], [C]; int32 words for the
+    chains, the preferred rids, the heads, each rid's position in the CPU /
+    GPU list and two rounds of verdicts; one int16 rid a task for each of
+    the 2^depth - 1 warps."""
+    f64 = (1 + n_res + (n_res if live else 0) + n + (5 * n if stage >= 1 else 0)
+           + (n * n_res if stage >= 2 else 0))
     i32 = 2 * n + 3 * n_res + 64
     return 8 * f64 + 4 * i32 + 2 * ((1 << depth) - 1) * n
 
 
-def dada_plan(n: int, n_res: int, n_cpu: int, n_gpu: int) -> Optional[Tuple[int, int, int]]:
+def dada_plan(n: int, n_res: int, n_cpu: int, n_gpu: int,
+              live: bool = False) -> Optional[Tuple[int, int, int]]:
     """(depth, stage, shared bytes) of the DADA kernel (``dada_plan`` of
     csrc/sched_place.cu): the deepest tree whose unstaged layout fits, then
     the most staging that fits beside it; None beyond the kernel."""
     if n < 1 or n_res < 1 or n_res > DADA_MAX_RES or n_cpu + n_gpu < 1:
         return None
     for depth in range(DADA_MAX_DEPTH[_slot_class(n_res)], 0, -1):
-        if dada_smem(n, n_res, depth, 0) <= SMEM_LIMIT:
-            stage = next(s for s in (2, 1, 0) if dada_smem(n, n_res, depth, s) <= SMEM_LIMIT)
-            return depth, stage, dada_smem(n, n_res, depth, stage)
+        if dada_smem(n, n_res, depth, 0, live) <= SMEM_LIMIT:
+            stage = next(s for s in (2, 1, 0)
+                         if dada_smem(n, n_res, depth, s, live) <= SMEM_LIMIT)
+            return depth, stage, dada_smem(n, n_res, depth, stage, live)
     return None
 
 
@@ -135,7 +146,9 @@ def heft_plan(n: int, n_res: int, n_cls: int) -> Optional[Tuple[int, int, int]]:
 class PlaceSpec:
     """One activation's placement: ``kind`` "dada" or "heft", ``n`` ready
     tasks, ``n_res`` resources; DADA's ``n_cpu`` / ``n_gpu`` resource lists
-    and ``area_bound``; HEFT's ``n_cls`` duration classes."""
+    (the alive resources), ``area_bound`` and ``live`` (the section carries
+    the liveness inputs: a resource is detached or noticed); HEFT's
+    ``n_cls`` duration classes."""
 
     kind: str
     n: int
@@ -144,6 +157,7 @@ class PlaceSpec:
     n_gpu: int = 0
     n_cls: int = 0
     area_bound: bool = False
+    live: bool = False
 
     def __post_init__(self) -> None:
         if self.kind not in ("dada", "heft"):
@@ -164,8 +178,8 @@ class PlaceSpec:
         else:
             if self.n_cls < 1:
                 raise ValueError(f"HEFT needs n_cls >= 1, got {self.n_cls}")
-            if self.n_cpu or self.n_gpu or self.area_bound:
-                raise ValueError("n_cpu, n_gpu and area_bound are DADA's")
+            if self.n_cpu or self.n_gpu or self.area_bound or self.live:
+                raise ValueError("n_cpu, n_gpu, area_bound and live are DADA's")
 
     @property
     def plan(self) -> Optional[Tuple[int, int, int]]:
@@ -174,7 +188,7 @@ class PlaceSpec:
         buffer, buffers, shared bytes); None beyond the kernel."""
         if self.kind == "heft":
             return heft_plan(self.n, self.n_res, self.n_cls)
-        return dada_plan(self.n, self.n_res, self.n_cpu, self.n_gpu)
+        return dada_plan(self.n, self.n_res, self.n_cpu, self.n_gpu, self.live)
 
     @property
     def smem_bytes(self) -> int:
@@ -186,7 +200,7 @@ class PlaceSpec:
             return plan[2]
         if self.kind == "heft":
             return 32 * self.n_res
-        return dada_smem(self.n, self.n_res, 1, 0)
+        return dada_smem(self.n, self.n_res, 1, 0, self.live)
 
     @property
     def fits_kernel(self) -> bool:
@@ -198,9 +212,9 @@ class PlaceSpec:
 
 @functools.lru_cache(maxsize=4096)
 def place_spec(kind: str, n: int, n_res: int, n_cpu: int = 0, n_gpu: int = 0, n_cls: int = 0,
-               area_bound: bool = False) -> PlaceSpec:
+               area_bound: bool = False, live: bool = False) -> PlaceSpec:
     """A :class:`PlaceSpec`, built and checked once per distinct placement."""
-    return PlaceSpec(kind, n, n_res, n_cpu, n_gpu, n_cls, area_bound)
+    return PlaceSpec(kind, n, n_res, n_cpu, n_gpu, n_cls, area_bound, live)
 
 
 @dataclass(frozen=True)
@@ -232,15 +246,16 @@ def place_layout(spec: PlaceSpec, ss: ScoreSpec) -> PlaceLayout:
         raise ValueError("DADA places from C and the row maxima of X: want_c, and no x_rows")
     if not dada and not (ss.want_x and ss.x_rows):
         raise ValueError("HEFT places from the rows of X: want_x and x_rows")
-    d, h = int(dada), int(not dada)
+    d, h, v = int(dada), int(not dada), int(spec.live)
     body, length = _sections(PLACE_IN_SECTIONS, (
         n_res * d, n * d, n * d, *(d,) * 8, spec.n_cpu, spec.n_gpu,
+        n_res * v, n_res * v, v, v,
         n * h, spec.n_cls * n * h, n_res * h, n_res * h, h,
     ))
     inputs = {name: (score.n_in + off, k) for name, (off, k) in body.items()}
     outputs, n_out = _sections(PLACE_OUT_SECTIONS, (d, d, d, n_res * d, n, n * h))
     flags = (PLACE_WANT_S * ss.want_s | PLACE_WANT_X * ss.want_x
-             | PLACE_AREA_BOUND * spec.area_bound)
+             | PLACE_AREA_BOUND * spec.area_bound | PLACE_LIVE * spec.live)
     offsets = ([score.inputs[name][0] for name in SCORE_IN_REFS]
                + [score.outputs[name][0] for name in SCORE_OUT_REFS]
                + [inputs[name][0] for name in PLACE_IN_SECTIONS]
@@ -255,25 +270,37 @@ def _check_ids(name: str, ids, bound: int) -> None:
 
 
 def pack_dada(buf: np.ndarray, layout: PlaceLayout, *, offsets, flex_order, tids, max_off,
-              sum_max, area, off_total, alpha, eps_rel, max_iters, cpu_rids, gpu_rids) -> None:
+              sum_max, area, off_total, alpha, eps_rel, max_iters, cpu_rids, gpu_rids,
+              pen=None, skip=None, n_alive=None, pen_top=0.0) -> None:
     """Write DADA's placement section into ``buf`` (the whole int64 input
     buffer, ``layout.n_in`` slots; the scorer's sections are left as they
     are). ``offsets``: each resource's backlog beyond now; ``flex_order``:
     the flexible phase's task order; ``tids``: the tasks' ids (the
     preference order's tie-break); ``max_off``, ``sum_max`` (Σ max(p_cpu,
     p_gpu) in the host's order), ``area`` and ``off_total`` (read under
-    ``area_bound``), α, ``eps_rel``, ``max_iters``; the CPU and GPU rids."""
+    ``area_bound``), α, ``eps_rel``, ``max_iters``; the CPU and GPU rids.
+
+    A ``live`` layout also takes the liveness inputs: ``pen``, each
+    column's notice penalty (0.0: none; C's noticed columns pay it),
+    ``skip``, the columns the preference scan skips (detached, and noticed
+    under recover), ``n_alive``, the resources the area bound counts, and
+    ``pen_top``, n times the largest penalty, which the upper bound adds."""
     spec = layout.spec
     if spec.kind != "dada":
         raise ValueError("pack_dada needs a DADA layout")
+    if spec.live != (pen is not None):
+        raise ValueError("pen, skip, n_alive and pen_top go with a live layout, and only there")
     _check_ids("flex_order", flex_order, spec.n)
     _check_ids("cpu_rids", cpu_rids, spec.n_res)
     _check_ids("gpu_rids", gpu_rids, spec.n_res)
-    _write(buf, layout.inputs, dict(
+    values = dict(
         offsets=offsets, flex_order=flex_order, tids=tids, max_off=max_off, sum_max=sum_max,
         area=area, off_total=off_total, alpha=alpha, two_alpha=2.0 + alpha, eps_rel=eps_rel,
         max_iters=max_iters, cpu_rids=cpu_rids, gpu_rids=gpu_rids,
-    ), PLACE_F64)
+    )
+    if spec.live:
+        values.update(pen=pen, skip=skip, n_alive=float(n_alive), pen_top=pen_top)
+    _write(buf, layout.inputs, values, PLACE_F64)
 
 
 def pack_heft(buf: np.ndarray, layout: PlaceLayout, *, order, durations, cls_of_res, load_ts,
@@ -314,17 +341,21 @@ class HeftPlacement(NamedTuple):
     efts: List[float]
 
 
-def preferences(S, C: Sequence[Sequence[float]], tids: Sequence[int]):
+def preferences(S, C: Sequence[Sequence[float]], tids: Sequence[int], skip=None):
     """Each task's preferred resource and its order: ``(score, tid, rid,
     cost, task index)`` for every task whose affinity row has a score
     above the 1e-12 tolerance, sorted by ``(-score, tid)``. One pass per
     resource column reproduces the scalar rid-ascending scan from best =
     0, row by row; the lexsort equals ``sorted()`` because tids are
-    unique."""
+    unique. The columns where ``skip`` is true are passed over, as the
+    scan passes over a detached (or, under recover, a noticed)
+    resource."""
     S = np.asarray(S, dtype=np.float64)
     best = np.zeros(S.shape[0], dtype=np.float64)
     best_rid = np.full(S.shape[0], -1, dtype=np.int64)
     for rid in range(S.shape[1]):
+        if skip is not None and skip[rid]:
+            continue
         col = S[:, rid]
         upd = col > best + _TINY
         if upd.any():
@@ -342,18 +373,28 @@ def preferences(S, C: Sequence[Sequence[float]], tids: Sequence[int]):
 
 def dada_place_plain(*, C, S, x_max, p_cpu, p_gpu, tids, flex_order, offsets, max_off, sum_max,
                      area, off_total, alpha, eps_rel, max_iters, area_bound, cpu_rids,
-                     gpu_rids) -> DadaPlacement:
+                     gpu_rids, pen=None, skip=None, n_alive=None, pen_top=0.0) -> DadaPlacement:
     """Plain version of the DADA kernel: DADA's λ search and placement over
     host values, in the reference's op order.
 
     ``C``: the (n × n_res) cost rows; ``S``: the affinity matrix (read
     when α > 0; None without); ``x_max``: the row maxima of X (+CP; None
-    without); the rest as :func:`pack_dada` takes them. ``dada_place_plain.calls``
-    counts the calls."""
+    without); the rest as :func:`pack_dada` takes them, the liveness
+    inputs included (None: every resource alive, none noticed): each
+    noticed column of C pays its penalty, ``C + pen``, before anything
+    reads C. ``dada_place_plain.calls`` counts the calls."""
     dada_place_plain.calls += 1
     n, n_res = len(tids), len(offsets)
+    if pen is not None and any(p > 0.0 for p in pen):
+        noticed = [(j, p) for j, p in enumerate(pen) if p > 0.0]
+        C = [list(row) for row in C]
+        for row in C:
+            for j, p in noticed:
+                row[j] += p
+    if n_alive is None:
+        n_alive = n_res
     two_alpha = 2.0 + alpha
-    by_score = preferences(S, C, tids) if alpha > 0.0 and S is not None else []
+    by_score = preferences(S, C, tids, skip) if alpha > 0.0 and S is not None else []
     have_both = bool(cpu_rids and gpu_rids)
     no_cpus, no_gpus = not cpu_rids, not gpu_rids
     any_rids = cpu_rids or gpu_rids
@@ -366,7 +407,7 @@ def dada_place_plain(*, C, S, x_max, p_cpu, p_gpu, tids, flex_order, offsets, ma
         if max_off > cap:
             return None
         if area_bound:
-            capacity = lam * n_res - off_total
+            capacity = lam * n_alive - off_total
             if area > capacity + _TINY:
                 return None  # certificate: no λ-schedule exists
         loads = list(offsets)
@@ -451,6 +492,9 @@ def dada_place_plain(*, C, S, x_max, p_cpu, p_gpu, tids, flex_order, offsets, ma
         for v in x_max:
             worst_xfer += v
     upper = sum_max + max_off + worst_xfer + _TINY
+    if pen_top:
+        # the notice penalties inflate C: λ = upper stays feasible
+        upper += pen_top
     lower = 0.0
     kept = None
     it = 0
@@ -539,6 +583,9 @@ def _plain_inputs(packed_in: np.ndarray, scores: np.ndarray, layout: PlaceLayout
         max_iters=int(get(packed_in, ins, "max_iters")[0]), area_bound=spec.area_bound,
         cpu_rids=get(packed_in, ins, "cpu_rids").tolist(),
         gpu_rids=get(packed_in, ins, "gpu_rids").tolist(),
+        **(dict(pen=get(f64, ins, "pen").tolist(), skip=get(packed_in, ins, "skip").tolist(),
+                n_alive=float(get(f64, ins, "n_alive")[0]),
+                pen_top=float(get(f64, ins, "pen_top")[0])) if spec.live else {}),
     )
 
 
@@ -587,7 +634,7 @@ def build() -> str:
         + [ctypes.c_void_p]
     )
     lib.repro_heft_select.restype = ctypes.c_int
-    lib.repro_place_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int64)]
+    lib.repro_place_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int64)]
     lib.repro_place_plan.restype = ctypes.c_int
     _lib = lib
     return _build_log

@@ -362,8 +362,11 @@ def pack_activation(buf: np.ndarray, layout: ScoreLayout, *, reads=None, writes=
     ``reads``: (indptr, full masks, sizes) of the ready tasks' reads in
     CSR order; ``writes``: (indptr, full masks, weights) of their affinity
     accesses; ``p_cpu`` / ``p_gpu``: class durations; ``x_bias``: the
-    (n × n_res) additive bias. Each is given exactly when the spec asks
-    for it.
+    (n × n_res) additive bias (the memory pressure, and on a machine that
+    lost resources +inf over a detached column and the finite notice
+    penalty over a noticed one: ``x + inf`` is +inf in X, its row maximum
+    and C alike, and nothing else is infinite, so no NaN arises). Each is
+    given exactly when the spec asks for it.
     """
     spec = layout.spec
     if buf.dtype != np.int64 or buf.shape != (layout.n_in,):

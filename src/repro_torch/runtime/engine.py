@@ -12,12 +12,27 @@ Reproduces the paper's execution flow (§2.1-2.2):
   * the runtime observes real (noisy) durations and feeds the history-based
     performance model, which therefore calibrates online (§2.3).
 
-Counterpart of ``repro.runtime.engine`` on its default path (no faults,
-no serving mode, no stale-transfer cancellation), with the reference's
-capacity-bounded memories as an option: ``mem_capacity`` bytes per device
-memory (0, the default: unbounded) and ``eviction`` (``"lru"`` or
-``"affinity"``), see :mod:`repro_torch.runtime.memory`. Every memory hook
-sits behind the ``bounded`` flag, so an unbounded run takes the code path
+Counterpart of ``repro.runtime.engine`` without its serving mode and its
+stale-transfer cancellation, with the reference's options as arguments:
+
+  * capacity-bounded memories: ``mem_capacity`` bytes per device memory
+    (0, the default: unbounded) and ``eviction`` (``"lru"`` or
+    ``"affinity"``), see :mod:`repro_torch.runtime.memory`. Every memory
+    hook sits behind the ``bounded`` flag;
+  * faults (:mod:`repro_torch.runtime.faults`): :meth:`Engine.inject`,
+    :meth:`Engine.replay_trace` or ``fault_trace`` (a JSONL trace), seeded
+    ``churn`` (events a simulated second), the recovery ``fault_mode``
+    (``"drain"`` or ``"kill"``) and ``notice_s``, the preemption notice
+    ahead of each detach. Every fault hook sits behind one flag that only
+    a fault source sets, and pushes aimed at a dead worker go to the next
+    alive one;
+  * flaky links (:mod:`repro_torch.runtime.transfers`): ``link_flake``,
+    the chance that a demand hop fails, retried ``retry_max`` times with
+    backoff from ``backoff_s``.
+
+The defaults are the reference's (``churn=0.0``, ``fault_mode="drain"``,
+``fault_trace=None``, ``notice_s=0.0``, ``link_flake=0.0``,
+``retry_max=3``, ``backoff_s=1e-4``); with them a run takes the code path
 it took before the hooks existed. Several graphs may be submitted before
 :meth:`Engine.run`, each with a tenant ``priority`` that the ``priority``
 and ``wfq`` policies read; their roots are placed in submit order when
@@ -54,9 +69,11 @@ from ..core.perfmodel import (
 )
 from ..verify.audit import AuditLog
 from .events import EventQueue
+from .faults import FaultManager
 from .memory import MemoryManager
 from .metrics import Metrics, ScheduledInterval, SimResult
 from .queues import Worker, eligible_victims
+from .traces import FAULT_EVENTS, FAULT_MODES, load_trace
 from .transfers import TransferEngine
 
 
@@ -83,7 +100,7 @@ class GraphContext:
         "gid", "graph", "arrays", "residency", "inflight", "waiting",
         "noise_mult", "preds", "succ", "done", "n_done", "n_tasks",
         "rid_static", "predictors", "finish", "intervals", "submit_at",
-        "readers_left", "priority",
+        "readers_left", "priority", "attempt",
     )
 
     def __init__(self, gid: int, graph: TaskGraph) -> None:
@@ -112,6 +129,9 @@ class GraphContext:
         self.readers_left: List[int] = []  # per-did pending readers (bounded)
         # the tenant's weight for the priority / weighted-fair policies
         self.priority = 1.0
+        # each task's execution attempt, bumped when a kill-mode detach
+        # aborts it: the "done" event of the aborted run is then stale
+        self.attempt: List[int] = [0] * len(graph)
 
 
 class Engine:
@@ -133,6 +153,13 @@ class Engine:
         audit: bool = False,
         mem_capacity: int = 0,
         eviction: str = "lru",
+        churn: float = 0.0,
+        fault_mode: str = "drain",
+        fault_trace: Optional[str] = None,
+        notice_s: float = 0.0,
+        link_flake: float = 0.0,
+        retry_max: int = 3,
+        backoff_s: float = 1e-4,
     ) -> None:
         self.machine = machine
         self.strategy = strategy
@@ -165,16 +192,32 @@ class Engine:
         if self._bounded:
             self.transfers.memory = self.memory
 
+        # resource dynamics: the manager is always there, inert until a
+        # fault source registers; the hot paths check _faults_on first
+        self.faults = FaultManager(machine, mode=fault_mode)
+        self.transfers.faults = self.faults
+        self._faults_on = False
+        self._notice_s = float(notice_s)
+        if churn:
+            self.faults.enable_churn(churn, seed=seed, mode=fault_mode, notice_s=self._notice_s)
+            self._faults_on = True
+        if fault_trace:
+            self.replay_trace(fault_trace)
+        # flaky links: a run with link_flake 0 never touches their stream
+        self._flake_on = float(link_flake) > 0.0
+        if self._flake_on:
+            self.transfers.enable_flake(float(link_flake), int(retry_max), float(backoff_s), seed)
+
         # opt-in structured audit log (repro_torch.verify), logged with the
         # reference's settings for this engine: the capacity and eviction
-        # policy, no stale cancellation, drain faults (none happen)
+        # policy, no stale cancellation, the fault mode
         self.audit: Optional[AuditLog] = None
         if audit:
             self.audit = AuditLog(engine="exact")
             self.audit.log_machine(
                 machine, host_mem=HOST_MEM,
                 capacity=self.memory.capacity if self._bounded else 0, eviction=eviction,
-                cancel_stale=False, fault_mode="drain", seed=seed, noise=noise,
+                cancel_stale=False, fault_mode=fault_mode, seed=seed, noise=noise,
             )
         self.transfers.audit = self.audit
 
@@ -241,8 +284,55 @@ class Engine:
         return self._predictor(self._cur, cls)
 
     # ------------------------------------------------------------------
+    # fault injection (repro_torch.runtime.faults)
+    def inject(self, event: str, rid: int, at: Optional[float] = None,
+               mode: Optional[str] = None, notice_s: Optional[float] = None) -> None:
+        """Schedule a ``"detach"`` or ``"attach"`` of resource ``rid``.
+
+        ``at`` is simulated time (default now; a past time clamps to now).
+        ``mode`` is a detach's recovery mode (``"drain"`` or ``"kill"``;
+        default the engine's ``fault_mode``). ``notice_s`` (detach only;
+        default the engine's) announces the death that long before: a
+        notice fires at ``max(now, at - notice_s)``. The fault fires as an
+        event of the run loop."""
+        if event not in FAULT_EVENTS:
+            raise ValueError(f"fault event must be one of {FAULT_EVENTS}, got {event!r}")
+        if mode is not None and mode not in FAULT_MODES:
+            raise ValueError(f"fault mode must be one of {FAULT_MODES}, got {mode!r}")
+        if notice_s is not None:
+            if event != "detach":
+                raise ValueError(
+                    f"notice_s only applies to detach events, got event={event!r}"
+                )
+            if not (float(notice_s) >= 0.0):
+                raise ValueError(f"notice_s must be >= 0, got {notice_s!r}")
+        self.faults._check_rid(rid)
+        at = self.now if at is None else max(float(at), self.now)
+        self.faults.active = True
+        self._faults_on = True
+        if event == "detach":
+            ns = float(notice_s) if notice_s is not None else self._notice_s
+            if ns > 0.0:
+                t_n = max(self.now, at - ns)
+                if t_n < at:
+                    # the mode slot carries (mode, the scheduled death)
+                    self.events.post(t_n, "fault", ("notice", int(rid), (mode, at)))
+        self.events.post(at, "fault", (event, int(rid), mode))
+
+    def replay_trace(self, trace) -> None:
+        """Inject every event of a JSONL preemption trace: a path for
+        :func:`repro_torch.runtime.traces.load_trace`, or an iterable of
+        :class:`~repro_torch.runtime.traces.FaultEvent`."""
+        events = load_trace(trace) if isinstance(trace, str) else trace
+        for ev in events:
+            self.inject(ev.event, ev.rid, at=ev.t, mode=ev.mode, notice_s=ev.notice_s)
+
+    # ------------------------------------------------------------------
     def push(self, task: Task, rid: int) -> None:
-        """Push ``task`` onto worker ``rid``'s queue and prefetch its inputs."""
+        """Push ``task`` onto worker ``rid``'s queue and prefetch its inputs
+        (work aimed at a dead worker goes to the next alive one)."""
+        if self._faults_on and not self.faults.alive[rid]:
+            rid = self.faults.redirect(rid)
         w = self.workers[rid]
         w.queue.append(task)
         ctx = self._ctx_of[id(task)]
@@ -268,10 +358,14 @@ class Engine:
     def _steal_round(self) -> None:
         # callers guard on self._steal_on (strategy.allow_steal)
         progress = True
+        faults_on = self._faults_on
         while progress:
             progress = False
             for w in self.workers:
                 if w.running is None and not w.queue:
+                    if faults_on and (not self.faults.alive[w.rid]
+                                      or w.rid in self.faults.noticed):
+                        continue  # dead and condemned workers do not steal
                     if self._steal(w):
                         self._try_start(w)
                         progress = True
@@ -288,6 +382,10 @@ class Engine:
         if w.running is not None or not w.queue:
             return
         rid = w.rid
+        if self._faults_on and (not self.faults.alive[rid] or rid in self.faults.noticed):
+            # nothing starts on a detached worker, nor on a noticed one
+            # inside its window: its queue is re-activated at the death
+            return
         task = w.queue[-1] if self._lifo else w.queue[0]
         ctx = self._ctx_of[id(task)]
         # make sure inputs are (going to be) resident
@@ -336,7 +434,7 @@ class Engine:
             dur *= ctx.noise_mult[tid]
         w.running = task
         w.run_start = now
-        self.events.post(now + dur, "done", (rid, ctx, tid, dur))
+        self.events.post(now + dur, "done", (rid, ctx, tid, dur, ctx.attempt[tid]))
 
     def _complete(self, rid: int, ctx: GraphContext, tid: int, dur: float) -> None:
         w = self.workers[rid]
@@ -353,10 +451,17 @@ class Engine:
         self.model.observe(task, res.cls, dur)
         bit = self._bit_of[rid]
         bounded = self._bounded
+        # a drained worker finishing after its detach: its memory is gone,
+        # so the outputs are written back to host on the memory's link
+        dead_mem = None
+        if self._faults_on and not self.faults.alive[rid]:
+            m = self._mem_of[rid]
+            if m != HOST_MEM and m in self.faults.dead_mems:
+                dead_mem = m
         if bounded:
             self._unpin_worker(w)
             mem = self._mem_of[rid]
-            if mem != HOST_MEM:
+            if mem != HOST_MEM and dead_mem is None:
                 # make room for the outputs this completion materializes
                 incoming = 0
                 mask_list = ctx.residency.mask_list
@@ -371,13 +476,21 @@ class Engine:
         write_id = ctx.residency.write_id
         inflight_pop = ctx.inflight.pop
         for did, name, size in ctx.arrays.task_writes[tid]:
-            write_id(did, name, bit)
+            if dead_mem is not None:
+                self.transfers.one_hop(size, self.transfers.mem_link.get(dead_mem), self.now,
+                                       kind="evacuate")
+                metrics.n_evacuations += 1
+                metrics.evacuated_bytes += size
+                write_id(did, name, 1)  # the sole valid copy lands on host
+            else:
+                write_id(did, name, bit)
             # invalidate any stale dedup entries for this data
             inflight_pop(name, None)
         if self.audit is not None:
             # after the write loop: the eviction records ensure_capacity
             # emitted above come first, as the verifier replays them
-            self.audit.log_exec(ctx.gid, tid, rid, self._mem_of[rid], w.run_start, self.now)
+            self.audit.log_exec(ctx.gid, tid, rid, self._mem_of[rid], w.run_start, self.now,
+                                wrote_host=dead_mem is not None)
         if bounded:
             self.memory.note_task_done(ctx, tid)
         # load time-stamp correction (§2.3: runtime corrects predictions)
@@ -395,20 +508,26 @@ class Engine:
             ctx.finish = self.now
         if newly_ready:
             # the *activate* operation — where scheduling decisions happen
-            self._set_ctx(ctx)
-            self.strategy.place(self, newly_ready, rid)
+            self._place_ready(ctx, newly_ready, rid)
         self._try_start(w)
         if self._steal_on:
             self._steal_round()
 
+    def _place_ready(self, ctx: GraphContext, ready: List[Task], src: Optional[int]) -> None:
+        """Hand newly-ready tasks of ``ctx`` to the strategy: the one seam
+        every activation flows through, re-activations after a detach
+        included."""
+        self._set_ctx(ctx)
+        self.strategy.place(self, ready, src)
+
     # ------------------------------------------------------------------
     def _run_loop(self) -> None:
         self.strategy.init(self)
+        self.faults.schedule_churn(self)
         for ctx in self._ctxs:
             roots = ctx.graph.roots()
             if roots:
-                self._set_ctx(ctx)
-                self.strategy.place(self, roots, None)
+                self._place_ready(ctx, roots, None)
         steal_on = self._steal_on
         if steal_on:
             self._steal_round()
@@ -418,13 +537,15 @@ class Engine:
         audit = self.audit
         bounded = self._bounded
         memory = self.memory
+        faults = self.faults
+        faults_on = self._faults_on
         n_events = 0
         while events:
             t, _, kind, payload = heappop(events)
             self.now = t
             n_events += 1
             if kind == "xfer":
-                ctx, name, mem = payload
+                ctx, name, mem, epoch = payload
                 inflight = ctx.inflight
                 flights = inflight.get(name)
                 if flights is not None:
@@ -435,11 +556,19 @@ class Engine:
                 if bounded and mem != HOST_MEM:
                     memory.release(ctx, name, mem)
                     did = ctx.arrays.name_to_id.get(name)
+                if faults_on and mem != HOST_MEM and (
+                        mem in faults.dead_mems or epoch != faults.mem_epoch.get(mem, 0)):
+                    # the destination detached while this copy was in
+                    # flight: the copy died with it (its waiters were
+                    # scrubbed at the detach)
+                    if audit is not None:
+                        audit.log_landing(ctx.gid, name, mem, t, False, "dead")
+                else:
                     if did is not None and not (ctx.residency.mask_list[did] & (1 << (mem + 1))):
                         memory.ensure_capacity(mem, ctx.residency._sizes[did], t, ctx, (did,))
-                ctx.residency.add_copy(name, mem)
-                if audit is not None:
-                    audit.log_landing(ctx.gid, name, mem, t, True, "ok")
+                    ctx.residency.add_copy(name, mem)
+                    if audit is not None:
+                        audit.log_landing(ctx.gid, name, mem, t, True, "ok")
                 waiters = ctx.waiting.pop((name, mem), None)
                 if waiters:
                     for rid in waiters:
@@ -457,9 +586,16 @@ class Engine:
                                 self._try_start(w)
                 if steal_on:
                     self._steal_round()
-            else:  # "done"
-                rid, ctx, tid, dur = payload
-                self._complete(rid, ctx, tid, dur)
+            elif kind == "done":
+                rid, ctx, tid, dur, att = payload
+                # a stale attempt is an execution aborted by a kill-mode
+                # detach: the task was re-activated elsewhere
+                if att == ctx.attempt[tid]:
+                    self._complete(rid, ctx, tid, dur)
+            else:  # "fault"
+                action, rid, mode = payload
+                faults_on = True
+                faults.handle(self, action, rid, mode)
         self.metrics.n_events = n_events
         if audit is not None:
             audit.finalize(self)
@@ -491,5 +627,13 @@ class Engine:
                 total_flops=ctx.graph.total_flops(),
                 n_events=self.metrics.n_events,
                 n_steals=self.metrics.n_steals,
+                faults=self.fault_summary(),
             ))
         return out
+
+    def fault_summary(self) -> Optional[Dict[str, float]]:
+        """The fault counters of a run with a fault source or flaky links
+        (``SimResult.faults``); None otherwise."""
+        if self._faults_on or self._flake_on:
+            return self.metrics.fault_summary()
+        return None

@@ -22,12 +22,13 @@ predicted eviction bytes a placement would force, as seconds over the
 link), folded into the transfer rows by HEFT and DADA+CP and added to
 every score matrix by :class:`repro_torch.sched.ScoreMatrixPolicy`.
 
-The reference's fault branches of :func:`pressure_rows_for` (the +inf
-mask over detached resources, the preemption-notice penalty) come with
-the port's fault-injected runtime; this engine has no faults. A capacity
-too small for the workload raises with the reference's byte counts; the
-message names the ``mem_capacity`` argument, where the reference names
-its environment variable.
+Faults (:mod:`repro_torch.runtime.faults`) surface through the same
+signal: :func:`pressure_rows_for` masks a detached resource's column to
++inf and adds the remaining notice window to a noticed one. A detach
+forgets the dead memory's reservations (:meth:`MemoryManager.drop_mem`).
+A capacity too small for the workload raises with the reference's byte
+counts; the message names the ``mem_capacity`` argument, where the
+reference names its environment variable.
 """
 from __future__ import annotations
 
@@ -47,19 +48,47 @@ def predicted_eviction_bytes(resident_bytes, incoming_bytes, capacity):
     return np.maximum(0.0, np.asarray(incoming_bytes, dtype=np.float64) - free)
 
 
-def pressure_rows_for(sim, tids: Sequence[int], resources) -> Optional[np.ndarray]:
-    """The (ready × resources) memory-pressure penalty for a simulation,
-    or ``None`` when its device memories are unbounded.
+def pressure_rows_for(
+    sim, tids: Sequence[int], resources, fault_mask: bool = True
+) -> Optional[np.ndarray]:
+    """The (ready × resources) pressure penalty for a simulation, or
+    ``None`` when its device memories are unbounded and no resource is
+    detached or noticed.
 
     The one lookup every consumer goes through: the
     ``ScoreMatrixPolicy.pressure_matrix`` hook, HEFT's and DADA+CP's
-    transfer-row fold and the ``score_matrix`` views."""
+    transfer-row fold and the ``score_matrix`` views. On top of the
+    memory pressure, a detached resource's column is +inf, so every
+    consumer avoids dead devices through the channel it already reads,
+    and a noticed resource's column (a detach announced, not yet fired)
+    gets the remaining window, ``max(0, death_at - now)``: finite, and
+    decaying to nothing at the death. ``fault_mask=False`` leaves both
+    out, for DADA, which takes the dead and noticed resources as inputs
+    of its search (an +inf row would poison its bound)."""
     memory = getattr(sim, "memory", None)
-    if memory is None or not memory.bounded:
-        return None
-    return memory.pressure_rows(
-        sim.arrays, tids, [r.mem for r in resources], sim.residency, sim.transfer_model
-    )
+    rows = None
+    if memory is not None and memory.bounded:
+        rows = memory.pressure_rows(
+            sim.arrays, tids, [r.mem for r in resources], sim.residency, sim.transfer_model
+        )
+    if fault_mask:
+        faults = getattr(sim, "faults", None)
+        if faults is not None and faults.any_dead:
+            if rows is None:
+                rows = np.zeros((len(tids), len(resources)), dtype=np.float64)
+            dead = faults.dead_rids
+            for j, r in enumerate(resources):
+                if r.rid in dead:
+                    rows[:, j] = np.inf
+        if faults is not None and faults.noticed:
+            if rows is None:
+                rows = np.zeros((len(tids), len(resources)), dtype=np.float64)
+            now = sim.now
+            for j, r in enumerate(resources):
+                pending = faults.noticed.get(r.rid)
+                if pending is not None:
+                    rows[:, j] += max(0.0, pending[1] - now)
+    return rows
 
 
 def fold_pressure(X, P: Optional[np.ndarray]):
@@ -209,6 +238,15 @@ class MemoryManager:
         size = self._reservations.pop((ctx, name, mem), None)
         if size is not None:
             self._reserved[mem] -= size
+
+    def drop_mem(self, mem: int) -> None:
+        """Forget every reservation toward ``mem``: its device detached, so
+        the copies in flight there are dropped at landing, and their space
+        claims must not outlive a re-attach."""
+        for key in [k for k in self._reservations if k[2] == mem]:
+            del self._reservations[key]
+        if mem in self._reserved:
+            self._reserved[mem] = 0
 
     # ------------------------------------------------------------------
     # eviction

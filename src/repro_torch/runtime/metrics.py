@@ -2,12 +2,14 @@
 
 One :class:`Metrics` instance per engine accumulates the machine-global
 counters (transferred bytes, transfer/steal/event counts, per-worker busy
-time, the interval timeline) and, under a memory capacity, the
-evictions and their write-back traffic."""
+time, the interval timeline), under a memory capacity the evictions and
+their write-back traffic, and under faults (:mod:`repro_torch.runtime.faults`)
+or flaky links the recovery counters, which :func:`recovery_report` reads
+against a fault-free baseline."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from ..core.machine import MachineModel
 
@@ -31,6 +33,9 @@ class SimResult:
     total_flops: float
     n_events: int = 0
     n_steals: int = 0
+    # the fault and recovery counters (Metrics.fault_summary); None unless
+    # a fault source or flaky links were on
+    faults: Optional[Dict[str, float]] = None
 
     @property
     def gflops(self) -> float:
@@ -49,6 +54,10 @@ class Metrics:
     __slots__ = (
         "total_bytes", "n_transfers", "n_steals", "n_events", "busy", "intervals",
         "n_evictions", "n_writebacks", "writeback_bytes",
+        "n_detaches", "n_attaches", "n_killed", "n_requeued",
+        "n_evacuations", "evacuated_bytes", "wasted_s",
+        "n_notices", "n_proactive", "proactive_bytes",
+        "n_retries", "n_timeouts", "retry_delay_s",
     )
 
     def __init__(self, machine: MachineModel) -> None:
@@ -62,3 +71,59 @@ class Metrics:
         self.n_evictions = 0
         self.n_writebacks = 0
         self.writeback_bytes = 0
+        # faults and recovery (repro_torch.runtime.faults)
+        self.n_detaches = 0
+        self.n_attaches = 0
+        self.n_killed = 0  # running tasks aborted (kill and requeue)
+        self.n_requeued = 0  # tasks re-activated off dead workers
+        self.n_evacuations = 0  # sole copies salvaged to host at a detach
+        self.evacuated_bytes = 0
+        self.wasted_s = 0.0  # partial executions discarded by kills
+        # preemption notices and flaky-link retries
+        self.n_notices = 0
+        self.n_proactive = 0  # sole copies replicated inside a notice window
+        self.proactive_bytes = 0
+        self.n_retries = 0  # failed hops retried with backoff
+        self.n_timeouts = 0  # retry budget exhausted: re-sourced
+        self.retry_delay_s = 0.0  # total backoff delay
+
+    def fault_summary(self) -> Dict[str, float]:
+        """The fault counters as a plain dict (``SimResult.faults``)."""
+        return {
+            "n_detaches": self.n_detaches,
+            "n_attaches": self.n_attaches,
+            "n_killed": self.n_killed,
+            "n_requeued": self.n_requeued,
+            "n_evacuations": self.n_evacuations,
+            "evacuated_bytes": self.evacuated_bytes,
+            "wasted_s": self.wasted_s,
+            "n_notices": self.n_notices,
+            "n_proactive": self.n_proactive,
+            "proactive_bytes": self.proactive_bytes,
+            "n_retries": self.n_retries,
+            "n_timeouts": self.n_timeouts,
+            "retry_delay_s": self.retry_delay_s,
+        }
+
+
+def recovery_report(faulted: SimResult, baseline: SimResult) -> Dict[str, float]:
+    """Recovery metrics of a faulted run against its fault-free baseline
+    (same graph, machine, strategy and seed): the makespan and bytes the
+    faults cost (``recovery_makespan``, claim C8; ``extra_bytes``, the
+    evacuations and the re-transfers included), the slowdown, and the
+    faulted run's counters, with the evacuated bytes also under
+    ``reactive_evacuated_bytes`` (salvage at death, beside
+    ``proactive_bytes``: replication inside a notice window)."""
+    out: Dict[str, float] = {
+        "makespan": faulted.makespan,
+        "baseline_makespan": baseline.makespan,
+        "recovery_makespan": faulted.makespan - baseline.makespan,
+        "slowdown": (
+            faulted.makespan / baseline.makespan if baseline.makespan > 0 else float("inf")
+        ),
+        "extra_bytes": faulted.total_bytes - baseline.total_bytes,
+    }
+    if faulted.faults:
+        out.update(faulted.faults)
+        out["reactive_evacuated_bytes"] = faulted.faults.get("evacuated_bytes", 0)
+    return out

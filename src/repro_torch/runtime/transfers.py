@@ -19,18 +19,40 @@ destination is reserved before the hop is scheduled, so any eviction
 write-back the reservation triggers queues ahead of the incoming copy on
 the same link. Unbounded runs never reach the hook.
 
+Faults (:mod:`repro_torch.runtime.faults`, wired by the engine as
+``faults``): each request records the destination memory's detach epoch
+in its landing event, and a landing whose epoch is stale is dropped (the
+copy died with the device).
+
+Flaky links (:meth:`TransferEngine.enable_flake`, the engine's
+``link_flake`` > 0): each demand hop fails with a seeded probability. A
+failed hop held the link and is retried with capped exponential backoff
+(``backoff_s``, doubling an attempt, capped at 64 times); past
+``retry_max`` retries the transfer times out and is re-sourced, one final
+reliable hop. Every attempt occupies the link and is charged as traffic.
+The failures are drawn from a generator of their own, so a run without
+flaky links consumes nothing of it.
+
 With an audit log attached (``audit``, wired by the engine), every hop is
-logged with its kind (``copy``, or ``writeback`` for a dirty eviction)
-and every request notes its time, so the landing record can carry it.
+logged with its kind (``copy``; ``writeback`` for a dirty eviction;
+``evacuate`` and ``proactive`` for a fault's salvage; ``retry`` and
+``resource`` for a flaky hop's attempts) and every request notes its
+time, so the landing record can carry it.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
+
 from ..core.machine import HOST_MEM, MachineModel
 
 from .events import EventQueue
 from .metrics import Metrics
+
+# the flake generator's stream key, disjoint from the engine's noise stream
+# and the churn stream for every engine seed
+_FLAKE_STREAM = 0xF1A4E
 
 
 class TransferEngine:
@@ -38,7 +60,7 @@ class TransferEngine:
 
     __slots__ = (
         "events", "metrics", "mem_link", "link_free", "_link_lat", "_link_bw", "audit",
-        "memory",
+        "memory", "faults", "flake_rate", "retry_max", "backoff_s", "_flake_rng", "_flake_on",
     )
 
     def __init__(
@@ -56,6 +78,13 @@ class TransferEngine:
         self._link_bw = machine.link.bandwidth
         self.audit = None  # repro_torch.verify AuditLog, wired by the engine
         self.memory = None  # MemoryManager, wired by the engine when bounded
+        self.faults = None  # FaultManager, wired by the engine
+        # flaky links (inert until enable_flake)
+        self.flake_rate = 0.0
+        self.retry_max = 0
+        self.backoff_s = 0.0
+        self._flake_rng: Optional[np.random.Generator] = None
+        self._flake_on = False
 
     def one_hop(self, nbytes: int, group: Optional[int], t: float, kind: str = "copy") -> float:
         """Serialize the transfer on its link group (FIFO = shared bandwidth)."""
@@ -69,6 +98,55 @@ class TransferEngine:
         if self.audit is not None:
             self.audit.log_hop(kind, nbytes, group, t, done)
         return done
+
+    def enable_flake(self, rate: float, retry_max: int, backoff_s: float, seed: int) -> None:
+        """Arm the seeded per-hop failure model (the engine calls this when
+        ``link_flake`` > 0)."""
+        if not (0.0 <= rate <= 1.0):
+            raise ValueError(f"flake rate must be in [0, 1], got {rate}")
+        if retry_max < 0:
+            raise ValueError(f"retry_max must be >= 0, got {retry_max}")
+        if backoff_s < 0:
+            raise ValueError(f"backoff_s must be >= 0, got {backoff_s}")
+        self.flake_rate = float(rate)
+        self.retry_max = int(retry_max)
+        self.backoff_s = float(backoff_s)
+        self._flake_rng = np.random.default_rng((int(seed) & 0xFFFFFFFF, _FLAKE_STREAM))
+        self._flake_on = self.flake_rate > 0.0
+
+    def _flaky_hop(self, ctx, name: str, nbytes: int, group: Optional[int], t: float,
+                   dst_mem: int) -> float:
+        """One demand hop under the flake model: retry with capped
+        exponential backoff, re-source on timeout. The whole chain is
+        priced at once (``one_hop`` occupies the link eagerly); only the
+        final landing is posted."""
+        done = self.one_hop(nbytes, group, t)
+        attempt = 0
+        rng = self._flake_rng
+        rate = self.flake_rate
+        metrics = self.metrics
+        while rng.random() < rate:
+            if attempt >= self.retry_max:
+                # the retry budget is spent: the transfer times out and is
+                # re-sourced, one final reliable hop
+                metrics.n_timeouts += 1
+                if self.audit is not None:
+                    self.audit.log_timeout(ctx.gid, name, dst_mem, done, attempt + 1, nbytes)
+                return self.one_hop(nbytes, group, done, kind="resource")
+            attempt += 1
+            delay = min(self.backoff_s * (2.0 ** (attempt - 1)), self.backoff_s * 64.0)
+            metrics.n_retries += 1
+            metrics.retry_delay_s += delay
+            if self.audit is not None:
+                self.audit.log_retry(ctx.gid, name, dst_mem, done, attempt, delay, nbytes)
+            done = self.one_hop(nbytes, group, done + delay, kind="retry")
+        return done
+
+    def _hop(self, ctx, name: str, size: int, group: Optional[int], t: float,
+             dst_mem: int) -> float:
+        if self._flake_on:
+            return self._flaky_hop(ctx, name, size, group, t, dst_mem)
+        return self.one_hop(size, group, t)
 
     def request(
         self, ctx, name: str, size: int, dst_mem: int, now: float, protect=None
@@ -95,32 +173,36 @@ class TransferEngine:
             # reserve destination space first: eviction write-backs queue
             # on the link ahead of this copy
             self.memory.reserve(ctx, name, size, dst_mem, now, protect)
+        # the destination memory's detach epoch: 0 while no fault source is
+        # active (the host never detaches, so host hops carry 0)
+        faults = self.faults
+        epoch = faults.mem_epoch.get(dst_mem, 0) if faults is not None and faults.active else 0
         mem_link = self.mem_link
         post = self.events.post
         if (mask & 1) and dst_mem != HOST_MEM:
             # a host copy exists: single host->device hop
-            done = self.one_hop(size, mem_link.get(dst_mem), now)
+            done = self._hop(ctx, name, size, mem_link.get(dst_mem), now, dst_mem)
         elif dst_mem == HOST_MEM:
             src = (mask & -mask).bit_length() - 2  # lowest-numbered location
-            done = self.one_hop(size, mem_link.get(src), now)
+            done = self._hop(ctx, name, size, mem_link.get(src), now, HOST_MEM)
         else:
             # GPU -> host -> GPU (two hops, paper-era PCIe path)
             src = (mask & -mask).bit_length() - 2
             if flights is not None and HOST_MEM in flights:
                 mid = flights[HOST_MEM]
             else:
-                mid = self.one_hop(size, mem_link.get(src), now)
+                mid = self._hop(ctx, name, size, mem_link.get(src), now, HOST_MEM)
                 if flights is None:
                     flights = inflight[name] = {}
                 flights[HOST_MEM] = mid
-                post(mid, "xfer", (ctx, name, HOST_MEM))
+                post(mid, "xfer", (ctx, name, HOST_MEM, 0))
                 if self.audit is not None:
                     self.audit.note_request(ctx.gid, name, HOST_MEM, mid, now)
-            done = self.one_hop(size, mem_link.get(dst_mem), mid)
+            done = self._hop(ctx, name, size, mem_link.get(dst_mem), mid, dst_mem)
         if flights is None:
             flights = inflight[name] = {}
         flights[dst_mem] = done
-        post(done, "xfer", (ctx, name, dst_mem))
+        post(done, "xfer", (ctx, name, dst_mem, epoch))
         if self.audit is not None:
             self.audit.note_request(ctx.gid, name, dst_mem, done, now)
         return done

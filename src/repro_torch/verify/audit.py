@@ -16,9 +16,9 @@ consuming it shares no code with the engines it checks.
 
 The JSONL schema (:meth:`AuditLog.to_jsonl`) is that of ``repro.verify``
 field for field, so a log written by either package reads in the other.
-The records for evictions, faults, notices, retries, timeouts, arrivals,
-admits and rejects have no producer in the port's engine yet; they are
-kept so that logs of such runs read and verify here.
+The records for arrivals, admits and rejects have no producer in the
+port's engine yet (it has no serving mode); they are kept so that logs
+of such runs read and verify here.
 
 Every record carries a monotonically increasing ``seq`` assigned in log
 order.  Engines process same-timestamp events in a deterministic order;
@@ -411,11 +411,8 @@ class AuditLog:
             "total_bytes": int(engine.metrics.total_bytes),
             "n_transfers": int(engine.metrics.n_transfers),
             "makespan": float(engine.now),
-            # the port's links never fail, so its Metrics count no
-            # retries or timeouts: 0 is what the reference writes for a
-            # run without flaky links
-            "n_retries": 0,
-            "n_timeouts": 0,
+            "n_retries": int(engine.metrics.n_retries),
+            "n_timeouts": int(engine.metrics.n_timeouts),
             "per_graph": per_graph,
         }
 

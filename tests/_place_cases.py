@@ -84,11 +84,69 @@ MID_ROUND = [(seed, max_iters, eps_rel) for max_iters in range(2, 8)
     (seed, 30, eps_rel) for eps_rel in (0.02, 0.05, 0.1, 0.2, 0.45) for seed in (7, 19, 23)]
 
 
+LIVE_KEYS = ("pen", "skip", "n_alive", "pen_top")
+
+
 def plain_kwargs(case):
     keys = ("C", "S", "x_max", "p_cpu", "p_gpu", "tids", "flex_order", "offsets", "max_off",
             "sum_max", "area", "off_total", "alpha", "eps_rel", "max_iters", "area_bound",
             "cpu_rids", "gpu_rids")
-    return {k: case[k] for k in keys}
+    return {k: case[k] for k in keys + LIVE_KEYS if k in case}
+
+
+# liveness patterns of live_case: which resource positions are detached and
+# which are noticed (a detach announced, not yet fired)
+LIVE_KINDS = ("dead0", "one_gpu", "one_cpu", "noticed", "dead_noticed")
+
+
+def live_case(seed, kind, n=None, accel=None, **kw):
+    """A seeded DADA activation on a machine that has lost resources, as
+    DADA's host side packs it (repro_torch/core/dada.py, the reference's
+    scalar path repro/core/dada.py:132-155, 282-310, 444-447):
+
+    * ``dead0``: resource 0 detached;
+    * ``one_gpu`` / ``one_cpu``: every GPU (CPU) detached but one;
+    * ``noticed``: one or two resources noticed, under recover;
+    * ``dead_noticed``: one detached and one noticed.
+
+    The detached resources leave the CPU and GPU lists and their backlogs
+    count 0 (max_off and off_total follow); the preference scan skips
+    them and the noticed ones; a noticed column pays its remaining window
+    (``pen``, a multiple of 1/8, or 1e-3 for a window about to close);
+    the area bound counts the alive resources; the upper bound adds n
+    times the largest penalty. ``kw``: dada_case's other choices."""
+    if accel is None:
+        accel = MACHINES["both"] if kind in ("one_gpu", "one_cpu") else MACHINES[
+            ("both", "cpu", "gpu")[seed % 3]]
+    case = dada_case(seed, n=n, accel=accel, **kw)
+    rng = np.random.default_rng(50_000 + seed)
+    n_res = len(accel)
+    cpus = [j for j, a in enumerate(accel) if not a]
+    gpus = [j for j, a in enumerate(accel) if a]
+    dead, noticed = set(), set()
+    if kind == "dead0":
+        dead = {0}
+    elif kind == "one_gpu":
+        dead = set(gpus) - {gpus[int(rng.integers(len(gpus)))]}
+    elif kind == "one_cpu":
+        dead = set(cpus) - {cpus[int(rng.integers(len(cpus)))]}
+    elif kind == "noticed":
+        noticed = set(rng.choice(n_res, size=1 + seed % 2, replace=False).tolist())
+    else:
+        dead_j, note_j = rng.choice(n_res, size=2, replace=False).tolist()
+        dead, noticed = {dead_j}, {note_j}
+    pen = [0.0] * n_res
+    for j in noticed:
+        pen[j] = 1e-3 if seed % 5 == 0 else float(rng.integers(1, 24)) / 8.0
+    offsets = [0.0 if j in dead else o for j, o in enumerate(case["offsets"])]
+    case.update(
+        offsets=offsets, max_off=max(offsets),
+        off_total=sum(offsets) if case["area_bound"] else 0.0,
+        cpu_rids=[j for j in cpus if j not in dead], gpu_rids=[j for j in gpus if j not in dead],
+        pen=pen, skip=[j in dead or j in noticed for j in range(n_res)],
+        n_alive=n_res - len(dead), pen_top=case["n"] * max(pen) if noticed else 0.0,
+    )
+    return case
 
 
 def heft_case(seed, n=None, n_res=None):
@@ -119,9 +177,10 @@ def packed_dada(case):
     n, n_res = case["n"], len(case["accel"])
     score = ss.ScoreSpec(n=n, nnz_r=0, nnz_w=0, n_u=1, n_res=n_res, want_x=case["use_cp"],
                          want_s=case["S"] is not None, want_c=True)
+    live = "pen" in case
     layout = sp.place_layout(sp.PlaceSpec("dada", n, n_res, n_cpu=len(case["cpu_rids"]),
                                           n_gpu=len(case["gpu_rids"]),
-                                          area_bound=case["area_bound"]), score)
+                                          area_bound=case["area_bound"], live=live), score)
     buf = np.zeros(layout.n_in, dtype=np.int64)
     empty = (np.zeros(n + 1, dtype=np.int64), np.zeros(0, dtype=np.int64), np.zeros(0))
     ss.pack_activation(buf[:layout.score.n_in], layout.score,
@@ -130,7 +189,7 @@ def packed_dada(case):
                        p_cpu=case["p_cpu"], p_gpu=case["p_gpu"])
     sp.pack_dada(buf, layout, **{k: case[k] for k in (
         "offsets", "flex_order", "tids", "max_off", "sum_max", "area", "off_total", "alpha",
-        "eps_rel", "max_iters", "cpu_rids", "gpu_rids")})
+        "eps_rel", "max_iters", "cpu_rids", "gpu_rids") + (LIVE_KEYS if live else ())})
     scores = np.zeros(layout.score.n_out)
     mats = ss.unpack_outputs(scores, layout.score)
     mats["C"][:] = case["C"]
@@ -139,6 +198,26 @@ def packed_dada(case):
     if case["use_cp"]:
         mats["X_max"][:] = case["x_max"]
     return layout, torch.from_numpy(buf), torch.from_numpy(scores)
+
+
+def live_heft_case(seed, dead=(0,), noticed=(), n=None, n_res=None):
+    """A seeded HEFT activation on a machine that has lost resources: the
+    X columns of the ``dead`` positions (modulo n_res) are +inf and the
+    ``noticed`` ones pay a notice penalty, as HEFT's pressure fold gives
+    them through the scorer's ``x_bias`` (``x + p``)."""
+    case = heft_case(seed, n=n, n_res=n_res)
+    rng = np.random.default_rng(60_000 + seed)
+    n_res = len(case["load_ts"])
+    dead = [j % n_res for j in dead]
+    X = case["X"]
+    for j in noticed:
+        p = float(rng.integers(1, 16)) / 64.0
+        for row in X:
+            row[j % n_res] = row[j % n_res] + p
+    for row in X:
+        for j in dead:
+            row[j] = row[j] + float("inf")
+    return case
 
 
 def packed_heft(case):

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from _episode_cases import FIGURE_SPECS, case_graph, cases, configs, plan_and_batch, tile_graph
-from _place_cases import MACHINES, MID_ROUND, dada_case, heft_case, packed_dada, packed_heft
+from _place_cases import (LIVE_KINDS, MACHINES, MID_ROUND, dada_case, heft_case, live_case,
+                          live_heft_case, packed_dada, packed_heft)
 from repro_torch.core import episode as ep
 from repro_torch.core import run_batch
 from repro_torch.kernels import sched_episode as se
@@ -905,17 +906,100 @@ def test_cuda_place_plan_matches_the_launcher(cuda):
     for n in (1, 8, 37, 128, 512, 1000, 1500, 2000, 4000, 8000, 12885, 12886):
         for n_res, n_cpu in ((2, 2), (12, 4), (14, 6), (33, 11), (65, 20), (129, 43), (256, 0),
                              (257, 0)):
-            spec = sp.PlaceSpec("dada", n, n_res, n_cpu=n_cpu, n_gpu=n_res - n_cpu)
-            err = sp._lib.repro_place_plan(0, n, n_res, n_cpu, n_res - n_cpu, 0, got)
-            assert (err == 0) == spec.fits_kernel, spec
-            if err == 0:
-                assert tuple(got[:3]) == spec.plan and got[3] == 32 * ((1 << spec.plan[0]) - 1)
+            for live in (False, True):
+                spec = sp.PlaceSpec("dada", n, n_res, n_cpu=n_cpu, n_gpu=n_res - n_cpu, live=live)
+                err = sp._lib.repro_place_plan(0, n, n_res, n_cpu, n_res - n_cpu, 0, int(live),
+                                               got)
+                assert (err == 0) == spec.fits_kernel, spec
+                if err == 0:
+                    assert tuple(got[:3]) == spec.plan
+                    assert got[3] == 32 * ((1 << spec.plan[0]) - 1)
         for n_res in (1, 14, 440, 512, 513):
             spec = sp.PlaceSpec("heft", n, n_res, n_cls=2)
-            err = sp._lib.repro_place_plan(1, n, n_res, 0, 0, 2, got)
+            err = sp._lib.repro_place_plan(1, n, n_res, 0, 0, 2, 0, got)
             assert (err == 0) == spec.fits_kernel, spec
             if err == 0:
                 assert tuple(got[:3]) == spec.plan and got[3] == sp.HEFT_THREADS
+
+
+@pytest.mark.parametrize("n", [1, 37, 128, 1500])
+@pytest.mark.parametrize("kind", LIVE_KINDS)
+def test_cuda_dada_place_liveness_equals_plain(cuda, kind, n):
+    """A machine that lost resources: a dead rid 0, every GPU or every CPU
+    dead but one, noticed columns paying their window, a dead and a
+    noticed one; ±CP, ±area bound; C staged (n up to 128) and read from
+    global memory (n 1 500): the kernel equals the plain version bit for
+    bit and places nothing on a dead rid."""
+    for seed in range(12 if n < 1500 else 3):
+        accel = PLACE_MACHINES["paper"] if seed % 2 and kind not in ("one_gpu", "one_cpu") else None
+        case = live_case(seed, kind, n=n, accel=accel,
+                         area_bound=bool(seed % 3 == 1) if seed % 4 else None)
+        got = _dada_equals_plain(cuda, case)
+        assert got.status == sp.STATUS_OK
+        dead = {j for j, sk in enumerate(case["skip"]) if sk and case["pen"][j] == 0.0}
+        assert not dead & set(got.rids)
+
+
+@pytest.mark.parametrize("dead,noticed", [((0,), ()), ((0, 2), (1,)), ((), (0, 3)),
+                                          ((1, 3, 4, 5, 6), ())])
+@pytest.mark.parametrize("n_res", [3, 14, 40, 70])
+def test_cuda_heft_select_with_dead_columns_equals_plain(cuda, n_res, dead, noticed):
+    """+inf transfer columns (detached resources) and notice penalties:
+    heft_fold's fast path stays exact (order_key(+inf) below kNoKey, a
+    dead rid 0 never taken), equal to the plain scan bit for bit."""
+    for seed in range(6):
+        case = live_heft_case(seed, dead=dead, noticed=noticed, n=(1, 37, 128)[seed % 3],
+                              n_res=n_res)
+        layout, buf, scores = packed_heft(case)
+        want = sp.heft_select(buf, scores, layout)
+        got = sp.heft_select(buf.to(cuda), scores.to(cuda), layout)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (n_res, dead, noticed, seed)
+
+
+@pytest.mark.parametrize("spec", ["heft", "dada?alpha=0.5&use_cp=1",
+                                  "dada?alpha=0.5&use_cp=1&recover=1", "ws", "locality"])
+@pytest.mark.parametrize("mode", ["drain", "kill"])
+def test_cuda_faulted_run_equals_cpu(cuda, spec, mode):
+    """Two GPUs lost and one back, each detach noticed ahead: the card's
+    run, fault counters and audit log equal the CPU's, and every activation
+    is one scoring launch plus one placement launch (HEFT, DADA), dead or
+    noticed resources present."""
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.core import Simulator
+    from repro_torch.sched import resolve
+    from repro_torch.verify import errors, verify_audit
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        strat = resolve(spec) if spec == "ws" else resolve(spec, device=dev)
+        sim = Simulator(tile_graph("cholesky", 8), paper_machine(4), strat, seed=3, noise=0.0,
+                        audit=True, notice_s=0.002)
+        gpus = [r.rid for r in sim.machine.gpus]
+        for event, rid, at in (("detach", gpus[0], 0.004), ("detach", gpus[1], 0.006),
+                               ("attach", gpus[0], 0.01)):
+            sim.inject(event, rid, at=at, mode=mode if event == "detach" else None)
+        before = (port.score_activation.launches, sp.dada_place.launches,
+                  sp.heft_select.launches, sp.dada_place_plain.calls + sp.heft_select_plain.calls)
+        res = sim.run()
+        torch.cuda.synchronize()
+        after = (port.score_activation.launches, sp.dada_place.launches,
+                 sp.heft_select.launches, sp.dada_place_plain.calls + sp.heft_select_plain.calls)
+        out[dev] = (sim, res, [a - b for a, b in zip(after, before)])
+        assert errors(verify_audit(sim.audit)) == []
+    (sim, res, card), (cpu_sim, cpu_res, cpu) = out["cuda"], out["cpu"]
+    assert [(iv.tid, iv.rid, iv.start, iv.end) for iv in res.intervals] == [
+        (iv.tid, iv.rid, iv.start, iv.end) for iv in cpu_res.intervals]
+    assert (res.makespan, res.total_bytes, res.faults) == (
+        cpu_res.makespan, cpu_res.total_bytes, cpu_res.faults)
+    assert res.faults["n_detaches"] == 2 and res.faults["n_notices"] == 2
+    assert cpu[:3] == [0, 0, 0] and card[3] == 0
+    if spec == "ws":
+        assert card == [0, 0, 0, 0]
+    elif spec == "locality":
+        assert card[0] > 0 and card[1:] == [0, 0, 0]
+    else:
+        assert card[0] == card[1] + card[2] > 0
 
 
 def test_cuda_dada_place_reports_an_infeasible_upper_bound(cuda):

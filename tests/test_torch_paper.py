@@ -80,6 +80,41 @@ def test_run_many_seeds_and_noise_pass_through():
     assert got.row() == want.row()
 
 
+@pytest.mark.parametrize("spec", ["heft", "ws", "dada?alpha=0.5&use_cp=1"])
+def test_run_many_audit_equals_reference(spec, monkeypatch):
+    """``run_many(audit=True)`` re-checks every run with the verifier and
+    summarizes as the reference does under its audit switch, and as the
+    port does with the audit off."""
+    from repro_torch.core import api
+
+    monkeypatch.setenv("REPRO_SCHED_AUDIT", "1")  # the reference's switch
+    want = ref_run_many(partial(ref_lu_graph, 4, 256, with_fns=False), ref_paper_machine(3),
+                        partial(ref_strategy, spec), n_runs=2, n_jobs=1)
+    checked, verify = [], api.verify_audit
+    monkeypatch.setattr(api, "verify_audit",
+                        lambda log: checked.append(len(log.execs)) or verify(log))
+    factory = partial(lu_graph, 4, 256, with_fns=False)
+    got = run_many(factory, paper_machine(3), partial(common.strategy_for, spec, "cpu"), n_runs=2,
+                   audit=True)
+    assert checked == [len(factory())] * 2  # both runs' logs, whole
+    assert fields(got) == fields(want)
+    assert fields(got) == fields(run_many(factory, paper_machine(3),
+                                          partial(common.strategy_for, spec, "cpu"), n_runs=2))
+
+
+def test_sweep_audits_the_exact_engine_and_the_surrogate_refuses(capsys):
+    got = common.sweep_summaries("cholesky", {"heft": "heft"}, 2, [2], device="cpu", nt=SWEEP_NT,
+                                 tile=256, audit=True)
+    assert got == common.sweep_summaries("cholesky", {"heft": "heft"}, 2, [2], device="cpu",
+                                         nt=SWEEP_NT, tile=256)
+    with pytest.raises(ValueError, match="audit"):
+        common.sweep_summaries("cholesky", {"heft": "heft"}, 2, [2], engine="surrogate",
+                               device="cpu", nt=SWEEP_NT, tile=256, audit=True)
+    with pytest.raises(SystemExit) as e:
+        pv.main(["--engine", "surrogate", "--audit", "--device", "cpu"])
+    assert e.value.code == 2 and "--audit" in capsys.readouterr().err
+
+
 def test_single_run_has_no_interval():
     got = run_many(partial(cholesky_graph, 4, 256, with_fns=False), paper_machine(2),
                    partial(common.strategy_for, "heft", "cpu"), n_runs=1)
@@ -294,5 +329,7 @@ def test_main_prints_rows_claims_and_walls(capsys, monkeypatch):
     for claim in ("C1", "C2", "C3", "C4", "C5", "C6"):
         assert f"] {claim} " in out
     assert "] C7 " in out and "verifier errors 0" in out  # C7 runs on the exact engine
-    assert "configs/s" in out and "fig4_qr: wall" in out and "(C8 and the verifier rows" in out
+    assert "configs/s" in out and "fig4_qr: wall" in out
+    # C8 and the two verifier rows run on the exact engine too
+    assert "] C8 " in out and out.count("] CV ") == 2 and "C8 and CV" in out
     assert rc == (1 if "[FAIL]" in out else 0)

@@ -14,7 +14,9 @@ tolerance is exact: λ, rids, loads and finish times compare with ``==``.
 
 Also here: the final build at λ against the reference's host
 ``try_build`` (the function it replaces, copied below from
-``repro/core/dada.py``), the packed placement section's round trip, the
+``repro/core/dada.py``), the liveness inputs (dead and noticed
+resources) against the reference's scalar path (its preferences, cost
+rows, area bound and serial bisection, copied below likewise), the packed placement section's round trip, the
 wrappers on CPU tensors against the plain versions, the buffer the
 backend packs for the card against its CPU placement, and the refusals. (The CUDA kernels are held against
 the plain versions in test_torch_cuda.py.)"""
@@ -25,11 +27,14 @@ import pytest
 import torch
 
 from _place_cases import (
+    LIVE_KINDS,
     MACHINES,
     MID_ROUND,
     TINY,
     dada_case,
     heft_case,
+    live_case,
+    live_heft_case,
     packed_dada,
     packed_heft,
     plain_kwargs,
@@ -62,19 +67,35 @@ def ref_backend():
 # --- the reference's host side, as repro/core/dada.py computes it -------------
 
 
+def ref_cost_rows(case):
+    """C as the scalar path forms it: a noticed column pays its remaining
+    window after C is formed (repro/core/dada.py:203-208)."""
+    C_rows = [list(row) for row in case["C"]]
+    for j, p in enumerate(case.get("pen") or ()):
+        if p > 0.0:
+            for row in C_rows:
+                row[j] += p
+    return C_rows
+
+
 def ref_by_score(case):
-    """The preferences (repro/core/dada.py:188-206, the scalar path)."""
+    """The preferences (repro/core/dada.py:253-277, the scalar path): the
+    scan skips the detached and, under recover, the noticed columns."""
     pref = []
+    skip = case.get("skip") or [False] * len(case["offsets"])
+    C_rows = ref_cost_rows(case)
     if case["alpha"] > 0.0:
         for i, row in enumerate(case["S"].tolist()):
             if not any(row):
                 continue
             best_score, best_rid = 0.0, -1
             for rid in range(len(row)):
+                if skip[rid]:
+                    continue
                 if row[rid] > best_score + TINY:
                     best_score, best_rid = row[rid], rid
             if best_rid >= 0:
-                pref.append((best_score, case["tids"][i], best_rid, case["C"][i][best_rid]))
+                pref.append((best_score, case["tids"][i], best_rid, C_rows[i][best_rid]))
     return sorted(pref, key=lambda x: (-x[0], x[1]))
 
 
@@ -87,8 +108,9 @@ def ref_upper(case):
 
 
 def ref_try_build(case, lam):
-    """``try_build`` of repro/core/dada.py:330-450 (no resource detached)."""
-    p_cpu, p_gpu, C_rows, tids = case["p_cpu"], case["p_gpu"], case["C"], case["tids"]
+    """``try_build`` of repro/core/dada.py:313-425: the area bound counts
+    the alive resources (:310, :322)."""
+    p_cpu, p_gpu, C_rows, tids = case["p_cpu"], case["p_gpu"], ref_cost_rows(case), case["tids"]
     cpu_rids, gpu_rids = case["cpu_rids"], case["gpu_rids"]
     any_rids = cpu_rids or gpu_rids
     have_both, no_cpus, no_gpus = bool(cpu_rids and gpu_rids), not cpu_rids, not gpu_rids
@@ -98,7 +120,8 @@ def ref_try_build(case, lam):
     if case["max_off"] > cap:
         return None
     if case["area_bound"]:
-        if case["area"] > (lam * len(case["offsets"]) - case["off_total"]) + TINY:
+        if case["area"] > (lam * case.get("n_alive", len(case["offsets"]))
+                           - case["off_total"]) + TINY:
             return None
     loads = case["offsets"].copy()
     assign = {}
@@ -261,6 +284,155 @@ def test_dada_cases_cover_the_matrix():
     want |= {("cp", False), ("cp", True), ("area", False), ("area", True), ("iters", 1),
              ("iters", 30), ("score tie", True), ("no affinity", True), ("dedicated", True)}
     assert want <= seen
+
+
+def ref_serial_search(case):
+    """The scalar path's λ search (repro/core/dada.py:429-499): the upper
+    bound, plus n times the largest notice penalty (:444-447), then the
+    bisection over ``try_build``; (λ, the placement at it)."""
+    upper = ref_upper(case)
+    pen = [p for p in case.get("pen") or () if p > 0.0]
+    if pen:
+        upper += case["n"] * max(pen)
+    lower, kept, it = 0.0, None, 0
+    while upper - lower > case["eps_rel"] * upper and it < case["max_iters"]:
+        lam = (upper + lower) / 2.0
+        built = ref_try_build(case, lam)
+        if built is not None:
+            upper, kept = lam, built
+        else:
+            lower = lam
+        it += 1
+    if kept is None:
+        kept = ref_try_build(case, upper)
+    return upper, kept
+
+
+@pytest.mark.parametrize("kind", LIVE_KINDS)
+@pytest.mark.parametrize("group", range(4))
+def test_dada_liveness_matches_the_reference_scalar_path(group, kind):
+    """On a machine that lost resources the plain DADA equals the
+    reference's scalar path bit for bit (λ, rids, loads): a dead rid 0,
+    every GPU or every CPU dead but one, noticed columns paying their
+    window under recover, a dead and a noticed one together; over every
+    machine kind, α, ±CP and ±area bound. No placement lands on a dead
+    rid, and with recover no preference points at a noticed one."""
+    for seed in range(group * 25, (group + 1) * 25):
+        case = live_case(seed, kind, area_bound=bool(seed % 2) if seed % 3 else None)
+        got = sp.dada_place_plain(**plain_kwargs(case))
+        lam, (assign, loads) = ref_serial_search(case)
+        assert got.status == sp.STATUS_OK
+        assert got.lam == lam, (seed, kind, got.lam, lam)
+        assert got.rids == [assign[t] for t in case["tids"]], (seed, kind)
+        assert got.loads == loads, (seed, kind)
+        dead = {j for j, sk in enumerate(case["skip"]) if sk and case["pen"][j] == 0.0}
+        assert not dead & set(got.rids), (seed, kind)
+        noticed = {j for j, p in enumerate(case["pen"]) if p > 0.0}
+        assert not noticed & {rid for _, _, rid, _ in ref_by_score(case)}
+
+
+def test_liveness_cases_cover_the_matrix():
+    """The liveness cases reach every pattern on CPU+GPU, CPU-only and
+    GPU-only machines, with ±CP, ±area bound and α 0 / 0.5 / 1, and the
+    penalties change placements against the same case without them."""
+    seen, moved = set(), 0
+    for kind in LIVE_KINDS:
+        for seed in range(100):
+            c = live_case(seed, kind, area_bound=bool(seed % 2) if seed % 3 else None)
+            machine = "both" if c["accel"] == MACHINES["both"] else (
+                "cpu" if not any(c["accel"]) else "gpu")
+            seen |= {(kind, machine), ("cp", c["use_cp"]), ("area", c["area_bound"]),
+                     ("alpha", c["alpha"])}
+            if kind == "noticed":
+                plain = {k: v for k, v in plain_kwargs(c).items() if k not in ("pen", "skip",
+                                                                                "n_alive",
+                                                                                "pen_top")}
+                moved += sp.dada_place_plain(**plain).rids != sp.dada_place_plain(
+                    **plain_kwargs(c)).rids
+    assert {(k, "both") for k in LIVE_KINDS} <= seen
+    assert {("dead0", "cpu"), ("dead0", "gpu"), ("noticed", "cpu"), ("noticed", "gpu")} <= seen
+    assert {("cp", False), ("cp", True), ("area", False), ("area", True)} <= seen
+    assert {("alpha", 0.0), ("alpha", 0.5), ("alpha", 1.0)} <= seen
+    assert moved >= 10
+
+
+def ref_heft_scalar(case):
+    """The reference's scalar EFT loop (repro/core/heft.py:131-147) over
+    the case's rows: +inf transfers on dead columns included."""
+    load_ts, now = list(case["load_ts"]), case["now"]
+    cols = [case["durations"][c] for c in case["cls_of_res"]]
+    rids, efts = [], []
+    for i in case["order"]:
+        xrow = case["X"][i]
+        best_eft, best_rid = float("inf"), 0
+        for rid in range(len(load_ts)):
+            lt = load_ts[rid]
+            start = now if now > lt else lt
+            eft = start + xrow[rid] + cols[rid][i]
+            if eft < best_eft - 1e-15:
+                best_eft, best_rid = eft, rid
+        load_ts[best_rid] = best_eft
+        rids.append(best_rid)
+        efts.append(best_eft)
+    return rids, efts
+
+
+@pytest.mark.parametrize("dead,noticed", [((0,), ()), ((0, 2), (1,)), ((1,), (0,)),
+                                          ((), (0, 1)), ((0, 1, 3, 4, 5, 6, 7, 8, 9), ())],
+                         ids=["dead0", "dead02-noticed1", "dead1-noticed0", "noticed01",
+                              "all-but-others-dead"])
+def test_heft_liveness_matches_the_reference_scalar_path(dead, noticed):
+    """+inf transfer columns (detached resources) and noticed penalties
+    through HEFT's scan: the plain scan equals the reference's scalar loop
+    bit for bit, and never picks a dead rid while one is alive."""
+    for seed in range(60):
+        case = live_heft_case(seed, dead=dead, noticed=noticed)
+        n_res = len(case["load_ts"])
+        got = sp.heft_select_plain(**case)
+        assert (got.rids, got.efts) == ref_heft_scalar(case), seed
+        gone = {j % n_res for j in dead}
+        if len(gone) < n_res:
+            assert not gone & set(got.rids), seed
+            assert all(e < float("inf") for e in got.efts)
+
+
+@pytest.mark.parametrize("kind", LIVE_KINDS)
+def test_live_section_round_trips_and_wrappers_agree(kind):
+    """A live layout's section reads back as packed, its plan counts the
+    penalties' shared memory, and the wrapper on CPU tensors equals the
+    plain version; packing liveness into a layout without it (or the
+    reverse) is refused."""
+    for seed in range(0, 60, 7):
+        case = live_case(seed, kind)
+        layout, buf, scores = packed_dada(case)
+        assert layout.spec.live and layout.flags & sp.PLACE_LIVE
+        got = sp._plain_inputs(buf.numpy(), scores.numpy(), layout)
+        for key, value in plain_kwargs(case).items():
+            if key == "S":
+                assert (got[key] is None) == (value is None)
+                if value is not None:
+                    assert np.array_equal(got[key], value)
+            elif key == "skip":
+                assert [bool(v) for v in got[key]] == value
+            else:
+                assert got[key] == value, key
+        spec = layout.spec
+        assert spec.smem_bytes == sp.dada_smem(spec.n, spec.n_res, spec.plan[0], spec.plan[1],
+                                               True)
+        out = sp.dada_place(buf, scores, layout)
+        assert sp.read_placement(out.numpy(), layout) == sp.dada_place_plain(**plain_kwargs(case))
+    fields = {k: case[k] for k in ("offsets", "flex_order", "tids", "max_off", "sum_max", "area",
+                                   "off_total", "alpha", "eps_rel", "max_iters", "cpu_rids",
+                                   "gpu_rids")}
+    with pytest.raises(ValueError, match="live"):
+        sp.pack_dada(buf.numpy(), layout, **fields)
+    plain_layout, plain_buf, _ = packed_dada(dada_case(seed))
+    with pytest.raises(ValueError, match="live"):
+        sp.pack_dada(plain_buf.numpy(), plain_layout, **{
+            **{k: v for k, v in fields.items()}, "cpu_rids": plain_layout.spec.n_cpu * [0],
+            "gpu_rids": plain_layout.spec.n_gpu * [0], "offsets": [0.0] * plain_layout.spec.n_res,
+            "flex_order": list(range(plain_layout.spec.n)), "tids": list(range(plain_layout.spec.n)),
+            **{k: case[k] for k in ("pen", "skip", "n_alive", "pen_top")}})
 
 
 def ref_heft(be, case):

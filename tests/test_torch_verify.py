@@ -4,7 +4,11 @@
   DADA(0), DADA(0.5)+CP and ``ws`` on Cholesky, LU and QR at NT 6 and 8
   (tile 256) on ``paper_machine(3)`` and ``(8)``, seeds 0 and 7, the
   JSONL that ``repro``'s numpy path writes for the same run, line for
-  line, floats exact; and every such log verifies clean.
+  line, floats exact; and every such log verifies clean. So do faulted
+  and flaky runs (churn in drain and kill mode, notices, flaky links,
+  scripted detaches and attaches, under a capacity too) of HEFT,
+  DADA(0.5)+CP with and without recover, and ``ws``, whose logs also
+  serve as bases of the recovery mutation classes.
 - Verifier: on the reference's clean logs (capacity-bounded, evicting,
   churned, flaky, noticed, cancel-stale, serving with rejects), read through the
   port's ``from_jsonl``, and on every mutation class of
@@ -49,6 +53,7 @@ from repro_torch.linalg.lu import lu_graph
 from repro_torch.linalg.qr import qr_graph
 from repro_torch.runtime import Engine
 from repro_torch.runtime.queues import WorkSteal
+from repro_torch.sched import resolve
 from repro_torch.verify import AuditLog, errors, verify_audit
 from repro_torch.verify.__main__ import main as verify_main
 from repro_torch.verify.schedule import derive_edges
@@ -199,6 +204,61 @@ REF_LOGS = {
 }
 
 
+FAULTED = {  # the port's own faulted runs: the reference's fault settings
+    "churn-drain": dict(churn=150.0, fault_mode="drain"),
+    "churn-kill": dict(churn=150.0, fault_mode="kill"),
+    "flaky": dict(link_flake=0.35, retry_max=2, backoff_s=1e-4),
+    "noticed": dict(churn=250.0, fault_mode="drain", notice_s=0.004),
+    "recovery": dict(seed=2, churn=250.0, fault_mode="drain", notice_s=0.004, link_flake=0.35,
+                     retry_max=2, backoff_s=1e-4),
+    "scripted-capacity": dict(mem_capacity=8 * MB, eviction="affinity", notice_s=0.002,
+                              script=((0.2, "detach", 0, "kill"), (0.35, "detach", 1, "drain"),
+                                      (0.6, "attach", 0, None))),
+}
+FAULTED_SPECS = ("heft", "dada?alpha=0.5&use_cp=1", "dada?alpha=0.5&use_cp=1&recover=1", "ws")
+
+
+def _faulted_pair(name, spec):
+    """The reference's and the port's audited simulators of one faulted
+    run (Cholesky NT 8, tile 256, paper_machine(4), no noise) after it."""
+    kw = dict(FAULTED[name])
+    seed, script = kw.pop("seed", 0), kw.pop("script", ())
+    port_spec = resolve(spec) if spec == "ws" else resolve(spec, device="cpu")
+    ref_spec = ref_resolve(spec) if spec == "ws" else ref_resolve(spec, backend="numpy")
+    base = RefSimulator(ref_cholesky_graph(8, 256, with_fns=False), ref_paper_machine(4),
+                        ref_resolve("heft", backend="numpy"), seed=seed, noise=0.0).run()
+    ref = RefSimulator(ref_cholesky_graph(8, 256, with_fns=False), ref_paper_machine(4), ref_spec,
+                       seed=seed, noise=0.0, audit=True, **kw)
+    port = Simulator(cholesky_graph(8, 256), paper_machine(4), port_spec, seed=seed, noise=0.0,
+                     audit=True, **kw)
+    gpus = [r.rid for r in port.machine.gpus]
+    for frac, event, gi, mode in script:
+        for sim in (ref, port):
+            sim.inject(event, gpus[gi], at=base.makespan * frac, mode=mode)
+    return ref, ref.run(), port, port.run()
+
+
+@pytest.mark.parametrize("spec", FAULTED_SPECS)
+@pytest.mark.parametrize("name", sorted(FAULTED))
+def test_faulted_audit_log_equals_reference(name, spec, tmp_path):
+    """A faulted or flaky run's log: the port's JSONL is the reference's
+    line for line (the fault mode in the machine record, the fault,
+    notice, retry and timeout records, the dropped landings, the
+    evacuations and the retry counts in the result), and it verifies
+    clean with the reference's findings."""
+    ref, ref_res, port, res = _faulted_pair(name, spec)
+    assert _fp(res) == _fp(ref_res) and res.faults == ref_res.faults
+    want = _jsonl(ref.audit, tmp_path / "ref.jsonl")
+    got = _jsonl(port.audit, tmp_path / "port.jsonl")
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a == b, f"line {i + 1} differs:\n port {a}\n  ref {b}"
+    assert len(got) == len(want)
+    assert port.audit.faults or port.audit.retries
+    findings = verify_audit(port.audit)
+    assert errors(findings) == []
+    assert _findings(findings) == _findings(ref_verify_audit(ref.audit))
+
+
 def _own_case(spec):
     """The port's own exact log (the mutation tests' base run: HEFT on
     Cholesky NT 8, paper_machine(4), no noise) and the reference's log of
@@ -224,6 +284,9 @@ def case(tmp_path_factory):
         if name not in built:
             if name.startswith("own-"):
                 built[name] = _own_case(name[4:])
+            elif name.startswith("ownfault-"):
+                ref, _, port, _ = _faulted_pair(name[9:], "heft")
+                built[name] = (ref.audit, port.audit)
             else:
                 ref = REF_LOGS[name]()
                 path = root / f"{name}.jsonl"
@@ -451,13 +514,16 @@ SALTED = {
     "dropped_exec": (_dropped_exec, EXACT_LOGS),
     "shrunk_hop_bytes": (_shrunk_hop_bytes, EXACT_LOGS),
     "dropped_landing": (_dropped_landing, EXACT_LOGS),
-    "exec_in_dead_window": (_exec_in_dead_window, EXACT_LOGS),
+    "exec_in_dead_window": (_exec_in_dead_window,
+                            EXACT_LOGS + ("ownfault-churn-kill", "ownfault-scripted-capacity")),
     "scaled_finish": (_scaled_finish, EXACT_LOGS),
     "fabricated_notice": (_fabricated_notice, EXACT_LOGS),
-    "shifted_start_into_notice": (_shifted_start_into_notice, ("noticed", "recovery")),
-    "dropped_retry": (_dropped_retry, ("flaky", "recovery")),
-    "shrunk_retry_bytes": (_shrunk_retry_bytes, ("flaky", "recovery")),
-    "missing_landing_after_retry": (_missing_landing_after_retry, ("flaky", "recovery")),
+    "shifted_start_into_notice": (_shifted_start_into_notice,
+                                  ("noticed", "recovery", "ownfault-recovery")),
+    "dropped_retry": (_dropped_retry, ("flaky", "recovery", "ownfault-recovery")),
+    "shrunk_retry_bytes": (_shrunk_retry_bytes, ("flaky", "recovery", "ownfault-recovery")),
+    "missing_landing_after_retry": (_missing_landing_after_retry,
+                                    ("flaky", "recovery", "ownfault-recovery")),
     "exec_before_arrival": (_exec_before_arrival, ("serving",)),
     "exec_before_admit": (_exec_before_admit, ("serving",)),
     "fabricated_reject": (_fabricated_reject, ("serving",)),
@@ -468,7 +534,7 @@ UNSALTED = {
     "inflated_total_bytes": (_inflated_total_bytes, EXACT_LOGS + ("serving",)),
     "dropped_hop": (_dropped_hop, EXACT_LOGS + ("serving",)),
     "capacity_overflow": (_capacity_overflow, EXACT_LOGS),
-    "inflated_retry_count": (_inflated_retry_count, ("flaky", "recovery")),
+    "inflated_retry_count": (_inflated_retry_count, ("flaky", "recovery", "ownfault-recovery")),
 }
 MUTATION_CASES = (
     [(m, log, salt) for m, (_, logs) in SALTED.items() for log in logs for salt in SALTS]
