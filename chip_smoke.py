@@ -228,10 +228,35 @@ non-zero and no phase carries on past its own failure):
               activation beside its twin's (medians of three), the
               evacuated and proactive bytes, the phase's wall and a faults
               JSON line;
- 15. report   a JSON line of every ported kernel (launches_paper,
-              launches_verify, launches_memory and launches_faults: each
-              kernel's launches in those phases), then the last line
-              ``{"ok": true, "device": {...}}``.
+ 15. serving  the serving simulator on the card, the kernels' counts set
+              to 0 just before and read just after, every serving run
+              through run_serving (repro_torch.runtime.load): serving_load's
+              sweep at full width (1 024 tenants at 2 000 arrivals a
+              simulated second on paper_machine(4), poisson / bursty /
+              diurnal x heft / dada(0.5)+cp / wfq, incremental rescoring),
+              and the same at 256 tenants; every pool round that rebuilt
+              rows must be exactly one score_activation launch (none on the
+              CPU), the standalone transfer kernel never; each run equal to
+              its device="cpu" twin (every column at 256 tenants, the
+              poisson column at 1 024): tenants, report, events, rows built,
+              every interval; the speed-up probe (256 tenants, 4 000
+              events, full against incremental, card and CPU, both modes
+              placing alike); admission reject and defer at 64 tenants
+              under a capacity of the largest catalog working set, audited:
+              0 verifier errors, logs equal to the CPU's; a streamed
+              classic run (four Cholesky NT 16 tenants, two at t = 0 and
+              two at 0.002 k, DADA(0.5)+CP on paper_machine(8), once with
+              cancel_stale and audited): one scoring and one placement
+              launch per activation, equal to the CPU; C9's scenario matrix
+              at the fast shape (equal to the CPU's rows) and at full depth
+              (20 seeds, LU NT 12, churn 40 and 150): every C9 row must
+              pass. Prints events/s, rounds, rows built, score_activation
+              launches, ms per pool round, p50/p99 slowdown and Jain's
+              index per run, and a serving JSON line;
+ 16. report   a JSON line of every ported kernel (launches_paper,
+              launches_verify, launches_memory, launches_faults and
+              launches_serving: each kernel's launches in those phases),
+              then the last line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits 2 without printing a result when there is
 none. Imports nothing of JAX and nothing of the ``repro`` package.
@@ -705,6 +730,258 @@ def faults_phase(ss, sp, se):
           f"resource was dead or noticed; launches {launches}; phase wall {wall:.3f} s", flush=True)
     entry = dict(card=card_line(), runs=rows, c8=dict(passed=True, measured=c8["measured"],
                                                       rows=reps), launches=launches, wall_s=wall)
+    return entry, launches
+
+
+# the serving phase: serving_load's sweep at full width (1 024 tenants at
+# 2 000 arrivals a simulated second on paper_machine(4)), its CPU twins
+# (the poisson column at full width, every column at SERVING_CPU_TENANTS),
+# the speed-up probe, admission, the streamed classic run and C9
+SERVING_TENANTS, SERVING_RATE, SERVING_CPU_TENANTS = 1024, 2000.0, 256
+SERVING_ADMIT_TENANTS = 64
+SERVING_STREAM_NT = 16
+
+
+def serving_phase(ss, sp, se):
+    """The serving simulator on the card, the kernels' counts set to 0 just
+    before and read just after: serving_load's sweep and probe through
+    run_serving, admission control (audited), a streamed classic run with
+    and without cancel_stale, and C9 (the scenario matrix at the fast
+    shape against the CPU, then at full depth). Every pool round that
+    rebuilt rows must be one score_activation launch, every run must equal
+    its device="cpu" twin. Returns the ``serving`` JSON entry and the
+    launches by kernel."""
+    from repro_torch.bench import scenario_matrix as sm
+    from repro_torch.bench import serving_load as sl
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.linalg.cholesky import cholesky_graph
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.load import default_catalog, make_arrivals, run_serving
+    from repro_torch.runtime.rescore import ServingScheduler
+    from repro_torch.sched import resolve
+    from repro_torch.verify import errors, verify_audit
+
+    w_phase = time.perf_counter()
+    counters = {"score_activation": ss.score_activation, "dada_place": sp.dada_place,
+                "heft_select": sp.heft_select, "episode_scan": se.episode_scan,
+                "transfer_matrix": ss.transfer_matrix}
+
+    def read():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    # every pool rebuild: (rows, score_activation launches, seconds, min_wide)
+    rebuilds = []
+    rebuild = ServingScheduler._rebuild
+
+    def counted(self, engine, keys):
+        n = sum(1 for k in keys if k in self.entries)
+        l0, t0 = ss.score_activation.launches, time.perf_counter()
+        rebuild(self, engine, keys)
+        rebuilds.append((n, ss.score_activation.launches - l0, time.perf_counter() - t0,
+                         self.min_wide))
+
+    def fp(out):
+        e = out["engine"]
+        return ({k: out[k] for k in ("tenants", "report", "n_events", "n_arrivals", "n_admitted",
+                                     "n_rejected", "n_deferred", "rows_built")},
+                [(c.gid, c.submit_at, c.admit_at, c.rejected,
+                  [(iv.tid, iv.rid, iv.start, iv.end) for iv in c.intervals]) for c in e._ctxs],
+                e._serving.n_rounds)
+
+    machine = paper_machine(4)
+    baselines = {}
+
+    def serve(label, arr, spec, device, **kw):
+        """One run_serving on ``device``; its output and what it took."""
+        rebuilds.clear()
+        before = read()
+        w0 = time.perf_counter()
+        out = run_serving(arr, machine, spec, seed=0, device=device,
+                          baselines=baselines.setdefault((spec, device), {}), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        pool = list(rebuilds)
+        launches = {k: v - before[k] for k, v in read().items()}
+        for n, l, _, mw in pool:
+            if l != (1 if device == "cuda" and n >= mw else 0):
+                raise SystemExit(f"serving {label}: a pool round of {n} rows made {l} "
+                                 f"score_activation launches on {device}")
+        if launches["transfer_matrix"]:
+            raise SystemExit(f"serving {label}: the standalone transfer kernel launched")
+        scored = [t for n, l, t, _ in pool if l]
+        return dict(out=out, wall=wall, launches=launches, pool_launches=sum(l for _, l, _, _ in pool),
+                    pool_ms=1e3 * sum(scored) / max(len(scored), 1),
+                    rows_a_round=sum(n for n, _, _, _ in pool) / max(len(pool), 1))
+
+    def row_of(label, card, cpu):
+        out = card["out"]
+        rep, e = out["report"], out["engine"]
+        row = dict(case=label, strategy=e.strategy.name, n_tenants=rep["n_tenants"],
+                   wall_s=card["wall"], events=out["n_events"],
+                   events_per_s=out["n_events"] / card["wall"], rounds=e._serving.n_rounds,
+                   rows_built=out["rows_built"], rows_a_round=card["rows_a_round"],
+                   score_activation_launches=card["pool_launches"],
+                   ms_per_pool_round=card["pool_ms"], p50_slowdown=rep["p50_slowdown"],
+                   p99_slowdown=rep["p99_slowdown"], jain_fairness=rep["jain_fairness"],
+                   n_admitted=out["n_admitted"], n_rejected=out["n_rejected"],
+                   n_deferred=out["n_deferred"],
+                   cpu_wall_s=None if cpu is None else cpu["wall"],
+                   cpu_events_per_s=None if cpu is None else out["n_events"] / cpu["wall"])
+        print(f"serving {label} strategy={row['strategy']} tenants={row['n_tenants']} "
+              f"events={row['events']} wall_s={row['wall_s']:.6f} "
+              f"events_per_s={row['events_per_s']:.1f} rounds={row['rounds']} "
+              f"rows_built={row['rows_built']} rows_a_round={row['rows_a_round']:.3f} "
+              f"score_activation_launches={row['score_activation_launches']} "
+              f"ms_per_pool_round={row['ms_per_pool_round']:.6f} "
+              f"p50_slowdown={row['p50_slowdown']!r} p99_slowdown={row['p99_slowdown']!r} "
+              f"jain={row['jain_fairness']!r} admitted={row['n_admitted']} "
+              f"rejected={row['n_rejected']} deferred={row['n_deferred']}"
+              + ("" if cpu is None else f" cpu_wall_s={cpu['wall']:.6f}"), flush=True)
+        return row
+
+    def twin(label, arr, spec, with_cpu=True, **kw):
+        card = serve(label, arr, spec, "cuda", **kw)
+        cpu = serve(label, arr, spec, "cpu", **kw) if with_cpu else None
+        if cpu is not None and fp(card["out"]) != fp(cpu["out"]):
+            raise SystemExit(f"serving {label}: the card run differs from the CPU run")
+        return card, cpu
+
+    for fn in counters.values():
+        fn.launches = 0
+    ServingScheduler._rebuild = counted
+    try:
+        sweep, probe, admission = [], {}, []
+        # serving_load's sweep at full width, incremental; CPU twins for the
+        # poisson column at full width and every column at 256 tenants
+        for tenants in (SERVING_TENANTS, SERVING_CPU_TENANTS):
+            for arrival in sl.ARRIVALS:
+                arr = make_arrivals(arrival, tenants, rate=SERVING_RATE, seed=7)
+                for spec in sl.STRATEGIES:
+                    label = f"sweep/{arrival}/{sl.STRATEGY_LABELS[spec]}/tenants{tenants}"
+                    with_cpu = tenants == SERVING_CPU_TENANTS or arrival == "poisson"
+                    card, cpu = twin(label, arr, spec, with_cpu, rescore="incremental")
+                    sweep.append(row_of(label, card, cpu))
+        # the speed-up probe: full against incremental, capped at the same
+        # event count, on the card and the CPU
+        arr = make_arrivals("poisson", sl.PROBE_TENANTS, rate=SERVING_RATE, seed=7)
+        placed = {}
+        for mode in ("full", "incremental"):
+            card, cpu = twin(f"probe/{mode}", arr, "heft", rescore=mode,
+                             max_events=sl.PROBE_EVENTS)
+            probe[mode] = row_of(f"probe/{mode}", card, cpu)
+            placed[mode] = fp(card["out"])[1]
+        if placed["full"] != placed["incremental"]:
+            raise SystemExit("serving probe: full and incremental placed differently")
+        probe["speedup_card"] = probe["incremental"]["events_per_s"] / probe["full"]["events_per_s"]
+        probe["speedup_cpu"] = probe["incremental"]["cpu_events_per_s"] / probe["full"]["cpu_events_per_s"]
+        print(f"serving probe: incremental / full events a second {probe['speedup_card']:.3f}x "
+              f"on the card, {probe['speedup_cpu']:.3f}x on the CPU", flush=True)
+        # admission control under a tight capacity, audited
+        catalog = default_catalog()
+        probe_engine = Engine(machine, resolve("heft", device="cpu"), seed=0)
+        ws = max(probe_engine.submit(b()).ws_bytes for b in catalog.values())
+        arr = make_arrivals("poisson", SERVING_ADMIT_TENANTS, rate=5000.0, seed=1)
+        for mode in ("reject", "defer"):
+            card, cpu = twin(f"admission/{mode}", arr, "heft", admission=mode, mem_capacity=ws,
+                             audit=True)
+            log = card["out"]["engine"].audit
+            errs = errors(verify_audit(log))
+            if errs or not same_log(log, cpu["out"]["engine"].audit):
+                raise SystemExit(f"serving admission {mode}: {len(errs)} verifier errors, or the "
+                                 "card's log differs from the CPU's")
+            row = row_of(f"admission/{mode}", card, cpu)
+            row.update(verify_errors=0, records=n_records(log))
+            if not (row["n_rejected"] if mode == "reject" else row["n_deferred"]):
+                raise SystemExit(f"serving admission {mode}: the capacity turned no tenant away")
+            admission.append(row)
+    finally:
+        ServingScheduler._rebuild = rebuild
+
+    # a streamed classic run: four Cholesky NT 16 tenants, two at t = 0,
+    # the rest at 0.002 k; one scoring and one placement launch per
+    # activation placed; with cancel_stale too, audited
+    streamed = []
+    spec = "dada?alpha=0.5&use_cp=1"
+    for cancel in (False, True):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            strat = resolve(spec, device=device)
+            acts, place = [0], strat.place
+
+            def counted_place(sim, ready, src, place=place, acts=acts):
+                acts[0] += 1
+                place(sim, ready, src)
+
+            strat.place = counted_place
+            eng = Engine(paper_machine(8), strat, seed=0, cancel_stale=cancel, audit=cancel)
+            for k in range(4):
+                eng.submit(cholesky_graph(SERVING_STREAM_NT, 512), at=None if k < 2 else 0.002 * k)
+            before, plain0 = read(), sp.dada_place_plain.calls
+            w0 = time.perf_counter()
+            results = eng.run()
+            torch.cuda.synchronize()
+            runs[device] = dict(eng=eng, results=results, wall=time.perf_counter() - w0,
+                                acts=acts[0], plain=sp.dada_place_plain.calls - plain0,
+                                launches={k: v - before[k] for k, v in read().items()})
+        card, cpu = runs["cuda"], runs["cpu"]
+        key = [[(r.makespan, r.submit_at, r.total_bytes, [(iv.tid, iv.rid, iv.start, iv.end)
+                                                          for iv in r.intervals])
+                for r in runs[d]["results"]] for d in ("cuda", "cpu")]
+        if key[0] != key[1]:
+            raise SystemExit(f"serving streamed cancel_stale={cancel}: the card run differs "
+                             "from the CPU run")
+        lc = card["launches"]
+        if not (lc["score_activation"] == lc["dada_place"] == card["acts"] > 0) or card["plain"]:
+            raise SystemExit(f"serving streamed: launches {lc} for {card['acts']} activations, "
+                             f"{card['plain']} plain searches")
+        if any(cpu["launches"].values()):
+            raise SystemExit("serving streamed: the CPU run launched a kernel")
+        n_err = None
+        if cancel:
+            log = card["eng"].audit
+            n_err = len(errors(verify_audit(log)))
+            if n_err or not same_log(log, cpu["eng"].audit):
+                raise SystemExit("serving streamed cancel_stale: verifier errors, or the card's "
+                                 "log differs from the CPU's")
+        row = dict(cancel_stale=cancel, tenants=4, nt=SERVING_STREAM_NT, strategy=spec,
+                   activations=card["acts"], launches=lc, wall_s=card["wall"],
+                   cpu_wall_s=cpu["wall"], makespans=[r.makespan for r in card["results"]],
+                   submit_at=[r.submit_at for r in card["results"]], verify_errors=n_err)
+        print(f"serving streamed cancel_stale={cancel}: 4 x Cholesky NT {SERVING_STREAM_NT} "
+              f"{spec} activations={card['acts']} launches={lc} wall_s={card['wall']:.6f} "
+              f"cpu_wall_s={cpu['wall']:.6f} makespans={row['makespans']}", flush=True)
+        streamed.append(row)
+
+    # C9: the scenario matrix at the fast shape against the CPU, then at
+    # full depth on the card
+    c9 = {}
+    for shape, (seeds, nt, churn) in (("fast", sm.FAST), ("full", sm.FULL)):
+        w0 = time.perf_counter()
+        rows, checks = sm.run_matrix(seeds, nt, churn, device="cuda", verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        cpu_wall = None
+        if shape == "fast":
+            w0 = time.perf_counter()
+            cpu_rows, cpu_checks = sm.run_matrix(seeds, nt, churn, device="cpu", verbose=False)
+            cpu_wall = time.perf_counter() - w0
+            if (rows, checks) != (cpu_rows, cpu_checks):
+                raise SystemExit("serving C9 fast: the card's rows differ from the CPU's")
+        ok = sm.print_checks(checks)
+        print(f"serving C9 {shape}: {seeds} seeds, NT {nt}, churn {churn}: {len(rows)} rows, "
+              f"{sum(c['passed'] for c in checks)}/{len(checks)} claims pass, wall {wall:.3f} s"
+              + ("" if cpu_wall is None else f", CPU {cpu_wall:.3f} s"), flush=True)
+        if not ok:
+            raise SystemExit(f"serving C9 {shape}: a claim failed")
+        c9[shape] = dict(seeds=seeds, nt=nt, churn=list(churn), rows=rows, checks=checks,
+                         wall_s=wall, cpu_wall_s=cpu_wall)
+    launches = read()
+    wall = time.perf_counter() - w_phase
+    print(f"serving: {len(sweep)} sweep runs, the probe, {len(admission)} admission runs, "
+          f"{len(streamed)} streamed runs and C9, every run equal to its CPU twin; launches "
+          f"{launches}; phase wall {wall:.3f} s", flush=True)
+    entry = dict(card=card_line(), sweep=sweep, probe=probe, admission=admission,
+                 streamed=streamed, c9=c9, launches=launches, wall_s=wall)
     return entry, launches
 
 
@@ -2934,7 +3211,12 @@ def main() -> int:
     faults, fault_launches = faults_phase(ss, sp, se)
     done("faults", t0)
 
-    # ---- 15. report ----------------------------------------------------------
+    # ---- 15. serving ---------------------------------------------------------
+    t0 = phase("serving")
+    serving, serving_launches = serving_phase(ss, sp, se)
+    done("serving", t0)
+
+    # ---- 16. report ----------------------------------------------------------
     kernels = [{
         "name": "score_activation",
         "route": "cuda",
@@ -2960,6 +3242,7 @@ def main() -> int:
         "launches_verify": verify_launches["score_activation"],
         "launches_memory": memory_launches["score_activation"],
         "launches_faults": fault_launches["score_activation"],
+        "launches_serving": serving_launches["score_activation"],
         "cases_live_x_bias": n_score_live,
     }, {
         "name": "place",
@@ -2976,6 +3259,9 @@ def main() -> int:
         "launches_memory_by_kernel": {k: memory_launches[k] for k in ("dada_place", "heft_select")},
         "launches_faults": fault_launches["dada_place"] + fault_launches["heft_select"],
         "launches_faults_by_kernel": {k: fault_launches[k] for k in ("dada_place", "heft_select")},
+        "launches_serving": serving_launches["dada_place"] + serving_launches["heft_select"],
+        "launches_serving_by_kernel": {k: serving_launches[k]
+                                       for k in ("dada_place", "heft_select")},
         "live_n128": place_live,
         "exact": place_max_err == 0.0,
         "max_abs_err": place_max_err,
@@ -3067,12 +3353,14 @@ def main() -> int:
     episode_entry["launches_verify"] = verify_launches["episode_scan"]
     episode_entry["launches_memory"] = memory_launches["episode_scan"]
     episode_entry["launches_faults"] = fault_launches["episode_scan"]
+    episode_entry["launches_serving"] = serving_launches["episode_scan"]
     kernels.append(episode_entry)
     print(json.dumps({"serve": served}))
     print(json.dumps({"paper": paper}))
     print(json.dumps({"verify": verified}))
     print(json.dumps({"memory": memory}))
     print(json.dumps({"faults": faults}))
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

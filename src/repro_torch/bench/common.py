@@ -13,7 +13,6 @@ write nothing to disk.
 """
 from __future__ import annotations
 
-import inspect
 from functools import partial
 from typing import Callable, Dict, List, Sequence, Tuple
 
@@ -24,7 +23,7 @@ from ..device import resolve_device
 from ..linalg.cholesky import cholesky_graph
 from ..linalg.lu import lu_graph
 from ..linalg.qr import qr_graph
-from ..sched import get_factory, parse_spec, resolve
+from ..sched import resolve_on
 
 MATRIX = 8192
 TILE = 512
@@ -54,11 +53,7 @@ STRATEGIES: Dict[str, str] = {
 }
 
 
-def strategy_for(spec: str, device="cuda"):
-    """Build ``spec`` for ``device``. The device goes only to a factory
-    whose signature declares it: ``ws`` scores nothing and takes none."""
-    params = inspect.signature(get_factory(parse_spec(spec)[0])).parameters
-    return resolve(spec, device=device) if "device" in params else resolve(spec)
+strategy_for = resolve_on  # ``spec`` built for ``device`` (ws and random take none)
 
 
 Config = Tuple[int, str, str]  # (n_gpus, label, spec)

@@ -30,6 +30,13 @@ and only the placement comes back: one copy in, two launches, one copy
 out, one synchronisation. With ``device="cpu"`` they score as
 ``score_matrices`` does and run the placement's plain versions over the
 host values.
+
+The serving pool (:mod:`repro_torch.runtime.rescore`) calls
+:meth:`TorchScoringBackend.score_pool` once a round: the dirty rows of
+every tenant graph, packed side by side (the CSR reads carry their own
+residency masks, so rows of different graphs need nothing in common),
+scored in one ``score_activation`` launch into the cost ``C = base + X``,
+``base`` each task's static duration on the column's class.
 """
 from __future__ import annotations
 
@@ -66,6 +73,23 @@ from .affinity import affinity_csr_source
 from .machine import HOST_MEM
 
 _MIN_SLOTS = 4096  # 32 KiB: the main path's widest activation fits
+# from this many rows of one graph the reference's host transfer rows are
+# summed by np.add.reduceat (repro/core/perfmodel.py:226)
+NUMPY_ROWS = 32
+# np.add.reduceat adds a segment's first element to the sum of the rest,
+# which numpy folds in order below eight terms and pairwise from eight
+_REDUCEAT_IN_ORDER = 8
+
+
+def _reduceat_order(reads):
+    """A task's reads in the order whose in-order fold from +0.0 forms
+    ``np.add.reduceat``'s sum over them: the rest, then the first."""
+    if len(reads) - 1 >= _REDUCEAT_IN_ORDER:
+        raise NotImplementedError(
+            f"a serving round of {NUMPY_ROWS} or more rows of one graph scores tasks of at "
+            f"most {_REDUCEAT_IN_ORDER} reads; this task has {len(reads)}"
+        )
+    return reads[1:] + reads[:1]
 
 
 def check_min_wide(min_wide) -> int:
@@ -97,6 +121,7 @@ class TorchScoringBackend:
     def __init__(self, device="cuda") -> None:
         self.device = resolve_device(device)
         self._machine_cache: Dict[tuple, tuple] = {}
+        self._pool_cache: Dict[tuple, tuple] = {}  # score_pool's class columns
         self._host_in = self._host_out = self._dev_in = self._dev_out = None
         self._host_in_np = self._host_out_np = None  # numpy views, cheaper to slice
 
@@ -213,6 +238,18 @@ class TorchScoringBackend:
         from it.
         """
         layout, packed, machine = self.pack(sim, tids, resources, **kwargs)
+        got = unpack_outputs(self._score(layout, packed, machine), layout)
+        return dict(
+            C=got["C"].tolist() if got["C"] is not None else None, C_np=got["C"],
+            X_np=got["X"],
+            X_rowmax=got["X_max"].tolist() if got["X_max"] is not None else None,
+            S_np=got["S"],
+        )
+
+    def _score(self, layout, packed: torch.Tensor, machine: torch.Tensor) -> np.ndarray:
+        """Score one packed buffer: on the card one copy in, one
+        ``score_activation`` launch, one copy back and one synchronisation;
+        on the CPU the plain version. Returns the output slots (f64)."""
         if self.device.type == "cuda":
             dev_in = self._dev_in[:layout.n_in]
             dev_out = self._dev_out[:layout.n_out]
@@ -223,16 +260,78 @@ class TorchScoringBackend:
             # the one synchronisation of the call: the results are on the
             # host, and both staging buffers are free for the next call
             torch.cuda.current_stream(self.device).synchronize()
-            result = host_out.numpy().copy()
-        else:
-            result = score_activation(packed, layout, machine).numpy()
-        got = unpack_outputs(result, layout)
-        return dict(
-            C=got["C"].tolist() if got["C"] is not None else None, C_np=got["C"],
-            X_np=got["X"],
-            X_rowmax=got["X_max"].tolist() if got["X_max"] is not None else None,
-            S_np=got["S"],
+            return host_out.numpy().copy()
+        return score_activation(packed, layout, machine).numpy()
+
+    def _pool_classes(self, resources):
+        """(a CPU rid, a GPU rid): whose static durations are ``p_cpu`` and
+        ``p_gpu`` of a pool's rows. The scorer's ``base`` takes one class
+        for the accelerators and one for the rest, so a machine with more
+        is refused."""
+        key = tuple((r.is_accelerator, r.cls.name) for r in resources)
+        got = self._pool_cache.get(key)
+        if got is None:
+            names = {}
+            for r in resources:
+                if names.setdefault(r.is_accelerator, r.cls.name) != r.cls.name:
+                    raise ValueError(
+                        "the serving pool scores one class of accelerators and one of other "
+                        f"resources; this machine has {sorted({r.cls.name for r in resources})}"
+                    )
+            first = {}
+            for j, r in enumerate(resources):
+                first.setdefault(r.is_accelerator, j)
+            cpu = first.get(False, first.get(True))
+            got = self._pool_cache[key] = (cpu, first.get(True, cpu))
+        return got
+
+    def score_pool(self, groups, resources, transfer_model) -> np.ndarray:
+        """The serving pool's rows of one round: ``groups`` is a list of
+        ``(ctx, tids)``, each a tenant graph's context and its dirty tasks.
+        Their read CSR rows (masks from each graph's own residency) and
+        static durations are packed side by side into one buffer and
+        scored in one ``score_activation`` launch. Returns the
+        ``(rows × resources)`` cost ``C = base + X``, the rows in group
+        order: ``base`` is each task's static duration on the column's
+        class, ``X`` its predicted input-transfer time, so an entry equals
+        ``x + static`` of the reference's host rows bit for bit. The
+        reference sums a group of ``NUMPY_ROWS`` or more rows with
+        ``np.add.reduceat``, first read plus the sum of the rest; such a
+        group's reads go in rotated by one, so the kernel's in-order fold
+        forms the same sums."""
+        n_u, machine = self._machine(resources, transfer_model)
+        cpu_j, gpu_j = self._pool_classes(resources)
+        # a pool round holds a few rows of many graphs, each with a few
+        # reads: gathered from the per-task read lists (in CSR order)
+        indptr, masks, sizes, p_cpu, p_gpu = [0], [], [], [], []
+        for ctx, tids in groups:
+            task_reads = ctx.arrays.task_reads
+            mask_list = ctx.residency.mask_list
+            cpu_static, gpu_static = ctx.rid_static[cpu_j], ctx.rid_static[gpu_j]
+            wide = len(tids) >= NUMPY_ROWS
+            for t in tids:
+                reads = task_reads[t]
+                if wide and len(reads) > 2:
+                    reads = _reduceat_order(reads)
+                for did, _name, size in reads:
+                    masks.append(mask_list[did])
+                    sizes.append(size)
+                indptr.append(len(masks))
+                p_cpu.append(cpu_static[t])
+                p_gpu.append(gpu_static[t])
+        layout = score_layout(score_spec(
+            n=len(p_cpu), nnz_r=len(masks), nnz_w=0, n_u=n_u, n_res=len(resources),
+            want_x=True, want_c=True,
+        ))
+        self._staging(layout.n_in, layout.n_out)
+        pack_activation(
+            self._host_in_np[:layout.n_in], layout,
+            reads=(np.asarray(indptr, dtype=np.int64), np.asarray(masks, dtype=np.int64),
+                   np.asarray(sizes, dtype=np.float64)),
+            p_cpu=p_cpu, p_gpu=p_gpu,
         )
+        out = self._score(layout, self._host_in[:layout.n_in], machine)
+        return unpack_outputs(out, layout)["C"]
 
     def _place(self, layout: PlaceLayout, packed: torch.Tensor, machine: torch.Tensor):
         """Score and place one packed activation on the card: one copy in,

@@ -6,8 +6,8 @@ settings as arguments: the capacity-bounded memories (``mem_capacity``
 bytes per device memory, 0: unbounded; ``eviction``, ``"lru"`` or
 ``"affinity"``), the faults (``churn``, ``fault_mode``, ``fault_trace``,
 ``notice_s``; :meth:`Engine.inject` schedules one) and the flaky links
-(``link_flake``, ``retry_max``, ``backoff_s``), with the reference's
-defaults. ``SimResult.faults`` holds the fault counters of a run with a
+(``link_flake``, ``retry_max``, ``backoff_s``) and stale-transfer
+cancellation (``cancel_stale``), with the reference's defaults. ``SimResult.faults`` holds the fault counters of a run with a
 fault source or flaky links.
 """
 from __future__ import annotations
@@ -44,6 +44,7 @@ class Simulator(Engine):
         link_flake: float = 0.0,
         retry_max: int = 3,
         backoff_s: float = 1e-4,
+        cancel_stale: bool = False,
     ) -> None:
         super().__init__(
             machine, strategy, seed=seed, noise=noise,
@@ -51,8 +52,14 @@ class Simulator(Engine):
             mem_capacity=mem_capacity, eviction=eviction, churn=churn,
             fault_mode=fault_mode, fault_trace=fault_trace, notice_s=notice_s,
             link_flake=link_flake, retry_max=retry_max, backoff_s=backoff_s,
+            cancel_stale=cancel_stale,
         )
         self._primary: GraphContext = self.submit(graph)
+
+    def request_transfer(self, name: str, size: int, dst_mem: int):
+        """Ensure a valid copy of ``name`` will exist at ``dst_mem``;
+        returns the completion time, or None if already resident."""
+        return self.transfers.request(self._primary, name, size, dst_mem, self.now)
 
     def run(self) -> SimResult:
         self._run_loop()

@@ -12,8 +12,8 @@ Reproduces the paper's execution flow (§2.1-2.2):
   * the runtime observes real (noisy) durations and feeds the history-based
     performance model, which therefore calibrates online (§2.3).
 
-Counterpart of ``repro.runtime.engine`` without its serving mode and its
-stale-transfer cancellation, with the reference's options as arguments:
+Counterpart of ``repro.runtime.engine``, with the reference's options as
+arguments:
 
   * capacity-bounded memories: ``mem_capacity`` bytes per device memory
     (0, the default: unbounded) and ``eviction`` (``"lru"`` or
@@ -28,15 +28,28 @@ stale-transfer cancellation, with the reference's options as arguments:
     alive one;
   * flaky links (:mod:`repro_torch.runtime.transfers`): ``link_flake``,
     the chance that a demand hop fails, retried ``retry_max`` times with
-    backoff from ``backoff_s``.
+    backoff from ``backoff_s``;
+  * stale-transfer cancellation: with ``cancel_stale=True`` a copy in
+    flight when its data is overwritten is dropped at its landing (logged
+    ``"stale"``) instead of landing as a valid copy;
+  * serving mode (:mod:`repro_torch.runtime.rescore`, ``rescore="full"``
+    or ``"incremental"``): a shared ready pool replaces the strategy's
+    per-activation ``place``. Events of one simulated instant are drained
+    together and one placement round runs per instant; each round's dirty
+    rows, of every tenant, are scored in one ``score_activation`` launch
+    on ``device`` (rounds with fewer than ``min_wide`` rows take the host
+    rows). ``admission`` (``"reject"`` or ``"defer"``, retried every
+    ``admit_defer_s``) turns away tenants whose working set does not fit
+    the device memories left.
 
 The defaults are the reference's (``churn=0.0``, ``fault_mode="drain"``,
 ``fault_trace=None``, ``notice_s=0.0``, ``link_flake=0.0``,
 ``retry_max=3``, ``backoff_s=1e-4``); with them a run takes the code path
-it took before the hooks existed. Several graphs may be submitted before
-:meth:`Engine.run`, each with a tenant ``priority`` that the ``priority``
-and ``wfq`` policies read; their roots are placed in submit order when
-the run starts.
+it took before the hooks existed. Any number of graphs may be submitted,
+each with a tenant ``priority`` that the ``priority`` and ``wfq`` policies
+read: before :meth:`Engine.run` their roots are placed in submit order when
+the run starts; with ``at=`` (or during the run) the arrival is an event at
+that simulated time, so tenant graphs stream into a live machine.
 
 ``audit=True`` records the run in a :class:`repro_torch.verify.AuditLog`
 (``engine.audit``): the machine, every submitted graph's accesses, each
@@ -70,9 +83,11 @@ from ..core.perfmodel import (
 from ..verify.audit import AuditLog
 from .events import EventQueue
 from .faults import FaultManager
+from .load import ADMISSION_MODES
 from .memory import MemoryManager
 from .metrics import Metrics, ScheduledInterval, SimResult
 from .queues import Worker, eligible_victims
+from .rescore import RESCORE_MODES, ServingScheduler
 from .traces import FAULT_EVENTS, FAULT_MODES, load_trace
 from .transfers import TransferEngine
 
@@ -100,7 +115,8 @@ class GraphContext:
         "gid", "graph", "arrays", "residency", "inflight", "waiting",
         "noise_mult", "preds", "succ", "done", "n_done", "n_tasks",
         "rid_static", "predictors", "finish", "intervals", "submit_at",
-        "readers_left", "priority", "attempt",
+        "data_version", "readers_left", "priority", "attempt",
+        "ws_bytes", "arrived", "admitted", "rejected", "admit_at",
     )
 
     def __init__(self, gid: int, graph: TaskGraph) -> None:
@@ -124,14 +140,21 @@ class GraphContext:
         self.noise_mult: Optional[List[float]] = None
         self.finish = 0.0
         self.intervals: List[ScheduledInterval] = []
-        # every graph is submitted before the run starts
         self.submit_at = 0.0
+        self.data_version: Dict[str, int] = {}  # bumped per write (cancel_stale)
         self.readers_left: List[int] = []  # per-did pending readers (bounded)
         # the tenant's weight for the priority / weighted-fair policies
         self.priority = 1.0
         # each task's execution attempt, bumped when a kill-mode detach
         # aborts it: the "done" event of the aborted run is then stale
         self.attempt: List[int] = [0] * len(graph)
+        # serving mode: the working set admission control weighs, and the
+        # arrival and admission flags (set only by Engine._arrive)
+        self.ws_bytes = int(self.arrays.data_sizes.sum())
+        self.arrived = False
+        self.admitted = False
+        self.rejected = False
+        self.admit_at = 0.0
 
 
 class Engine:
@@ -160,6 +183,12 @@ class Engine:
         link_flake: float = 0.0,
         retry_max: int = 3,
         backoff_s: float = 1e-4,
+        cancel_stale: bool = False,
+        rescore: str = "off",
+        admission: str = "none",
+        admit_defer_s: float = 0.005,
+        device="cuda",
+        min_wide: int = 1,
     ) -> None:
         self.machine = machine
         self.strategy = strategy
@@ -191,6 +220,8 @@ class Engine:
         self._bounded = self.memory.bounded
         if self._bounded:
             self.transfers.memory = self.memory
+        self._cancel_stale = bool(cancel_stale)
+        self.transfers.cancel_stale = self._cancel_stale
 
         # resource dynamics: the manager is always there, inert until a
         # fault source registers; the hot paths check _faults_on first
@@ -210,31 +241,68 @@ class Engine:
 
         # opt-in structured audit log (repro_torch.verify), logged with the
         # reference's settings for this engine: the capacity and eviction
-        # policy, no stale cancellation, the fault mode
+        # policy, stale cancellation, the fault mode
         self.audit: Optional[AuditLog] = None
         if audit:
             self.audit = AuditLog(engine="exact")
             self.audit.log_machine(
                 machine, host_mem=HOST_MEM,
                 capacity=self.memory.capacity if self._bounded else 0, eviction=eviction,
-                cancel_stale=False, fault_mode=fault_mode, seed=seed, noise=noise,
+                cancel_stale=self._cancel_stale, fault_mode=fault_mode, seed=seed, noise=noise,
             )
         self.transfers.audit = self.audit
+
+        # serving mode: the shared ready pool (repro_torch.runtime.rescore)
+        # and admission control; rescore="off" leaves the classic loop
+        if rescore not in RESCORE_MODES:
+            raise ValueError(f"rescore mode must be one of {RESCORE_MODES}, got {rescore!r}")
+        if admission not in ADMISSION_MODES:
+            raise ValueError(f"admission mode must be one of {ADMISSION_MODES}, got {admission!r}")
+        self._serving: Optional[ServingScheduler] = None
+        if rescore != "off":
+            if strategy.allow_steal:
+                raise ValueError(
+                    f"serving mode (rescore={rescore!r}) places from the shared ready pool; "
+                    f"work-stealing strategies ({strategy.name!r}) are not supported there"
+                )
+            self._serving = ServingScheduler(rescore, device=device, min_wide=min_wide)
+        self._admission = admission
+        if admission != "none" and self._serving is None:
+            raise ValueError(
+                f"admission={admission!r} requires serving mode (rescore='full' or "
+                "'incremental'); the classic loop activates every submitted graph "
+                "unconditionally"
+            )
+        if not (float(admit_defer_s) > 0.0):
+            raise ValueError(f"admit_defer_s must be > 0, got {admit_defer_s!r}")
+        self._admit_defer_s = float(admit_defer_s)
+        # admission accounting: the working sets of admitted, unfinished
+        # graphs against the device memories' total capacity
+        self._active_ws = 0
+        n_dev = len({r.mem for r in machine.resources if r.mem != HOST_MEM})
+        self._mem_total = self.memory.capacity * n_dev
+        # the strategy's tenant teardown hook, if it has one (wfq)
+        self._retire = getattr(strategy, "retire_tenant", None)
 
         self._ctxs: List[GraphContext] = []
         self._ctx_of: Dict[int, GraphContext] = {}  # id(task) -> context
         self._cur: Optional[GraphContext] = None
+        self._pending: List[GraphContext] = []  # roots placed when the run starts
+        self._running = False
         # strategy-facing views of the current activation's graph
         self.graph: Optional[TaskGraph] = None
         self.arrays: Optional[GraphArrays] = None
         self.residency: Optional[Residency] = None
 
     # ------------------------------------------------------------------
-    def submit(self, graph: TaskGraph, priority: float = 1.0) -> GraphContext:
-        """Add a task graph to the run; its roots are placed when the run
-        starts. ``priority`` (> 0) weights the tenant for the ``priority``
-        and ``wfq`` policies; the other strategies ignore it. Returns the
-        graph's :class:`GraphContext`."""
+    def submit(self, graph: TaskGraph, at: Optional[float] = None,
+               priority: float = 1.0) -> GraphContext:
+        """Add a task graph to the run. Before :meth:`run` its roots are
+        placed when the run starts; with ``at`` (a simulated time after
+        now) the arrival is a ``"submit"`` event at that time, and during
+        the run the graph arrives at once. ``priority`` (> 0) weights the
+        tenant for the ``priority`` and ``wfq`` policies; the other
+        strategies ignore it. Returns the graph's :class:`GraphContext`."""
         if not (float(priority) > 0.0):
             raise ValueError(f"priority must be > 0, got {priority!r}")
         if graph.tasks and id(graph.tasks[0]) in self._ctx_of:
@@ -255,11 +323,27 @@ class Engine:
             for r in self.machine.resources
         ]
         self.memory.attach_ctx(ctx)
+        if self._serving is not None:
+            self._serving.watch_ctx(ctx)
         for t in graph.tasks:
             self._ctx_of[id(t)] = ctx
         self._ctxs.append(ctx)
         if self._cur is None:
             self._set_ctx(ctx)
+        if at is not None and at > self.now:
+            ctx.submit_at = at
+            self.events.post(at, "submit", ctx)
+        elif self._running:
+            ctx.submit_at = self.now
+            if self._serving is not None:
+                self._arrive(ctx)
+            else:
+                self._activate_roots(ctx)
+                if self._steal_on:
+                    self._steal_round()
+        else:
+            ctx.submit_at = max(0.0, at if at is not None else 0.0)
+            self._pending.append(ctx)
         if self.audit is not None:
             self.audit.log_graph(ctx.gid, ctx.submit_at, graph)
         return ctx
@@ -475,6 +559,8 @@ class Engine:
                     self.memory.ensure_capacity(mem, incoming, self.now, ctx, protect)
         write_id = ctx.residency.write_id
         inflight_pop = ctx.inflight.pop
+        cancel_stale = self._cancel_stale
+        versions = ctx.data_version
         for did, name, size in ctx.arrays.task_writes[tid]:
             if dead_mem is not None:
                 self.transfers.one_hop(size, self.transfers.mem_link.get(dead_mem), self.now,
@@ -486,6 +572,8 @@ class Engine:
                 write_id(did, name, bit)
             # invalidate any stale dedup entries for this data
             inflight_pop(name, None)
+            if cancel_stale:
+                versions[name] = versions.get(name, 0) + 1
         if self.audit is not None:
             # after the write loop: the eviction records ensure_capacity
             # emitted above come first, as the verifier replays them
@@ -506,6 +594,8 @@ class Engine:
                 newly_ready.append(tasks[s])
         if ctx.n_done == ctx.n_tasks:
             ctx.finish = self.now
+            if self._serving is not None:
+                self._graph_finished(ctx)
         if newly_ready:
             # the *activate* operation — where scheduling decisions happen
             self._place_ready(ctx, newly_ready, rid)
@@ -514,76 +604,143 @@ class Engine:
             self._steal_round()
 
     def _place_ready(self, ctx: GraphContext, ready: List[Task], src: Optional[int]) -> None:
-        """Hand newly-ready tasks of ``ctx`` to the strategy: the one seam
-        every activation flows through, re-activations after a detach
+        """Route newly-ready tasks of ``ctx``: to the strategy's ``place``
+        (classic loop) or into the serving pool. The one seam every
+        activation flows through, re-activations after a detach
         included."""
-        self._set_ctx(ctx)
-        self.strategy.place(self, ready, src)
+        if self._serving is not None:
+            self._serving.add_ready(self, ctx, ready)
+        else:
+            self._set_ctx(ctx)
+            self.strategy.place(self, ready, src)
+
+    def _activate_roots(self, ctx: GraphContext) -> None:
+        roots = ctx.graph.roots()
+        if roots:
+            self._place_ready(ctx, roots, None)
 
     # ------------------------------------------------------------------
+    # serving mode: arrivals, admission control, tenant teardown
+    def _graph_finished(self, ctx: GraphContext) -> None:
+        if self._admission != "none" and ctx.admitted:
+            self._active_ws -= ctx.ws_bytes
+        if self._retire is not None:
+            self._retire(ctx)
+
+    def _arrive(self, ctx: GraphContext) -> None:
+        """A tenant graph arrives at ``self.now`` (serving mode): log the
+        arrival once, run admission control, then activate its roots."""
+        audit = self.audit
+        if not ctx.arrived:
+            ctx.arrived = True
+            self.metrics.n_arrivals += 1
+            if audit is not None:
+                audit.log_arrival(ctx.gid, ctx.submit_at)
+        if self._admission != "none" and self._bounded:
+            ws = ctx.ws_bytes
+            total = self._mem_total
+            if ws > total:
+                # it can never fit: rejected outright (defer would retry
+                # forever)
+                ctx.rejected = True
+                self.metrics.n_rejected += 1
+                if audit is not None:
+                    audit.log_reject(ctx.gid, self.now, "too_large")
+                return
+            if self._active_ws + ws > total:
+                if self._admission == "defer":
+                    self.metrics.n_deferred += 1
+                    self.events.post(self.now + self._admit_defer_s, "submit", ctx)
+                else:
+                    ctx.rejected = True
+                    self.metrics.n_rejected += 1
+                    if audit is not None:
+                        audit.log_reject(ctx.gid, self.now, "pressure")
+                return
+            self._active_ws += ws
+        ctx.admitted = True
+        ctx.admit_at = self.now
+        self.metrics.n_admitted += 1
+        if audit is not None:
+            audit.log_admit(ctx.gid, self.now)
+        self._activate_roots(ctx)
+
+    # ------------------------------------------------------------------
+    def _land(self, t: float, ctx: GraphContext, name: str, mem: int, ver: int,
+              epoch: int) -> None:
+        """A copy of ``name`` lands at memory ``mem`` (an ``"xfer"``
+        event): dropped if its memory detached while it was in flight
+        (``"dead"``) or, under ``cancel_stale``, if its data was
+        overwritten (``"stale"``); else a valid copy. Its blocked readers
+        then re-evaluate."""
+        inflight = ctx.inflight
+        flights = inflight.get(name)
+        if flights is not None:
+            flights.pop(mem, None)
+            if not flights:
+                del inflight[name]
+        memory = self.memory
+        faults = self.faults
+        audit = self.audit
+        did = None
+        if self._bounded and mem != HOST_MEM:
+            memory.release(ctx, name, mem)
+            did = ctx.arrays.name_to_id.get(name)
+        if self._faults_on and mem != HOST_MEM and (
+                mem in faults.dead_mems or epoch != faults.mem_epoch.get(mem, 0)):
+            # the destination detached while this copy was in flight: the
+            # copy died with it (its waiters were scrubbed at the detach)
+            if audit is not None:
+                audit.log_landing(ctx.gid, name, mem, t, False, "dead")
+        elif self._cancel_stale and ver != ctx.data_version.get(name, 0):
+            # the data was overwritten while this copy was in flight: the
+            # landing is stale (the blocked readers re-request the new one)
+            if audit is not None:
+                audit.log_landing(ctx.gid, name, mem, t, False, "stale")
+        else:
+            if did is not None and not (ctx.residency.mask_list[did] & (1 << (mem + 1))):
+                memory.ensure_capacity(mem, ctx.residency._sizes[did], t, ctx, (did,))
+            ctx.residency.add_copy(name, mem)
+            if audit is not None:
+                audit.log_landing(ctx.gid, name, mem, t, True, "ok")
+        waiters = ctx.waiting.pop((name, mem), None)
+        if waiters:
+            workers = self.workers
+            for rid in waiters:
+                w = workers[rid]
+                if w.blocked_on > 0:
+                    w.blocked_on -= 1
+                    if (did is not None and w.pins is not None and w.pins[0] == mem
+                            and w.pins[2] is ctx and w.blocked_on > 0):
+                        # keep the landed input of a still-blocked head
+                        # pinned until its next evaluation (only while the
+                        # head is this graph's task)
+                        memory.pin(ctx, did, mem)
+                        w.pins[1].append(did)
+                    if w.blocked_on == 0:
+                        self._try_start(w)
+
     def _run_loop(self) -> None:
+        self._running = True
         self.strategy.init(self)
         self.faults.schedule_churn(self)
-        for ctx in self._ctxs:
-            roots = ctx.graph.roots()
-            if roots:
-                self._place_ready(ctx, roots, None)
+        pending, self._pending = self._pending, []
+        for ctx in pending:
+            self._activate_roots(ctx)
         steal_on = self._steal_on
         if steal_on:
             self._steal_round()
         events = self.events.heap
         heappop = heapq.heappop
-        workers = self.workers
-        audit = self.audit
-        bounded = self._bounded
-        memory = self.memory
+        land = self._land
         faults = self.faults
-        faults_on = self._faults_on
         n_events = 0
         while events:
             t, _, kind, payload = heappop(events)
             self.now = t
             n_events += 1
             if kind == "xfer":
-                ctx, name, mem, epoch = payload
-                inflight = ctx.inflight
-                flights = inflight.get(name)
-                if flights is not None:
-                    flights.pop(mem, None)
-                    if not flights:
-                        del inflight[name]
-                did = None
-                if bounded and mem != HOST_MEM:
-                    memory.release(ctx, name, mem)
-                    did = ctx.arrays.name_to_id.get(name)
-                if faults_on and mem != HOST_MEM and (
-                        mem in faults.dead_mems or epoch != faults.mem_epoch.get(mem, 0)):
-                    # the destination detached while this copy was in
-                    # flight: the copy died with it (its waiters were
-                    # scrubbed at the detach)
-                    if audit is not None:
-                        audit.log_landing(ctx.gid, name, mem, t, False, "dead")
-                else:
-                    if did is not None and not (ctx.residency.mask_list[did] & (1 << (mem + 1))):
-                        memory.ensure_capacity(mem, ctx.residency._sizes[did], t, ctx, (did,))
-                    ctx.residency.add_copy(name, mem)
-                    if audit is not None:
-                        audit.log_landing(ctx.gid, name, mem, t, True, "ok")
-                waiters = ctx.waiting.pop((name, mem), None)
-                if waiters:
-                    for rid in waiters:
-                        w = workers[rid]
-                        if w.blocked_on > 0:
-                            w.blocked_on -= 1
-                            if (did is not None and w.pins is not None and w.pins[0] == mem
-                                    and w.pins[2] is ctx and w.blocked_on > 0):
-                                # keep the landed input of a still-blocked
-                                # head pinned until its next evaluation
-                                # (only while the head is this graph's task)
-                                memory.pin(ctx, did, mem)
-                                w.pins[1].append(did)
-                            if w.blocked_on == 0:
-                                self._try_start(w)
+                land(t, *payload)
                 if steal_on:
                     self._steal_round()
             elif kind == "done":
@@ -592,14 +749,73 @@ class Engine:
                 # detach: the task was re-activated elsewhere
                 if att == ctx.attempt[tid]:
                     self._complete(rid, ctx, tid, dur)
-            else:  # "fault"
+            elif kind == "fault":
                 action, rid, mode = payload
-                faults_on = True
                 faults.handle(self, action, rid, mode)
+            else:  # "submit": a streamed graph arrives
+                self._activate_roots(payload)
+                if steal_on:
+                    self._steal_round()
         self.metrics.n_events = n_events
-        if audit is not None:
-            audit.finalize(self)
+        if self.audit is not None:
+            self.audit.finalize(self)
+        self._check_complete()
+
+    def _run_loop_serving(self, max_events: Optional[int] = None) -> bool:
+        """The serving loop: the events of one simulated instant are
+        drained together, then one placement round runs over the pool.
+        Returns True when ``max_events`` cut the run short (such a run is
+        neither finalized nor checked for completeness)."""
+        serving = self._serving
+        self._running = True
+        self.strategy.init(self)
+        self.faults.schedule_churn(self)
+        pending, self._pending = self._pending, []
+        for ctx in pending:
+            self._arrive(ctx)
+        serving.round(self)
+        events = self.events.heap
+        heappop = heapq.heappop
+        land = self._land
+        faults = self.faults
+        n_events = 0
+        capped = False
+        while events and not capped:
+            t = events[0][0]
+            self.now = t
+            while events and events[0][0] == t:
+                _, _, kind, payload = heappop(events)
+                n_events += 1
+                if kind == "xfer":
+                    land(t, *payload)
+                elif kind == "done":
+                    rid, ctx, tid, dur, att = payload
+                    if att == ctx.attempt[tid]:
+                        self._complete(rid, ctx, tid, dur)
+                elif kind == "fault":
+                    action, rid, mode = payload
+                    faults.handle(self, action, rid, mode)
+                    # liveness and memory epochs moved: every cached row
+                    # is suspect
+                    serving.epoch += 1
+                else:  # "submit": a streamed tenant graph arrives
+                    self._arrive(payload)
+                if max_events is not None and n_events >= max_events:
+                    capped = True
+                    break
+            serving.round(self)
+        self.metrics.n_events = n_events
+        if capped:
+            return True
+        if self.audit is not None:
+            self.audit.finalize(self)
+        self._check_complete()
+        return False
+
+    def _check_complete(self) -> None:
         for ctx in self._ctxs:
+            if ctx.rejected:
+                continue  # admission control turned this tenant away
             if ctx.n_done != ctx.n_tasks:
                 missing = [t.tid for t in ctx.graph.tasks if not ctx.done[t.tid]]
                 raise RuntimeError(
@@ -608,28 +824,41 @@ class Engine:
                     + (" (capacity-bounded run: check mem_capacity)" if self._bounded else "")
                 )
 
-    def run(self) -> List[SimResult]:
+    def _graph_result(self, ctx: GraphContext) -> SimResult:
+        busy: Dict[int, float] = {r.rid: 0.0 for r in self.machine.resources}
+        for iv in ctx.intervals:
+            busy[iv.rid] += iv.end - iv.start
+        return SimResult(
+            makespan=(ctx.finish - ctx.submit_at) if not ctx.rejected else 0.0,
+            total_bytes=self.metrics.total_bytes,
+            n_transfers=self.metrics.n_transfers,
+            busy=busy,
+            intervals=ctx.intervals,
+            strategy=self.strategy.name,
+            total_flops=ctx.graph.total_flops(),
+            n_events=self.metrics.n_events,
+            n_steals=self.metrics.n_steals,
+            faults=self.fault_summary(),
+            submit_at=ctx.submit_at,
+            admit_at=ctx.admit_at if self._serving is not None else ctx.submit_at,
+            admitted=not ctx.rejected,
+        )
+
+    def run(self, max_events: Optional[int] = None) -> List[SimResult]:
         """Run every submitted graph to completion; one result per graph
-        (submit order). Transfer counters are machine-global."""
-        self._run_loop()
-        out = []
-        for ctx in self._ctxs:
-            busy: Dict[int, float] = {r.rid: 0.0 for r in self.machine.resources}
-            for iv in ctx.intervals:
-                busy[iv.rid] += iv.end - iv.start
-            out.append(SimResult(
-                makespan=ctx.finish,
-                total_bytes=self.metrics.total_bytes,
-                n_transfers=self.metrics.n_transfers,
-                busy=busy,
-                intervals=ctx.intervals,
-                strategy=self.strategy.name,
-                total_flops=ctx.graph.total_flops(),
-                n_events=self.metrics.n_events,
-                n_steals=self.metrics.n_steals,
-                faults=self.fault_summary(),
-            ))
-        return out
+        (submit order), its makespan counted from its submit time.
+        Transfer counters are machine-global. ``max_events`` (serving mode
+        only) stops the run after that many events and returns ``[]``:
+        throughput probes measure a fixed amount of work."""
+        if self._serving is not None:
+            if self._run_loop_serving(max_events):
+                return []
+        else:
+            if max_events is not None:
+                raise ValueError("max_events requires serving mode "
+                                 "(rescore='full' or 'incremental')")
+            self._run_loop()
+        return [self._graph_result(ctx) for ctx in self._ctxs]
 
     def fault_summary(self) -> Optional[Dict[str, float]]:
         """The fault counters of a run with a fault source or flaky links

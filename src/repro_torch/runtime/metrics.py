@@ -5,7 +5,9 @@ counters (transferred bytes, transfer/steal/event counts, per-worker busy
 time, the interval timeline), under a memory capacity the evictions and
 their write-back traffic, and under faults (:mod:`repro_torch.runtime.faults`)
 or flaky links the recovery counters, which :func:`recovery_report` reads
-against a fault-free baseline."""
+against a fault-free baseline. In serving mode the arrival and admission
+counters, which :func:`serving_report` aggregates with the per-tenant
+rows (:func:`percentile`, :func:`jain_fairness`)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -36,6 +38,11 @@ class SimResult:
     # the fault and recovery counters (Metrics.fault_summary); None unless
     # a fault source or flaky links were on
     faults: Optional[Dict[str, float]] = None
+    # arrival accounting: when the graph was submitted and admitted, and
+    # whether admission control let it in (serving mode)
+    submit_at: float = 0.0
+    admit_at: float = 0.0
+    admitted: bool = True
 
     @property
     def gflops(self) -> float:
@@ -58,6 +65,7 @@ class Metrics:
         "n_evacuations", "evacuated_bytes", "wasted_s",
         "n_notices", "n_proactive", "proactive_bytes",
         "n_retries", "n_timeouts", "retry_delay_s",
+        "n_arrivals", "n_admitted", "n_rejected", "n_deferred",
     )
 
     def __init__(self, machine: MachineModel) -> None:
@@ -86,6 +94,11 @@ class Metrics:
         self.n_retries = 0  # failed hops retried with backoff
         self.n_timeouts = 0  # retry budget exhausted: re-sourced
         self.retry_delay_s = 0.0  # total backoff delay
+        # serving mode: arrivals and admission control (repro_torch.runtime.load)
+        self.n_arrivals = 0  # tenant graphs that reached the machine
+        self.n_admitted = 0  # ... admitted past admission control
+        self.n_rejected = 0  # ... turned away (working set against capacity)
+        self.n_deferred = 0  # deferrals (one arrival may defer many times)
 
     def fault_summary(self) -> Dict[str, float]:
         """The fault counters as a plain dict (``SimResult.faults``)."""
@@ -127,3 +140,54 @@ def recovery_report(faulted: SimResult, baseline: SimResult) -> Dict[str, float]
         out.update(faulted.faults)
         out["reactive_evacuated_bytes"] = faulted.faults.get("evacuated_bytes", 0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# serving-mode aggregates (repro_torch.runtime.load.run_serving)
+
+
+def percentile(values: List[float], q: float) -> float:
+    """Nearest-rank percentile (``q`` in [0, 100]); 0.0 for empty input.
+    Nearest rank, so a reported p99 is a value some tenant experienced."""
+    if not values:
+        return 0.0
+    if not (0.0 <= q <= 100.0):
+        raise ValueError(f"percentile q must be in [0, 100], got {q!r}")
+    s = sorted(values)
+    rank = max(1, -(-len(s) * q // 100))  # ceil(len * q / 100), at least 1
+    return float(s[int(rank) - 1])
+
+
+def jain_fairness(values: List[float]) -> float:
+    """Jain's fairness index (Σx)² / (n·Σx²): 1.0 when every tenant was
+    treated alike, 1/n when one tenant got everything; 1.0 for empty or
+    all-zero input."""
+    if not values:
+        return 1.0
+    total = sum(values)
+    sq = sum(v * v for v in values)
+    if sq <= 0.0:
+        return 1.0
+    return (total * total) / (len(values) * sq)
+
+
+def serving_report(tenants: List[Dict[str, float]]) -> Dict[str, float]:
+    """The p50 / p99 and fairness summary of per-tenant serving rows, each
+    with ``makespan``, ``slowdown`` (against the tenant's empty-machine
+    baseline) and ``queue_delay`` (first start minus submit). Fairness is
+    Jain's index over the slowdowns."""
+    slow = [float(r["slowdown"]) for r in tenants]
+    qd = [float(r["queue_delay"]) for r in tenants]
+    mk = [float(r["makespan"]) for r in tenants]
+    n = len(tenants)
+    return {
+        "n_tenants": n,
+        "p50_makespan": percentile(mk, 50),
+        "p99_makespan": percentile(mk, 99),
+        "p50_slowdown": percentile(slow, 50),
+        "p99_slowdown": percentile(slow, 99),
+        "mean_slowdown": (sum(slow) / n) if n else 0.0,
+        "p50_queue_delay": percentile(qd, 50),
+        "p99_queue_delay": percentile(qd, 99),
+        "jain_fairness": jain_fairness(slow),
+    }

@@ -10,8 +10,11 @@
     path), reusing an already-in-flight host hop when one exists.
 
 A transfer in flight when its data is overwritten still lands as a valid
-copy: ``repro``'s engine keeps that modeling artifact by default, and
-this engine matches it bit for bit.
+copy by default: ``repro``'s engine keeps that modeling artifact, and
+this engine matches it bit for bit. With ``cancel_stale`` (the engine's
+``cancel_stale=True``) each request stamps its landing with the datum's
+version, which the engine bumps at every write; a landing whose version
+is stale is dropped instead.
 
 Capacity-bounded memories (:mod:`repro_torch.runtime.memory`, wired by
 the engine as ``memory``) hook in at request time: space at the
@@ -61,6 +64,7 @@ class TransferEngine:
     __slots__ = (
         "events", "metrics", "mem_link", "link_free", "_link_lat", "_link_bw", "audit",
         "memory", "faults", "flake_rate", "retry_max", "backoff_s", "_flake_rng", "_flake_on",
+        "cancel_stale",
     )
 
     def __init__(
@@ -79,6 +83,7 @@ class TransferEngine:
         self.audit = None  # repro_torch.verify AuditLog, wired by the engine
         self.memory = None  # MemoryManager, wired by the engine when bounded
         self.faults = None  # FaultManager, wired by the engine
+        self.cancel_stale = False  # stamp landings with the data's version
         # flaky links (inert until enable_flake)
         self.flake_rate = 0.0
         self.retry_max = 0
@@ -173,6 +178,7 @@ class TransferEngine:
             # reserve destination space first: eviction write-backs queue
             # on the link ahead of this copy
             self.memory.reserve(ctx, name, size, dst_mem, now, protect)
+        ver = ctx.data_version.get(name, 0) if self.cancel_stale else 0
         # the destination memory's detach epoch: 0 while no fault source is
         # active (the host never detaches, so host hops carry 0)
         faults = self.faults
@@ -195,14 +201,14 @@ class TransferEngine:
                 if flights is None:
                     flights = inflight[name] = {}
                 flights[HOST_MEM] = mid
-                post(mid, "xfer", (ctx, name, HOST_MEM, 0))
+                post(mid, "xfer", (ctx, name, HOST_MEM, ver, 0))
                 if self.audit is not None:
                     self.audit.note_request(ctx.gid, name, HOST_MEM, mid, now)
             done = self._hop(ctx, name, size, mem_link.get(dst_mem), mid, dst_mem)
         if flights is None:
             flights = inflight[name] = {}
         flights[dst_mem] = done
-        post(done, "xfer", (ctx, name, dst_mem, epoch))
+        post(done, "xfer", (ctx, name, dst_mem, ver, epoch))
         if self.audit is not None:
             self.audit.note_request(ctx.gid, name, dst_mem, done, now)
         return done

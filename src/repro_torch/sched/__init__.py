@@ -9,7 +9,8 @@ from ..core.heft import HEFT
 from ..runtime.queues import WorkSteal
 from .policies import LocalityPolicy, PriorityPolicy, RandomPolicy, WFQPolicy
 from .policy import Policy, ScoreMatrixPolicy, assign_from_scores, class_duration_matrix
-from .registry import get_factory, parse_spec, register, registered, resolve, unregister
+from .registry import (get_factory, parse_spec, register, registered, resolve, resolve_on,
+                       unregister)
 
 register("heft", HEFT)
 register("dada", DADA)
@@ -23,5 +24,5 @@ register("wfq", WFQPolicy)
 __all__ = [
     "LocalityPolicy", "Policy", "PriorityPolicy", "RandomPolicy", "ScoreMatrixPolicy",
     "WFQPolicy", "assign_from_scores", "class_duration_matrix", "get_factory", "parse_spec",
-    "register", "registered", "resolve", "unregister",
+    "register", "registered", "resolve", "resolve_on", "unregister",
 ]

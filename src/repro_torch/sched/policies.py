@@ -115,9 +115,9 @@ class WFQPolicy(PriorityPolicy):
     priority`` as its tasks are placed (``charge_tenant``); a new tenant
     starts at the pool minimum. The backlog a tenant perceives is scaled
     by how far ahead of the least-served tenant it is (clamped to [1, 8]),
-    which bounds the worst tenant's slowdown. Virtual times live for the
-    whole run: the engine retires no tenant, as the reference's default
-    loop retires none.
+    which bounds the worst tenant's slowdown. A serving engine retires a
+    finished tenant (``retire_tenant``), so the minimum tracks the live
+    tenants; the classic loop retires none, as the reference's does.
     """
 
     name = "wfq"
@@ -138,6 +138,11 @@ class WFQPolicy(PriorityPolicy):
         if gid not in vt:
             vt[gid] = min(vt.values()) if vt else 0.0
         vt[gid] += float(dur) / max(float(ctx.priority), 1e-9)
+
+    def retire_tenant(self, ctx) -> None:
+        # a finished tenant leaves the pool minimum (a long-done gid at a
+        # low virtual time would hold every live tenant back)
+        self._vt.pop(ctx.gid, None)
 
     def tenant_scale(self, sim, ctx) -> float:
         vt = self._vt

@@ -154,3 +154,11 @@ def resolve(spec, **kwargs):
         call_kw[k] = _coerce(spec, k, v, p) if p is not None else v
     call_kw.update(kwargs)
     return factory(**call_kw)
+
+
+def resolve_on(spec: str, device="cuda"):
+    """Build ``spec`` for ``device``. The device goes only to a factory
+    whose signature declares it: ``ws`` and ``random`` score nothing and
+    take none."""
+    params = inspect.signature(get_factory(parse_spec(spec)[0])).parameters
+    return resolve(spec, device=device) if "device" in params else resolve(spec)

@@ -1427,3 +1427,133 @@ def test_cuda_x_bias_reaches_the_placement(cuda, spec):
     assert got["cuda", False] == got["cpu", False]
     assert got["cuda", True] == got["cpu", True]
     assert got["cuda", False] != got["cuda", True]
+
+
+# ---------------------------------------------------------------------------
+# the serving pool: every round's dirty rows in one score_activation launch
+
+
+def _pool_groups(seed):
+    """Three tenant graphs under a seeded residency with device copies and
+    their pool groups: a Cholesky NT 6 graph whole (56 rows: the
+    reference's reduceat order), half of an LU NT 4 and a third of a QR NT
+    3, for an engine per device."""
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.linalg.cholesky import cholesky_graph
+    from repro_torch.linalg.lu import lu_graph
+    from repro_torch.linalg.qr import qr_graph
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.sched import resolve
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        rng = np.random.default_rng(seed)
+        eng = Engine(paper_machine(8), resolve("heft", device="cpu"), seed=seed)
+        groups = []
+        for g, share in ((cholesky_graph(6, 256), 1), (lu_graph(4, 256), 2), (qr_graph(3, 256), 3)):
+            ctx = eng.submit(g)
+            for name in ctx.arrays.data_names:
+                for mem in range(8):
+                    if rng.random() < 0.25:
+                        ctx.residency.add_copy(name, mem)
+                if rng.random() < 0.2:
+                    ctx.residency.write(name, int(rng.integers(8)))
+            groups.append((ctx, list(range(0, len(g), share))))
+        out[dev] = (eng, groups)
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cuda_pool_rows_equal_plain(cuda, seed):
+    from repro_torch.core.backend import TorchScoringBackend
+
+    runs = _pool_groups(seed)
+    got = {}
+    for dev, (eng, groups) in runs.items():
+        be = TorchScoringBackend(dev)
+        before = port.score_activation.launches
+        got[dev] = torch.from_numpy(be.score_pool(groups, eng.machine.resources,
+                                                  eng.transfer_model))
+        assert port.score_activation.launches - before == (dev == "cuda")
+        # each group alone equals its rows of the pooled call
+        at = 0
+        for ctx, tids in groups:
+            one = be.score_pool([(ctx, tids)], eng.machine.resources, eng.transfer_model)
+            assert torch.equal(torch.from_numpy(one), got[dev][at:at + len(tids)])
+            at += len(tids)
+    assert max(len(t) for _, t in runs["cuda"][1]) >= 32
+    assert torch.equal(got["cuda"], got["cpu"])
+
+
+def _serving_fp(out):
+    e = out["engine"]
+    return (out["tenants"], out["report"], out["n_events"], out["rows_built"],
+            [(c.gid, iv.tid, iv.rid, iv.start, iv.end) for c in e._ctxs for iv in c.intervals],
+            e._serving.n_rounds)
+
+
+@pytest.mark.parametrize("mode", ["incremental", "full"])
+def test_cuda_serving_pool_one_launch_per_round(cuda, mode):
+    """A serving engine's run: one score_activation launch per round with
+    a row to build (min_wide 1), the standalone transfer kernel none, and
+    the run equal to the CPU's."""
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.load import default_catalog, make_arrivals
+    from repro_torch.runtime.rescore import ServingScheduler
+    from repro_torch.sched import resolve
+
+    arr, catalog = make_arrivals("bursty", 48, rate=2000.0, seed=3), default_catalog()
+    rounds, rebuild = [], ServingScheduler._rebuild
+
+    def counted(self, engine, keys):
+        rounds.append(sum(1 for k in keys if k in self.entries))
+        return rebuild(self, engine, keys)
+
+    fps = {}
+    ServingScheduler._rebuild = counted
+    try:
+        for dev in ("cuda", "cpu"):
+            rounds.clear()
+            eng = Engine(paper_machine(4), resolve("wfq", device=dev), seed=0, rescore=mode,
+                         device=dev)
+            for a in arr:
+                eng.submit(catalog[a.kind](), at=a.t, priority=a.priority)
+            before, xfer = port.score_activation.launches, port.transfer_matrix.launches
+            results = eng.run()
+            torch.cuda.synchronize()
+            launches = port.score_activation.launches - before
+            assert port.transfer_matrix.launches == xfer
+            assert launches == (sum(n >= 1 for n in rounds) if dev == "cuda" else 0)
+            fps[dev] = ([(r.makespan, [(iv.tid, iv.rid, iv.start, iv.end) for iv in r.intervals])
+                         for r in results], eng.metrics.n_events, eng._serving.rows_built,
+                        eng._serving.n_rounds)
+    finally:
+        ServingScheduler._rebuild = rebuild
+    assert fps["cuda"] == fps["cpu"]
+
+
+@pytest.mark.parametrize("spec", ["heft", "dada?alpha=0.5&use_cp=1"])
+def test_cuda_run_serving_equals_cpu(cuda, spec):
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.runtime.load import make_arrivals, run_serving
+
+    arr = make_arrivals("poisson", 64, rate=2000.0, seed=7)
+    card = run_serving(arr, paper_machine(4), spec, seed=0, device="cuda")
+    cpu = run_serving(arr, paper_machine(4), spec, seed=0, device="cpu")
+    assert _serving_fp(card) == _serving_fp(cpu)
+    assert card["report"]["n_tenants"] == 64
+
+
+def test_cuda_serving_engine_raises_without_a_card(cuda, monkeypatch):
+    from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.runtime.engine import Engine
+    from repro_torch.runtime.load import make_arrivals, run_serving
+    from repro_torch.sched import resolve
+
+    strategy = resolve("heft", device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(paper_machine(2), strategy, rescore="incremental")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_serving(make_arrivals("poisson", 2), paper_machine(2), "heft")

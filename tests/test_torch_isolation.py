@@ -37,7 +37,9 @@ def test_every_module_imports_without_jax_or_repro():
     modules = _port_modules()
     assert len(modules) >= 25
     assert {"repro_torch.bench.common", "repro_torch.bench.figures",
-            "repro_torch.bench.paper_validation"} <= set(modules)
+            "repro_torch.bench.paper_validation", "repro_torch.bench.serving_load",
+            "repro_torch.bench.scenario_matrix", "repro_torch.runtime.load",
+            "repro_torch.runtime.rescore"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
@@ -68,8 +70,9 @@ def test_no_source_file_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
         ROOT / "tests" / name for name in ("_place_cases.py", "_episode_cases.py")]
     assert len(files) >= 25
-    assert {"common.py", "figures.py", "paper_validation.py"} <= {
-        f.name for f in files if f.parent.name == "bench"}
+    assert {"common.py", "figures.py", "paper_validation.py", "serving_load.py",
+            "scenario_matrix.py"} <= {f.name for f in files if f.parent.name == "bench"}
+    assert {"load.py", "rescore.py"} <= {f.name for f in files if f.parent.name == "runtime"}
     offenders = {
         str(f.relative_to(ROOT)): sorted(
             r for r in set(_imported_roots(f)) if r in ("jax", "jaxlib", "repro")
