@@ -10,8 +10,9 @@ non-zero and no phase carries on past its own failure):
               reports and the card (name and power limit, from nvidia-smi);
   2. kernel   the fused activation scorer (score_activation) against its
               plain version over the same packed buffer, on the card and on
-              the CPU, over n 1..256, n_u 9/25/30/40, every one of the 29
-              flag combinations, tasks without reads or accesses, masks 0
+              the CPU, over n 1..256, n_u 9/25/30/40, every one of the 39
+              flag combinations (S resident-weighted, accelerator-only or
+              missing_bytes), tasks without reads or accesses, masks 0
               and host-only masks: every output must be exactly equal
               (torch.equal); then the same with x_bias columns at +inf (a
               detached resource) and finite notice penalties, as HEFT's
@@ -56,6 +57,13 @@ non-zero and no phase carries on past its own failure):
               length of the dependent chain; then both again at n 128 with
               one GPU detached and one noticed (DADA with recover: the
               liveness inputs; HEFT: +inf and the penalty in x_bias);
+              then DADA(0.5) and DADA(0.5)+CP under the missing_bytes
+              affinity (S from the reads by the scorer's s_missing flag)
+              over Cholesky, LU and QR at NT 16 on paper_machine(8), the
+              kernels' counts set to 0 just before each card run and read
+              just after: each equal to its device="cpu" twin, one
+              score_activation and one dada_place launch per placed
+              activation, no plain search;
   4. main     HEFT and DADA(0.5)+CP on the paper machine with 8 GPUs over
               the Cholesky, LU and QR tile DAGs at NT 16 (tile 512, the
               paper's shape) and NT 64 (the reference's scaling size), every
@@ -101,10 +109,14 @@ non-zero and no phase carries on past its own failure):
               path's shapes (chatglm3-6b: 32 query heads, 2 KV heads, hd
               128, bf16), printing the route each case took (tensor-core
               "tc" / split-KV "split", or "simt") and checking it against
-              the counters; unaligned views take the SIMT routes; refusals;
-              then their times at those shapes (and decode at a
-              decode_32k-like shape: B 16, S 32 768) beside the plain
-              version, the bound and scaled_dot_product_attention;
+              the counters; MLA's widths, a value head dim of its own
+              ((dk, dv) = (96, 64) at 40 heads, and (48, 32)) in f32 and
+              bf16, so on every route; unaligned views take the SIMT
+              routes; refusals; then their times at those shapes (and
+              decode at a decode_32k-like shape: B 16, S 32 768; and
+              minicpm3-4b's prefill B 4 x 2048 and serving step) beside
+              the plain version, the bound and
+              scaled_dot_product_attention;
   8. serve    chatglm3-6b at full width and depth (6.24e9 random bf16
               parameters from a seeded generator) on the card: prefill of
               4 x 2048 tokens through make_prefill_step; then
@@ -116,6 +128,15 @@ non-zero and no phase carries on past its own failure):
               "split"). Prints tokens/s
               and a profile of one prefill and one decode step. Then the
               smoke configs served on the card against the CPU at f32;
+  8b. mla     the same for minicpm3-4b (Multi-head Latent Attention: 62
+              layers, d 2560, 40 heads, q/k head dim 96, v 64; 4.26e9
+              random bf16 parameters, seed 0), the counts set to 0 just
+              before its main path and read just after: 62 flash_attention
+              launches per prefill forward, all "tc", and 62 flash_decode
+              launches per decode forward, all "split"; the two paths'
+              logits within SERVE_LOGIT_TOL; prints prefill tokens/s, ms a
+              decode step and peak device memory; then its smoke config on
+              the card against the CPU at f32;
   9. profile  one NT 16 Cholesky simulation per strategy under
               torch.profiler (twice with one strategy object; the second is
               read): device busy time against wall time, each placement
@@ -255,7 +276,8 @@ non-zero and no phase carries on past its own failure):
               index per run, and a serving JSON line;
  16. report   a JSON line of every ported kernel (launches_paper,
               launches_verify, launches_memory, launches_faults and
-              launches_serving: each kernel's launches in those phases),
+              launches_serving: each kernel's launches in those phases;
+              launches_mla and launches_missing_bytes likewise),
               then the last line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits 2 without printing a result when there is
@@ -323,6 +345,23 @@ ATTN_CASES = [
     # or 64, causal with sk > sq, B > 1 strided views
     (2, 8, 2, 77, 300, 64, True), (3, 32, 2, 257, 257, 128, True),
     (2, 6, 3, 200, 65, 64, False), (1, 4, 1, 1, 129, 128, True), (2, 4, 2, 130, 1000, 64, False),
+]
+# MLA's widths: minicpm3-4b (40 heads, every head its own keys; query/key
+# head dim 96, value head dim 64) and a narrower pair (48, 32). flash_attention:
+# (B or None, hq, hk, sq, sk, dk, dv, causal); flash_decode: (B, hq, hk, S,
+# dk, dv, length). Each runs in f32 (the SIMT routes) and bf16 (the
+# tensor-core routes).
+MLA_ARCH = "minicpm3-4b"
+ATTN_DV_CASES = [
+    (None, 8, 8, 128, 128, 96, 64, True), (None, 4, 2, 100, 100, 48, 32, True),
+    (2, 8, 2, 77, 300, 48, 32, False), (1, 40, 40, 130, 130, 96, 64, False),
+    (SERVE_B, 40, 40, SERVE_PROMPT, SERVE_PROMPT, 96, 64, True),  # the MLA prompt
+    (SERVE_B, 40, 40, SERVE_PREFILL, SERVE_PREFILL, 96, 64, True),  # the MLA prefill
+]
+DECODE_DV_CASES = [
+    (SERVE_B, 40, 40, SERVE_PROMPT + SERVE_STEPS, 96, 64, SERVE_PROMPT + SERVE_STEPS),  # MLA
+    (SERVE_B, 40, 40, 1, 96, 64, 1), (2, 8, 2, 700, 48, 32, 65), (2, 40, 40, 300, 48, 32, 300),
+    (3, 16, 4, 200, 96, 64, 131),
 ]
 # placement cases: resource classes by position (True: accelerator):
 # paper_machine(8) (4 CPUs, 8 GPUs), a wide GPU-only machine, two CPUs, one
@@ -450,15 +489,17 @@ def full_case(rng, n_pad, r_pad, n_u):
 
 
 def flag_combinations():
-    """Every valid combination of score_activation's six flags (29)."""
+    """Every valid combination of score_activation's seven flags (39): S
+    resident-weighted, on accelerators only, or missing_bytes (s_missing)."""
     out = []
     for x in ("none", "max", "max+bias", "rows", "rows+bias"):
-        for s in ("none", "s", "s+accel"):
+        for s in ("none", "s", "s+accel", "s+missing"):
             for c in (False, True):
                 if x != "none" or s != "none" or c:
                     out.append(dict(want_x=x != "none", x_rows=x.startswith("rows"),
                                     want_bias="bias" in x, want_s=s != "none",
-                                    accel_only=s == "s+accel", want_c=c))
+                                    accel_only=s == "s+accel", want_c=c,
+                                    s_missing=s == "s+missing"))
     return out
 
 
@@ -495,6 +536,8 @@ def activation_case(ss, rng, n, n_u, n_res, host, flags, fault_bias=False):
         reads[2][::6] = 0.0  # reads of size 0
     if flags["want_s"]:
         writes = csr(3, 1)
+        if flags.get("s_missing"):
+            writes[2][::6] = 0.0  # read-like: sizes of 0 too
     bias = None
     if flags["want_bias"]:
         bias = rng.random((n, n_res)) * 1e-3
@@ -1194,6 +1237,69 @@ def place_timing(sp, ss, name, spec, sim, tids, machine, resolve, dev, place_ptx
     return row
 
 
+# DADA under the missing_bytes affinity (S from the reads' sizes by the
+# scorer's s_missing flag): its specs, and the place phase's runs of them
+MISSING_SPECS = ("dada?alpha=0.5&affinity=missing_bytes",
+                 "dada?alpha=0.5&use_cp=1&affinity=missing_bytes")
+
+
+def missing_bytes_runs(ss, sp, resolve, Simulator, builders, machine):
+    """DADA(0.5) and DADA(0.5)+CP with ``affinity="missing_bytes"`` over
+    Cholesky, LU and QR at NT 16 (tile 512) on ``machine``: each card run,
+    the kernels' counts set to 0 just before it and read just after, must
+    equal its device="cpu" twin and score and place every activation on the
+    card, one score_activation and one dada_place launch each. Returns the
+    rows and the launches by kernel."""
+    rows, launches = [], {"score_activation": 0, "dada_place": 0}
+    for gname, build in builders.items():
+        for spec in MISSING_SPECS:
+            got = {}
+            for device in ("cuda", "cpu"):
+                strategy = resolve(spec, device=device)
+                place, placed = strategy.backend.place_dada, [0]
+
+                def counted(*args, place=place, placed=placed, **kwargs):
+                    placed[0] += 1
+                    return place(*args, **kwargs)
+
+                strategy.backend.place_dada = counted
+                sim = Simulator(build(16, 512), machine, strategy, seed=0)
+                ss.score_activation.launches = sp.dada_place.launches = 0
+                sp.heft_select.launches = ss.transfer_matrix.launches = 0
+                plain0 = sp.dada_place_plain.calls
+                w0 = time.perf_counter()
+                res = sim.run()
+                torch.cuda.synchronize()
+                got[device] = dict(
+                    res=res, wall=time.perf_counter() - w0, placed=placed[0],
+                    score=ss.score_activation.launches, dada=sp.dada_place.launches,
+                    other=sp.heft_select.launches + ss.transfer_matrix.launches,
+                    plain=sp.dada_place_plain.calls - plain0)
+            card, cpu = got["cuda"], got["cpu"]
+            n = card["placed"]
+            print(f"missing_bytes run graph={gname} NT=16 strategy={card['res'].strategy} "
+                  f"spec={spec} placed={n} score_launches={card['score']} "
+                  f"dada_place_launches={card['dada']} makespan={card['res'].makespan!r} "
+                  f"total_bytes={card['res'].total_bytes} wall_s={card['wall']:.6f} "
+                  f"cpu_wall_s={cpu['wall']:.6f}", flush=True)
+            if fingerprint(card["res"]) != fingerprint(cpu["res"]) or n != cpu["placed"]:
+                raise SystemExit(f"missing_bytes {gname} {spec}: the card run differs from the CPU's")
+            if n == 0 or not card["score"] == card["dada"] == n or card["other"] or card["plain"]:
+                raise SystemExit(f"missing_bytes {gname} {spec}: {card['score']} scoring and "
+                                 f"{card['dada']} dada_place launches ({card['other']} others, "
+                                 f"{card['plain']} plain searches) for {n} placed activations")
+            if cpu["score"] or cpu["dada"] or cpu["other"]:
+                raise SystemExit("the CPU run launched a kernel")
+            launches["score_activation"] += card["score"]
+            launches["dada_place"] += card["dada"]
+            rows.append(dict(graph=gname, spec=spec, placed=n, makespan=card["res"].makespan,
+                             total_bytes=card["res"].total_bytes, wall_s=card["wall"],
+                             cpu_wall_s=cpu["wall"]))
+    print(f"missing_bytes: {len(rows)} runs equal to their CPU twins, launches {launches}, one "
+          f"score_activation and one dada_place per placed activation", flush=True)
+    return rows, launches
+
+
 def launch_counts(prof):
     """Device kernels and memcpys of a torch.profiler run, and the runtime
     calls that issued them."""
@@ -1506,19 +1612,22 @@ def _draw(rng, shape, dtype):
 
 def attention_check(fa, fd, dev):
     """Both attention kernels against their plain versions on the card and
-    on the CPU, on every route; returns the largest |kernel - plain on the
-    card| of each, by route."""
+    on the CPU, on every route, with dv = dk and with MLA's dv != dk;
+    returns the largest |kernel - plain on the card| of each, by route,
+    over all cases and over the dv != dk cases."""
     rng = np.random.default_rng(0)
+    fa_err_dv, fd_err_dv = {}, {}
     fa_err = {}
     routes = {}
+    attn_cases = [(*c[:6], c[5], c[6]) for c in ATTN_CASES] + ATTN_DV_CASES  # (.., dk, dv, causal)
     for dtype in (torch.float32, torch.bfloat16):
         tol = ATTN_TOL[dtype]
-        for B, hq, hk, sq, sk, d, causal in ATTN_CASES:
+        for B, hq, hk, sq, sk, d, dv, causal in attn_cases:
             if B is None:
-                host = [_draw(rng, s, dtype) for s in ((hq, sq, d), (hk, sk, d), (hk, sk, d))]
+                host = [_draw(rng, s, dtype) for s in ((hq, sq, d), (hk, sk, d), (hk, sk, dv))]
                 args = [t.to(dev) for t in host]
             else:  # the model's call: (B, S, H, d) projections as (B, H, S, d) views
-                raw = [_draw(rng, s, dtype) for s in ((B, sq, hq, d), (B, sk, hk, d), (B, sk, hk, d))]
+                raw = [_draw(rng, s, dtype) for s in ((B, sq, hq, d), (B, sk, hk, d), (B, sk, hk, dv))]
                 host = [t.transpose(1, 2) for t in raw]
                 args = [t.to(dev).transpose(1, 2) for t in raw]
             route = fa.attention_route(*args)
@@ -1527,7 +1636,7 @@ def attention_check(fa, fd, dev):
             want_card = fa.flash_attention_plain(*args, causal=causal)
             torch.cuda.synchronize()
             g = got.cpu().float()
-            shape = tuple(host[0].shape)
+            shape = tuple(host[0].shape[:-1]) + (dv,)
             if tuple(got.shape) != shape or got.dtype != dtype or not torch.isfinite(g).all():
                 raise SystemExit(f"flash_attention output malformed at {shape} {dtype}")
             if fa.flash_attention.launches_tc - before != (route == "tc"):
@@ -1544,18 +1653,21 @@ def attention_check(fa, fd, dev):
                         f"{dtype} causal={causal}: max |diff| {(g - want).abs().max().item()}")
             err = (g - wants[0]).abs().max().item()
             fa_err[route] = max(fa_err.get(route, 0.0), err)
-            print(f"  flash_attention {shape} {str(dtype)[6:]} causal={causal}: route {route}, "
-                  f"max |kernel - plain| {err}")
+            print(f"  flash_attention {shape} dk {d} dv {dv} {str(dtype)[6:]} causal={causal}: "
+                  f"route {route}, max |kernel - plain| {err}")
+            if dv != d:
+                fa_err_dv[route] = max(fa_err_dv.get(route, 0.0), err)
             del got, want_card, args
     print(f"flash_attention within tol of its plain version (card and CPU) on "
-          f"{2 * len(ATTN_CASES)} cases, by route {routes}; max |kernel - plain on the card| "
-          f"by route {fa_err}")
+          f"{2 * len(attn_cases)} cases, by route {routes}; max |kernel - plain on the card| "
+          f"by route {fa_err}; with dv != dk {fa_err_dv}")
     fd_err = {}
     routes = {}
+    decode_cases = [(*c[:5], c[4], c[5]) for c in DECODE_CASES] + DECODE_DV_CASES
     for dtype in (torch.float32, torch.bfloat16):
         tol = DECODE_TOL[dtype]
-        for B, hq, hk, S, hd, length in DECODE_CASES:
-            host = [_draw(rng, s, dtype) for s in ((B, hq, hd), (B, S, hk, hd), (B, S, hk, hd))]
+        for B, hq, hk, S, hd, dv, length in decode_cases:
+            host = [_draw(rng, s, dtype) for s in ((B, hq, hd), (B, S, hk, hd), (B, S, hk, dv))]
             args = [t.to(dev) for t in host]
             route = fd.decode_route(*args)
             before = fd.flash_decode.launches_split
@@ -1563,8 +1675,8 @@ def attention_check(fa, fd, dev):
             want_card = fd.flash_decode_plain(*args, length)
             torch.cuda.synchronize()
             g = got.cpu().float()
-            if tuple(got.shape) != (B, hq, hd) or got.dtype != dtype or not torch.isfinite(g).all():
-                raise SystemExit(f"flash_decode output malformed at {(B, hq, hk, S, hd)} {dtype}")
+            if tuple(got.shape) != (B, hq, dv) or got.dtype != dtype or not torch.isfinite(g).all():
+                raise SystemExit(f"flash_decode output malformed at {(B, hq, hk, S, hd, dv)} {dtype}")
             if fd.flash_decode.launches_split - before != (route == "split"):
                 raise SystemExit(f"flash_decode at {(B, hq, hk, S, hd)} {dtype}: the counters "
                                  f"disagree with the route {route}")
@@ -1580,14 +1692,16 @@ def attention_check(fa, fd, dev):
                         f"{(g - want).abs().max().item()}")
             err = (g - wants[0]).abs().max().item()
             fd_err[route] = max(fd_err.get(route, 0.0), err)
+            if dv != hd:
+                fd_err_dv[route] = max(fd_err_dv.get(route, 0.0), err)
             splits = fd.decode_splits(B, hk, length)[1] if route == "split" else None
-            print(f"  flash_decode {(B, hq, hk, S, hd)} length {length} {str(dtype)[6:]}: route "
-                  f"{route}" + (f" ({splits} splits)" if splits else "")
+            print(f"  flash_decode {(B, hq, hk, S, hd)} dv {dv} length {length} {str(dtype)[6:]}: "
+                  f"route {route}" + (f" ({splits} splits)" if splits else "")
                   + f", max |kernel - plain| {err}")
             del got, want_card, args
     print(f"flash_decode within tol of its plain version (card and CPU) on "
-          f"{2 * len(DECODE_CASES)} cases, by route {routes}; max |kernel - plain on the card| "
-          f"by route {fd_err}")
+          f"{2 * len(decode_cases)} cases, by route {routes}; max |kernel - plain on the card| "
+          f"by route {fd_err}; with dv != dk {fd_err_dv}")
     # unaligned bf16 views take the SIMT routes, by the counters
     raw = [_draw(rng, s, torch.bfloat16).to(dev) for s in ((8, 96, 136), (2, 96, 136))]
     q, kv = (t[..., 1:129] for t in raw)
@@ -1605,7 +1719,29 @@ def attention_check(fa, fd, dev):
     if (fd.decode_route(qd, cache, cache) != "simt" or err > DECODE_TOL[torch.bfloat16]
             or (fd.flash_decode.launches, fd.flash_decode.launches_split) != (before[0] + 1, before[1])):
         raise SystemExit(f"flash_decode on an unaligned view: not the SIMT route, or wrong ({err})")
-    print("unaligned bf16 views: both took the SIMT route and agree with the plain versions")
+    # and with MLA's widths: q / k 96 wide, v 64, cut one element in
+    raw = [_draw(rng, s, torch.bfloat16).to(dev) for s in ((8, 96, 104), (8, 96, 104), (8, 96, 72))]
+    q, k, v = raw[0][..., 1:97], raw[1][..., 1:97], raw[2][..., 1:65]
+    before = (fa.flash_attention.launches, fa.flash_attention.launches_tc)
+    err = (fa.flash_attention(q, k, v).float() - fa.flash_attention_plain(q, k, v).float()).abs().max().item()
+    if (fa.attention_route(q, k, v) != "simt" or err > ATTN_TOL[torch.bfloat16]
+            or (fa.flash_attention.launches, fa.flash_attention.launches_tc) != (before[0] + 1, before[1])):
+        raise SystemExit(f"flash_attention on an unaligned dv-64 view: not the SIMT route, or wrong ({err})")
+    fa_err_dv["simt"] = max(fa_err_dv.get("simt", 0.0), err)
+    kc = _draw(rng, (2, 90, 8, 104), torch.bfloat16).to(dev)[..., 1:97]
+    vc = _draw(rng, (2, 90, 8, 72), torch.bfloat16).to(dev)[..., 1:65]
+    qd = _draw(rng, (2, 8, 104), torch.bfloat16).to(dev)[..., 1:97]
+    before = (fd.flash_decode.launches, fd.flash_decode.launches_split)
+    err = (fd.flash_decode(qd, kc, vc, 77).float() - fd.flash_decode_plain(qd, kc, vc, 77).float()).abs().max().item()
+    if (fd.decode_route(qd, kc, vc) != "simt" or err > DECODE_TOL[torch.bfloat16]
+            or (fd.flash_decode.launches, fd.flash_decode.launches_split) != (before[0] + 1, before[1])):
+        raise SystemExit(f"flash_decode on an unaligned dv-64 view: not the SIMT route, or wrong ({err})")
+    fd_err_dv["simt"] = max(fd_err_dv.get("simt", 0.0), err)
+    print("unaligned bf16 views: both took the SIMT route and agree with the plain versions "
+          "(dk = dv and dk 96, dv 64)")
+    for name, errs in (("flash_attention", fa_err_dv), ("flash_decode", fd_err_dv)):
+        if set(errs) != ({"tc", "simt"} if name == "flash_attention" else {"split", "simt"}):
+            raise SystemExit(f"{name}: the dv != dk cases did not run on every route: {errs}")
     x = torch.zeros(4, 20, 32, device=dev)
     must_refuse("causal sq > sk", lambda: fa.flash_attention(x, x[:2, :10], x[:2, :10]),
                 fa.flash_attention)
@@ -1615,7 +1751,9 @@ def attention_check(fa, fd, dev):
     must_refuse("length 0", lambda: fd.flash_decode(x[:2, :8], c, c, 0), fd.flash_decode)
     must_refuse("a CPU cache", lambda: fd.flash_decode(x[:2, :8], c.cpu(), c.cpu(), 4),
                 fd.flash_decode)
-    return fa_err, fd_err
+    must_refuse("values wider than keys", lambda: fa.flash_attention(x, x, torch.zeros(4, 20, 48, device=dev)),
+                fa.flash_attention)
+    return fa_err, fd_err, fa_err_dv, fd_err_dv
 
 
 def attention_timing(fa, fd, dev):
@@ -1626,6 +1764,8 @@ def attention_timing(fa, fd, dev):
     rng = np.random.default_rng(3)
     dt = torch.bfloat16
     rows = []
+    print(f"attention timing: device memory allocated {torch.cuda.memory_allocated()} bytes, "
+          f"reserved {torch.cuda.memory_reserved()} bytes", flush=True)
     B, hq, hk, S, d = SERVE_B, 32, 2, SERVE_PREFILL, 128
     q, k, v = (_draw(rng, (B, S, h, d), dt).to(dev).transpose(1, 2) for h in (hq, hk, hk))
     pairs = S * (S + 1) // 2  # causal (query, key) pairs a head computes
@@ -1651,6 +1791,31 @@ def attention_timing(fa, fd, dev):
             lambda qd=qd, kc=kc, vc=vc, S=S: fd.flash_decode_plain(qd, kc, vc, S),
             lambda q4=q4, k4=k4, v4=v4: F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True),
         ))
+    # MLA (minicpm3-4b): 40 heads, each its own keys; q / k 96 wide, v 64;
+    # scale 1 / sqrt(96) (SDPA's default for a 96-wide q). The decode row is
+    # the serving step's last: 96 live positions, expanded from the latents
+    H, dk, dv, S = 40, 96, 64, SERVE_PREFILL
+    q, k = (_draw(rng, (SERVE_B, S, H, dk), dt).to(dev).transpose(1, 2) for _ in range(2))
+    v = _draw(rng, (SERVE_B, S, H, dv), dt).to(dev).transpose(1, 2)
+    pairs = S * (S + 1) // 2
+    cases.append((
+        "flash_attention", f"MLA prefill B{SERVE_B} S{S} h{H} dk{dk} dv{dv} bf16 causal",
+        2 * pairs * SERVE_B * H * (dk + dv), 2 * SERVE_B * S * H * (2 * dk + 2 * dv),
+        {"route": fa.attention_route(q, k, v), "mla": True},
+        lambda: fa.flash_attention(q, k, v), lambda: fa.flash_attention_plain(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)))
+    L = SERVE_PROMPT + SERVE_STEPS
+    qd = _draw(rng, (SERVE_B, H, dk), dt).to(dev)
+    kc = _draw(rng, (SERVE_B, L, H, dk), dt).to(dev)
+    vc = _draw(rng, (SERVE_B, L, H, dv), dt).to(dev)
+    q4, k4, v4 = qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+    cases.append((
+        "flash_decode", f"MLA serving step B{SERVE_B} S{L} h{H} dk{dk} dv{dv} bf16 length {L}",
+        2 * SERVE_B * H * L * (dk + dv), 2 * (SERVE_B * H * (dk + dv) + SERVE_B * L * H * (dk + dv)),
+        {"route": fd.decode_route(qd, kc, vc), "n_split": fd.decode_splits(SERVE_B, H, L)[1],
+         "chunk": fd.decode_splits(SERVE_B, H, L)[0], "mla": True},
+        lambda: fd.flash_decode(qd, kc, vc, L), lambda: fd.flash_decode_plain(qd, kc, vc, L),
+        lambda: F.scaled_dot_product_attention(q4, k4, v4)))
     for name, label, flops, nbytes, extra, kernel, plain, library in cases:
         ms, device_ms = time_ms(kernel, reps=20), graph_ms(kernel, reps=10)
         plain_ms = time_ms(plain, reps=5)
@@ -1702,15 +1867,16 @@ def profile_window(fn, label):
         print(f"  {us / 1e6:.6f} s  {100 * us / busy_us:.1f} %  {name[:110]}")
 
 
-def serve_phase(fa, fd, dev):
-    """chatglm3-6b served at full width and depth on the card; returns the
-    main path's launch counts and rates."""
+def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "granite-8b", "gemma-7b")):
+    """``arch`` served at full width and depth on the card (chatglm3-6b; the
+    mla phase: minicpm3-4b), then ``smoke_archs`` at f32 on the card against
+    the CPU; returns the main path's launch counts and rates."""
     from repro_torch.configs.registry import get_config, smoke_config
     from repro_torch.launch.serve import prefill_into_cache
     from repro_torch.models.transformer import init_params
     from repro_torch.serve.decode import make_prefill_step, make_serve_step
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     n_layers = cfg.n_layers
     w0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -1718,12 +1884,17 @@ def serve_phase(fa, fd, dev):
     leaves = list(_leaves(params))
     n_params = sum(t.numel() for t in leaves)
     n_bytes = sum(t.numel() * t.element_size() for t in leaves)
-    print(f"{SERVE_ARCH}: {n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
-          f"{cfg.n_kv_heads} KV heads, hd {cfg.hd}, ff {cfg.d_ff}, vocab {cfg.vocab}; "
+    heads = (f"MLA {cfg.mla}" if cfg.mla is not None
+             else f"{cfg.n_kv_heads} KV heads, hd {cfg.hd}")
+    print(f"{arch}: {n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, {heads}, "
+          f"ff {cfg.d_ff}, vocab {cfg.vocab}; "
           f"{n_params} parameters ({n_bytes} bytes, {leaves[0].dtype}) made on the card in "
           f"{time.perf_counter() - w0:.3f} s (seed 0)", flush=True)
-    # the config's analytic count leaves out the 2 L + 1 norm scales
+    # the config's analytic count leaves out the 2 L + 1 norm scales, and
+    # under MLA the two latent norms of each layer
     want = int(cfg.params_count()) + (2 * n_layers + 1) * cfg.d_model
+    if cfg.mla is not None:
+        want += n_layers * (cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank)
     if n_params != want:
         raise SystemExit(f"parameter count {n_params} != {want} (the config's)")
     rng = np.random.default_rng(0)
@@ -1809,10 +1980,13 @@ def serve_phase(fa, fd, dev):
               f"in {decode_wall:.3f} s -> {decode_tps:.1f} tokens/s, "
               f"{1e3 * decode_wall / SERVE_STEPS:.3f} ms a step; sample {tokens[0, :12].tolist()}",
               flush=True)
-        out = dict(fa_launches=fa_launches, fd_launches=fd_launches, fa_launches_tc=fa_tc,
-                   fd_launches_split=fd_split, prefill_tps=prefill_tps,
+        out = dict(arch=arch, n_layers=n_layers, fa_launches=fa_launches,
+                   fd_launches=fd_launches, fa_launches_tc=fa_tc,
+                   fd_launches_split=fd_split, prefill_forwards=n_prefill,
+                   decode_forwards=n_decode, prefill_tps=prefill_tps,
                    decode_tps=decode_tps, logit_gap=gap, n_params=n_params, peak_bytes=peak,
-                   prefill_walls=prefill_walls, decode_step_ms=1e3 * decode_wall / SERVE_STEPS)
+                   peak_gb=peak / 1e9, prefill_walls=prefill_walls,
+                   decode_step_ms=1e3 * decode_wall / SERVE_STEPS, sample=tokens[0, :12].tolist())
         profile_window(lambda: prefill(params, {"tokens": long_prompt}),
                        f"prefill {SERVE_B} x {SERVE_PREFILL}")
         pos = SERVE_PROMPT + SERVE_STEPS - 1  # rewrites the last position with its own token
@@ -1823,8 +1997,8 @@ def serve_phase(fa, fd, dev):
 
     # the smoke configs on the card against the CPU (plain versions), f32
     torch.backends.cuda.matmul.allow_tf32 = False
-    for arch in ("chatglm3-6b", "granite-8b", "gemma-7b"):
-        small = smoke_config(arch).scaled(compute_dtype="float32")
+    for small_arch in smoke_archs:
+        small = smoke_config(small_arch).scaled(compute_dtype="float32")
         host = init_params(small, torch.Generator().manual_seed(1), "cpu")
         runs = []
         step = make_serve_step(small)
@@ -1841,10 +2015,10 @@ def serve_phase(fa, fd, dev):
         (card_logits, card_tokens), (cpu_logits, cpu_tokens) = runs
         err = (card_logits - cpu_logits).abs().max().item()
         same = torch.equal(card_tokens, cpu_tokens)
-        print(f"smoke {arch} f32: card vs CPU prefill logits max |diff| {err:.3e}; "
+        print(f"smoke {small_arch} f32: card vs CPU prefill logits max |diff| {err:.3e}; "
               f"greedy tokens equal: {same}")
         if not (err < 1e-4 and same):
-            raise SystemExit(f"smoke {arch}: the card and the CPU disagree")
+            raise SystemExit(f"smoke {small_arch}: the card and the CPU disagree")
     return out
 
 
@@ -2891,6 +3065,9 @@ def main() -> int:
         if not place_live[name]["live"]:
             raise SystemExit(f"{name}: the live timing took no liveness input")
     del lu_sim, tids
+    missing_rows, missing_launches = missing_bytes_runs(
+        ss, sp, resolve, Simulator, {"cholesky": cholesky_graph, "lu": lu_graph, "qr": qr_graph},
+        machine)
     done("place", t0)
 
     # ---- 4. main path -------------------------------------------------------
@@ -3118,7 +3295,7 @@ def main() -> int:
 
     # ---- 7. attention kernels against their plain versions, and their times --
     t0 = phase("attention")
-    fa_err, fd_err = attention_check(fa, fd, dev)
+    fa_err, fd_err, fa_err_dv, fd_err_dv = attention_check(fa, fd, dev)
     attn_rows = attention_timing(fa, fd, dev)
     torch.cuda.empty_cache()
     done("attention", t0)
@@ -3127,6 +3304,11 @@ def main() -> int:
     t0 = phase("serve")
     served = serve_phase(fa, fd, dev)
     done("serve", t0)
+
+    # ---- 8b. mla: minicpm3-4b at full width and depth --------------------------
+    t0 = phase("mla")
+    served_mla = serve_phase(fa, fd, dev, MLA_ARCH, smoke_archs=(MLA_ARCH,))
+    done("mla", t0)
 
     # ---- 9. profile ---------------------------------------------------------
     t0 = phase("profile")
@@ -3243,6 +3425,7 @@ def main() -> int:
         "launches_memory": memory_launches["score_activation"],
         "launches_faults": fault_launches["score_activation"],
         "launches_serving": serving_launches["score_activation"],
+        "launches_missing_bytes": missing_launches["score_activation"],
         "cases_live_x_bias": n_score_live,
     }, {
         "name": "place",
@@ -3262,6 +3445,8 @@ def main() -> int:
         "launches_serving": serving_launches["dada_place"] + serving_launches["heft_select"],
         "launches_serving_by_kernel": {k: serving_launches[k]
                                        for k in ("dada_place", "heft_select")},
+        "launches_missing_bytes": missing_launches["dada_place"],
+        "missing_bytes_runs": missing_rows,
         "live_n128": place_live,
         "exact": place_max_err == 0.0,
         "max_abs_err": place_max_err,
@@ -3320,13 +3505,14 @@ def main() -> int:
         "ptxas": gemm_ptxas,
         "device_share_nt16": gemm_share,
     })
-    for name, launches, err, kernel_route, source, launches_route in (
-            ("flash_attention", served["fa_launches"], fa_err, "tc", "flash_attention_sm90.cu",
-             served["fa_launches_tc"]),
-            ("flash_decode", served["fd_launches"], fd_err, "split", "flash_decode_split.cu",
-             served["fd_launches_split"])):
+    for name, launches, err, err_dv, kernel_route, source, key in (
+            ("flash_attention", served["fa_launches"], fa_err, fa_err_dv, "tc",
+             "flash_attention_sm90.cu", "fa"),
+            ("flash_decode", served["fd_launches"], fd_err, fd_err_dv, "split",
+             "flash_decode_split.cu", "fd")):
         rows = [r for r in attn_rows if r["name"] == name]
         head = rows[0]  # the serving path's shape
+        mla_row = next(r for r in rows if r.get("mla"))
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -3336,9 +3522,12 @@ def main() -> int:
             "replaces": {"flash_attention": "src/repro/kernels/flash_attention.py:71",
                          "flash_decode": "src/repro/kernels/flash_decode.py:65"}[name],
             "launches": launches,
-            f"launches_{kernel_route}": launches_route,
+            f"launches_{kernel_route}": served[f"{key}_launches_{kernel_route}"],
+            "launches_mla": served_mla[f"{key}_launches"],
+            f"launches_mla_{kernel_route}": served_mla[f"{key}_launches_{kernel_route}"],
             "max_abs_err": max(err.values()),
             "max_abs_err_by_route": err,
+            "max_abs_err_dv_by_route": err_dv,
             "ms": head["ms"],
             "device_ms": head["device_ms"],
             "plain_ms": head["plain_ms"],
@@ -3346,7 +3535,9 @@ def main() -> int:
             "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "shape": head["label"],
-            **{key: head[key] for key in ("n_split", "chunk") if key in head},
+            **{k: head[k] for k in ("n_split", "chunk") if k in head},
+            "mla": {k: mla_row[k] for k in ("label", "ms", "device_ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms", "route")},
             "timings": rows,
         })
     episode_entry["launches_paper"] = paper_launches["episode_scan"]
@@ -3356,6 +3547,7 @@ def main() -> int:
     episode_entry["launches_serving"] = serving_launches["episode_scan"]
     kernels.append(episode_entry)
     print(json.dumps({"serve": served}))
+    print(json.dumps({"mla": served_mla}))
     print(json.dumps({"paper": paper}))
     print(json.dumps({"verify": verified}))
     print(json.dumps({"memory": memory}))

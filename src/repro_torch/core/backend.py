@@ -11,7 +11,8 @@ in one call of :func:`repro_torch.kernels.sched_score.score_activation`:
   * the transfer fold ``X_u`` over the unique memories;
   * the ``col_of`` gather to resources and the additive ``x_bias``;
   * the per-row maxima of ``X``;
-  * the affinity fold ``S`` (resident-weighted bytes);
+  * the affinity fold ``S`` (resident-weighted bytes, or missing_bytes:
+    minus the reads' sizes times their hops);
   * the cost ``C = base + X``, ``base`` the class duration per column.
 
 On the card that is one host-to-device copy, one kernel launch, one
@@ -69,7 +70,7 @@ from ..kernels.sched_score import (
     score_spec,
     unpack_outputs,
 )
-from .affinity import affinity_csr_source
+from .affinity import MISSING_BYTES, affinity_csr_source
 from .machine import HOST_MEM
 
 _MIN_SLOTS = 4096  # 32 KiB: the main path's widest activation fits
@@ -210,6 +211,7 @@ class TorchScoringBackend:
             n_u=n_u, n_res=len(resources),
             want_x=use_cp, x_rows=use_cp and x_rows, want_bias=want_bias,
             want_s=writes is not None, accel_only=accel_only, want_c=want_c,
+            s_missing=affinity == MISSING_BYTES,
         ))
         score = layout
         if place is not None:
@@ -233,7 +235,7 @@ class TorchScoringBackend:
         predicted transfer) when per-class durations are given; transfer
         times ``X`` when ``use_cp`` (full rows with ``x_rows=True``, else
         only the per-row maxima); affinity ``S`` when ``affinity`` names a
-        resident-weighted score. ``x_bias`` is an additive (n × resources)
+        score (:data:`~repro_torch.core.affinity.AFFINITIES`). ``x_bias`` is an additive (n × resources)
         penalty folded into ``X`` before ``C`` and the row maxima derive
         from it.
         """

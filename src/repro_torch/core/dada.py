@@ -53,7 +53,7 @@ import numpy as np
 
 from ..kernels.sched_place import STATUS_OK, dada_place_plain
 from ..runtime.memory import fold_pressure, pressure_rows_for
-from .affinity import RESIDENT_WEIGHTED, affinity_rows
+from .affinity import AFFINITIES, affinity_rows
 from .backend import TorchScoringBackend, check_min_wide
 from .dag import Task
 from .simulator import Simulator, Strategy
@@ -86,6 +86,13 @@ class DADA(Strategy):
         skips it. Off by default; outside notice windows it changes
         nothing.
 
+        ``affinity``: the score of the affinity phase (one of
+        :data:`~repro_torch.core.affinity.AFFINITIES`). Under
+        ``"missing_bytes"`` every score is at most 0 and the phase wants
+        one above 0, so no task is placed by affinity; S is still computed
+        (on the card by the scorer's ``s_missing`` flag) and the runs equal
+        the reference's.
+
         ``device``: where each activation is scored and placed (raises if
         it is ``cuda`` and no GPU is present). ``min_wide``: the narrowest
         activation scored and placed on the device; narrower ones use the
@@ -93,10 +100,8 @@ class DADA(Strategy):
         """
         if not 0.0 <= alpha <= 1.0:
             raise ValueError("alpha must be within [0, 1]")
-        if affinity not in RESIDENT_WEIGHTED:
-            raise ValueError(
-                f"unknown affinity {affinity!r} (choose from {RESIDENT_WEIGHTED})"
-            )
+        if affinity not in AFFINITIES:
+            raise ValueError(f"unknown affinity {affinity!r} (choose from {AFFINITIES})")
         self.alpha = alpha
         self.use_cp = use_cp
         self.affinity_name = affinity

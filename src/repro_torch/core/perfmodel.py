@@ -343,6 +343,18 @@ class Residency:
             mem += 1
         return out
 
+    def transfer_hops(self, name: str, dst_mem: int) -> int:
+        """Hops to bring ``name`` to ``dst_mem``: 0 if a valid copy is there
+        or no copy exists yet; 1 if ``dst_mem`` is the host or a host copy
+        exists; 2 device to device (device -> host -> device, the
+        paper-era PCIe path)."""
+        m = self._mask.get(name, 0)
+        if m == 0 or m & _mem_bit(dst_mem):
+            return 0
+        if dst_mem == HOST_MEM or m & 1:
+            return 1
+        return 2
+
     def write(self, name: str, mem: int) -> None:
         self._set_mask(name, _mem_bit(mem))
 

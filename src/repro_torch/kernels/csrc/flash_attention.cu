@@ -8,7 +8,10 @@
 // with the bottom-right causal mask j <= i + (sk - sq) (masked logits
 // -1e30, as the reference), logits, softmax and the P.V sum in f32, and the
 // result cast to q's type with round-to-nearest. Inputs are f32 or bf16
-// (all three alike), d <= 256. Every operand has unit stride along d and
+// (all three alike). q and k have the head dim dk <= 256, v and o a value
+// head dim dv <= dk of their own (MLA's values are narrower than its queries
+// and keys): tiles are sized for dk, and V's columns past dv are zeros that
+// are never stored. Every operand has unit stride along its head dim and
 // its own batch, head and sequence strides (in elements), so the model's
 // (B, S, H, d) projections go in as (B, H, S, d) views with no copy; the
 // output is written through its own strides. GQA is index arithmetic: query
@@ -78,7 +81,7 @@ template <typename T, int DMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int hq, int group,
-                       int sq, int sk, int d, Strides qs, Strides ks, Strides vs,
+                       int sq, int sk, int d, int dv, Strides qs, Strides ks, Strides vs,
                        Strides os, float scale, int causal) {
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                         // [DMAX][BQ+PAD], d-major
@@ -123,9 +126,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's Kt / Vs / Pt are consumed (and Qt is staged)
     for (int idx = tid; idx < BK * DMAX; idx += THREADS) {
       const int r = idx / DMAX, c = idx % DMAX;
-      const bool in = k0 + r < sk && c < d;
-      Kt[c * (BK + PAD) + r] = in ? to_f32(kb[(k0 + r) * ks.s + c]) : 0.0f;
-      Vs[r * DMAX + c] = in ? to_f32(vb[(k0 + r) * vs.s + c]) : 0.0f;
+      const bool in = k0 + r < sk;
+      Kt[c * (BK + PAD) + r] = in && c < d ? to_f32(kb[(k0 + r) * ks.s + c]) : 0.0f;
+      Vs[r * DMAX + c] = in && c < dv ? to_f32(vb[(k0 + r) * vs.s + c]) : 0.0f;
     }
     __syncthreads();
 
@@ -208,14 +211,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = nc * 64 + tx * 4 + j;
-        if (c < d) ob[r * os.s + c] = from_f32<T>(acc[i][nc * 4 + j] / l[i]);
+        if (c < dv) ob[r * os.s + c] = from_f32<T>(acc[i][nc * 4 + j] / l[i]);
       }
   }
 }
 
 template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int batch, int hq,
-                   int hk, int sq, int sk, int d, Strides qs, Strides ks, Strides vs,
+                   int hk, int sq, int sk, int d, int dv, Strides qs, Strides ks, Strides vs,
                    Strides os, float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DMAX>();
   auto kernel = flash_attention_kernel<T, DMAX>;
@@ -227,35 +230,39 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
   const dim3 grid((sq + BQ - 1) / BQ, hq, batch);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), hq, hq / hk, sq, sk, d, qs, ks, vs, os, scale, causal);
+      static_cast<T*>(o), hq, hq / hk, sq, sk, d, dv, qs, ks, vs, os, scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int batch, int hq,
-                     int hk, int sq, int sk, int d, Strides qs, Strides ks, Strides vs,
+                     int hk, int sq, int sk, int d, int dv, Strides qs, Strides ks, Strides vs,
                      Strides os, float scale, int causal, cudaStream_t stream) {
   if (d <= 64)
-    return launch<T, 64>(q, k, v, o, batch, hq, hk, sq, sk, d, qs, ks, vs, os, scale, causal, stream);
+    return launch<T, 64>(q, k, v, o, batch, hq, hk, sq, sk, d, dv, qs, ks, vs, os, scale, causal,
+                         stream);
   if (d <= 128)
-    return launch<T, 128>(q, k, v, o, batch, hq, hk, sq, sk, d, qs, ks, vs, os, scale, causal, stream);
-  return launch<T, 256>(q, k, v, o, batch, hq, hk, sq, sk, d, qs, ks, vs, os, scale, causal, stream);
+    return launch<T, 128>(q, k, v, o, batch, hq, hk, sq, sk, d, dv, qs, ks, vs, os, scale, causal,
+                          stream);
+  return launch<T, 256>(q, k, v, o, batch, hq, hk, sq, sk, d, dv, qs, ks, vs, os, scale, causal,
+                        stream);
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). dtype: 0 = f32, 1 = bf16.
+// Plain C entry point (loaded with ctypes). dtype: 0 = f32, 1 = bf16. d is
+// the query/key head dim, dv (<= d) the value head dim.
 // strides: 12 values, (batch, head, seq) of q, k, v and o in that order.
 // Launches on `stream`, does not synchronize, and returns
 // cudaGetLastError() of the launch (0 = success).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     int batch, int hq, int hk, int sq, int sk, int d,
+                                     int batch, int hq, int hk, int sq, int sk, int d, int dv,
                                      const long long* strides, float scale, int causal,
                                      int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || hq <= 0 || hk <= 0 || hq % hk != 0 || sq <= 0 || sk <= 0 || d <= 0 ||
-      d > 256)
+      d > 256 || dv <= 0 || dv > d)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{strides[0], strides[1], strides[2]};
   const Strides ks{strides[3], strides[4], strides[5]};
@@ -264,11 +271,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      err = launch_d<float>(q, k, v, o, batch, hq, hk, sq, sk, d, qs, ks, vs, os, scale,
+      err = launch_d<float>(q, k, v, o, batch, hq, hk, sq, sk, d, dv, qs, ks, vs, os, scale,
                             causal, s);
       break;
     case 1:
-      err = launch_d<__nv_bfloat16>(q, k, v, o, batch, hq, hk, sq, sk, d, qs, ks, vs, os,
+      err = launch_d<__nv_bfloat16>(q, k, v, o, batch, hq, hk, sq, sk, d, dv, qs, ks, vs, os,
                                     scale, causal, s);
       break;
     default:

@@ -8,9 +8,15 @@
 //
 // with the bottom-right causal mask j <= i + (sk - sq). csrc/flash_attention.cu
 // stays the f32 route and the route for what this kernel does not take (the
-// wrapper's rule, flash_attention.py): this one takes bf16 with d 64 or 128
+// wrapper's rule, flash_attention.py): this one takes bf16 with a query/key
+// head dim dk up to 128 and a value head dim dv <= dk (MLA: dk 96, dv 64),
 // and 16-byte-aligned operands whose batch, head and sequence strides are
-// multiples of 8 elements, as TMA needs.
+// multiples of 8 elements, as TMA needs. The tiles are padded to whole
+// 64-wide boxes: TMA zero-fills the columns past dk and dv, which add
+// exactly nothing to Q . K^T, and O's columns past dv are never stored. The
+// S loop runs DK / 16 steps, DK = dk rounded up to 64, 96 or 128, a
+// compile-time count: a run-time bound around the wgmma would make the
+// compiler fence every one of them (ptxas C7519).
 //
 // What bounds it on an H100. The chatglm3-6b prefill (B 4, 32 query heads,
 // 2 KV heads, S 2048, d 128, causal) does 1.4e11 flop a layer on 8.4e7
@@ -76,13 +82,15 @@ struct Params {
   __nv_bfloat16* o;
   long long o_sb, o_sh, o_ss;  // output strides (elements); d has stride 1
   int hq, group, sq, sk, causal, n_qt;
+  int dv;  // v's head dim (<= DV): O's columns to store
   float scale_log2;  // scale * log2(e)
 };
 
-template <int D>
+template <int DK, int DV>
 constexpr int smem_bytes() {
-  // Q, two K and two V stages, each D / 64 blocks; barriers; 1024 for alignment
-  return 5 * (D / 64) * BLOCK_BYTES + 64 + 1024;
+  // Q and two K stages of ceil(DK / 64) blocks, two V stages of DV / 64;
+  // barriers; 1024 for alignment
+  return (3 * ((DK + 63) / 64) + 2 * (DV / 64)) * BLOCK_BYTES + 64 + 1024;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -221,19 +229,25 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_t(float (&d)[32], const uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-template <int D>
+// FULL: dv == DV, every column of O is stored (no test in the epilogue: an
+// instantiation for dv == DV compiles as the kernel did before dv existed).
+// Paired on an H100 by tools/attention_time.py, the test in every
+// instantiation made chatglm3-6b's prefill 4.7 % slower (0.500 against
+// 0.478 ms), d 64 3.2 % and MLA's (96, 64) 1.9 %.
+template <int DK, int DV, bool FULL>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  constexpr int NB = D / 64;  // 64-wide blocks of d
-  constexpr int NO = D / 2;   // O accumulator registers a thread holds
+  constexpr int NB = (DK + 63) / 64;  // 64-wide blocks of q's and k's head dim
+  constexpr int NBV = DV / 64;  // 64-wide blocks of v's
+  constexpr int NO = DV / 2;    // O accumulator registers a thread holds
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
-  const uint32_t sK = sQ + NB * BLOCK_BYTES;       // [2 stages][NB][BK][64]
-  const uint32_t sV = sK + 2 * NB * BLOCK_BYTES;   // [2 stages][NB][BK][64]
-  const uint32_t bar = sV + 2 * NB * BLOCK_BYTES;  // q_full, k_full[2], v_full[2], empty[2]
+  const uint32_t sK = sQ + NB * BLOCK_BYTES;        // [2 stages][NB][BK][64]
+  const uint32_t sV = sK + 2 * NB * BLOCK_BYTES;    // [2 stages][NBV][BK][64]
+  const uint32_t bar = sV + 2 * NBV * BLOCK_BYTES;  // q_full, k_full[2], v_full[2], empty[2]
   const uint32_t q_full = bar;
   auto k_full = [&](int s) { return bar + 8u * (1 + s); };
   auto v_full = [&](int s) { return bar + 8u * (3 + s); };
@@ -269,12 +283,12 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t & 1;
         if (t >= 2) mbar_wait(empty(s), ((t >> 1) - 1) & 1);  // tile t - 2 released
-        const uint32_t dk = sK + s * NB * BLOCK_BYTES, dv = sV + s * NB * BLOCK_BYTES;
+        const uint32_t dk = sK + s * NB * BLOCK_BYTES, dv = sV + s * NBV * BLOCK_BYTES;
         mbar_expect_tx(k_full(s), NB * BLOCK_BYTES);
         for (int c = 0; c < NB; ++c)
           tma_load_4d(dk + c * BLOCK_BYTES, &tm_k, c * 64, hk, t * BK, b, k_full(s));
-        mbar_expect_tx(v_full(s), NB * BLOCK_BYTES);
-        for (int c = 0; c < NB; ++c)
+        mbar_expect_tx(v_full(s), NBV * BLOCK_BYTES);
+        for (int c = 0; c < NBV; ++c)
           tma_load_4d(dv + c * BLOCK_BYTES, &tm_v, c * 64, hk, t * BK, b, v_full(s));
       }
     }
@@ -309,7 +323,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int i = 0; i < 64; ++i) reg_fence(sacc[i]);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
+        for (int kk = 0; kk < DK / 16; ++kk) {
           const uint32_t off = (kk / 4) * BLOCK_BYTES + (kk % 4) * 32;
           const uint64_t da = desc_sw128(sQ + off + wg * 64 * BOX_BYTES, 16, 1024);
           const uint64_t db = desc_sw128(dk + off, 16, 1024);
@@ -365,7 +379,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rsum[i];
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DV / 8; ++j) {
           o[4 * j + 0] *= alpha[0];
           o[4 * j + 1] *= alpha[0];
           o[4 * j + 2] *= alpha[1];
@@ -384,14 +398,14 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         // O += P . V, V read MN-major: 64-wide d blocks BK rows apart (LBO),
         // 8-key groups 1024 bytes apart (SBO)
         mbar_wait(v_full(s), ph);
-        const uint32_t dv = sV + s * NB * BLOCK_BYTES;
+        const uint32_t dv = sV + s * NBV * BLOCK_BYTES;
 #pragma unroll
         for (int i = 0; i < NO; ++i) reg_fence(o[i]);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
           const uint64_t db = desc_sw128(dv + kk * 16 * BOX_BYTES, BLOCK_BYTES, 1024);
-          if constexpr (D == 128) {
+          if constexpr (DV == 128) {
             wgmma_m64n128k16_rs_t(o, pa[kk], db, 1);
           } else {
             wgmma_m64n64k16_rs_t(o, pa[kk], db, 1);
@@ -411,7 +425,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_arrive(empty(s));
     }
 
-    // o / l, rows < sq only
+    // o / l, rows < sq and columns < dv only
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -424,9 +438,10 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (row < p.sq) {
         __nv_bfloat16* orow = ob + row * p.o_ss + 2 * tig;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-              pack_bf16(o[4 * j + 2 * i] / l[i], o[4 * j + 2 * i + 1] / l[i]);
+        for (int j = 0; j < DV / 8; ++j)
+          if (FULL || 8 * j < p.dv)  // dv % 8 == 0: a pair lies wholly inside or out
+            *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+                pack_bf16(o[4 * j + 2 * i] / l[i], o[4 * j + 2 * i + 1] / l[i]);
       }
     }
   }
@@ -466,11 +481,11 @@ CUresult encode(CUtensorMap* map, const void* ptr, int d, int heads, int seq, in
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D>
-cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-                   const Params& p, int batch, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>();
-  auto kernel = flash_attention_sm90_kernel<D>;
+template <int DK, int DV, bool FULL>
+cudaError_t launch_one(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                       const Params& p, int batch, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<DK, DV>();
+  auto kernel = flash_attention_sm90_kernel<DK, DV, FULL>;
   // opt in to more than 48 KB of dynamic shared memory, once per
   // instantiation (so that no such call lands inside a CUDA graph capture)
   static cudaError_t configured =
@@ -481,21 +496,29 @@ cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorM
   return cudaGetLastError();
 }
 
+template <int DK, int DV>
+cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                   const Params& p, int batch, cudaStream_t stream) {
+  return p.dv == DV ? launch_one<DK, DV, true>(mq, mk, mv, p, batch, stream)
+                    : launch_one<DK, DV, false>(mq, mk, mv, p, batch, stream);
+}
+
 }  // namespace
 
-// Plain C entry point (loaded with ctypes); bf16 only, d 64 or 128.
+// Plain C entry point (loaded with ctypes); bf16 only; d (q and k) up to
+// 128, dv (v and o) a multiple of 8 up to d.
 // strides: 12 values, (batch, head, seq) of q, k, v and o in that order, in
 // elements (the batch stride of a batch of one is not read). Launches on `stream`, does not synchronize, and returns 0
 // on success, a CUDA runtime error, or 10000 + the driver's error from
 // encoding a tensor map (10000 alone: cuTensorMapEncodeTiled not found).
 extern "C" int repro_flash_attention_sm90(const void* q, const void* k, const void* v, void* o,
                                           int batch, int hq, int hk, int sq, int sk, int d,
-                                          const long long* strides, float scale, int causal,
-                                          int device, void* stream) {
+                                          int dv, const long long* strides, float scale,
+                                          int causal, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (batch <= 0 || hq <= 0 || hk <= 0 || hq % hk != 0 || sq <= 0 || sk <= 0 ||
-      (d != 64 && d != 128) || (causal && sq > sk))
+  if (batch <= 0 || hq <= 0 || hk <= 0 || hq % hk != 0 || sq <= 0 || sk <= 0 || d <= 0 ||
+      d > 128 || d % 8 != 0 || dv <= 0 || dv > d || dv % 8 != 0 || (causal && sq > sk))
     return static_cast<int>(cudaErrorInvalidValue);
   if (encode_fn() == nullptr) return 10000;
   // a batch of one is never stepped over: give its map any valid stride
@@ -508,7 +531,7 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k, const vo
   if (res == CUDA_SUCCESS)
     res = encode(&mk, k, d, hk, sk, batch, strides[4], strides[5], batch_stride(3, hk, sk), BK);
   if (res == CUDA_SUCCESS)
-    res = encode(&mv, v, d, hk, sk, batch, strides[7], strides[8], batch_stride(6, hk, sk), BK);
+    res = encode(&mv, v, dv, hk, sk, batch, strides[7], strides[8], batch_stride(6, hk, sk), BK);
   if (res != CUDA_SUCCESS) return 10000 + static_cast<int>(res);
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
@@ -521,8 +544,17 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k, const vo
   p.sk = sk;
   p.causal = causal;
   p.n_qt = (sq + BQ - 1) / BQ;
+  p.dv = dv;
   p.scale_log2 = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = d == 64 ? launch<64>(mq, mk, mv, p, batch, s) : launch<128>(mq, mk, mv, p, batch, s);
+  // the instantiation: dk rounded up to 64, 96 or 128, dv to 64 or 128
+  if (d <= 64)
+    err = launch<64, 64>(mq, mk, mv, p, batch, s);
+  else if (d <= 96)  // dv <= 96: a DV of 128 is never full
+    err = dv <= 64 ? launch<96, 64>(mq, mk, mv, p, batch, s)
+                   : launch_one<96, 128, false>(mq, mk, mv, p, batch, s);
+  else
+    err = dv <= 64 ? launch<128, 64>(mq, mk, mv, p, batch, s)
+                   : launch<128, 128>(mq, mk, mv, p, batch, s);
   return static_cast<int>(err);
 }

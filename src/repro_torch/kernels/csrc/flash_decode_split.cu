@@ -8,7 +8,8 @@
 //
 // over the live positions s < length. csrc/flash_decode.cu stays the f32
 // route and the route for shapes this kernel does not take (the wrapper's
-// rule, flash_decode.py).
+// rule, flash_decode.py). q and k have the head dim hd, v and o a value
+// head dim dv <= hd of their own (MLA: 96 and 64), both multiples of 16.
 //
 // What bounds it on an H100: the cache read. A decode_32k-like call (B 16,
 // S 32 768, 2 KV heads, hd 128) reads 537 MB of K and V: 0.160 ms at
@@ -60,8 +61,10 @@ constexpr float LOG2E = 1.4426950408889634f;
 // hd + 8 shifts each row by 4 banks, so ldmatrix reads are conflict-free
 constexpr int PAD = 8;
 
-size_t split_smem_bytes(int hd) {
-  return sizeof(__nv_bfloat16) * (size_t)(hd + PAD) * (ROWS + 2 * STAGES * TILE);
+// Qs[ROWS][hd + PAD], Ks[STAGES][TILE][hd + PAD], Vs[STAGES][TILE][dv + PAD]
+size_t split_smem_bytes(int hd, int dv) {
+  return sizeof(__nv_bfloat16) *
+         ((size_t)(hd + PAD) * (ROWS + STAGES * TILE) + (size_t)(dv + PAD) * STAGES * TILE);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -113,22 +116,23 @@ struct Args {
   const __nv_bfloat16* v;
   float* part_m;    // [B * Hq][n_split], log2 units
   float* part_l;    // [B * Hq][n_split]
-  float* part_acc;  // [B * Hq][n_split][hd]
+  float* part_acc;  // [B * Hq][n_split][dv]
   __nv_bfloat16* o;
-  int hq, group, hd, length, chunk, n_split, slices;
+  int hq, group, hd, dv, length, chunk, n_split, slices;
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh;
   float scale_log2;  // scale * log2(e)
 };
 
-template <int HD>
+// HD and DV: the largest head dims of the instantiation (hd <= HD, dv <= DV)
+template <int HD, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_split_kernel(const Args a) {
   extern __shared__ __align__(16) __nv_bfloat16 smem[];
-  const int hd = a.hd;
-  const int pitch = hd + PAD;
+  const int hd = a.hd, dv = a.dv;
+  const int pitch = hd + PAD, pitch_v = dv + PAD;
   __nv_bfloat16* Qs = smem;                         // [ROWS][pitch]
   __nv_bfloat16* Ks = Qs + ROWS * pitch;            // [STAGES][TILE][pitch]
-  __nv_bfloat16* Vs = Ks + STAGES * TILE * pitch;   // [STAGES][TILE][pitch]
+  __nv_bfloat16* Vs = Ks + STAGES * TILE * pitch;   // [STAGES][TILE][pitch_v]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -142,7 +146,8 @@ flash_decode_split_kernel(const Args a) {
   const int s0 = split * a.chunk;
   const int s1 = min(s0 + a.chunk, a.length);    // s0 < s1: no split is empty
   const int n_tiles = (s1 - s0 + TILE - 1) / TILE;
-  const int cpr = hd / 8;                        // 16-byte pieces per row
+  const int cpr = hd / 8;                        // 16-byte pieces per K row
+  const int cpr_v = dv / 8;                      // and per V row
 
   // Q rows of the block (zero rows past the group)
   for (int idx = tid; idx < ROWS * cpr; idx += THREADS) {
@@ -158,14 +163,20 @@ flash_decode_split_kernel(const Args a) {
   auto load_tile = [&](int t) {
     const int st = t % STAGES;
     __nv_bfloat16* kd = Ks + st * TILE * pitch;
-    __nv_bfloat16* vd = Vs + st * TILE * pitch;
+    __nv_bfloat16* vd = Vs + st * TILE * pitch_v;
     for (int idx = tid; idx < TILE * cpr; idx += THREADS) {
       const int r = idx / cpr, c = idx % cpr;
       const int pos = s0 + t * TILE + r;
       const bool valid = pos < s1;
       const long long p = valid ? pos : 0;
       cp_async_16(smem_u32(kd + r * pitch + c * 8), kb + p * a.k_ss + c * 8, valid);
-      cp_async_16(smem_u32(vd + r * pitch + c * 8), vb + p * a.v_ss + c * 8, valid);
+    }
+    for (int idx = tid; idx < TILE * cpr_v; idx += THREADS) {
+      const int r = idx / cpr_v, c = idx % cpr_v;
+      const int pos = s0 + t * TILE + r;
+      const bool valid = pos < s1;
+      const long long p = valid ? pos : 0;
+      cp_async_16(smem_u32(vd + r * pitch_v + c * 8), vb + p * a.v_ss + c * 8, valid);
     }
   };
 
@@ -175,7 +186,7 @@ flash_decode_split_kernel(const Args a) {
     cp_async_commit();
   }
 
-  constexpr int NT = HD / 8;  // n8 tiles of the output columns
+  constexpr int NT = DV / 8;  // n8 tiles of the output columns
   float acc[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -193,7 +204,7 @@ flash_decode_split_kernel(const Args a) {
 
     const int st = t % STAGES;
     const __nv_bfloat16* kt = Ks + st * TILE * pitch + warp * 16 * pitch;
-    const __nv_bfloat16* vt = Vs + st * TILE * pitch + warp * 16 * pitch;
+    const __nv_bfloat16* vt = Vs + st * TILE * pitch_v + warp * 16 * pitch_v;
 
     // S = Q . K^T over this warp's 16 positions
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
@@ -254,10 +265,10 @@ flash_decode_split_kernel(const Args a) {
     // acc += P . V: P (16 x 16 positions) as the A fragment
     const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
                             pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
-    const uint32_t v_addr = smem_u32(vt + ((lane % 8) + (j & 1) * 8) * pitch + (j >> 1) * 8);
+    const uint32_t v_addr = smem_u32(vt + ((lane % 8) + (j & 1) * 8) * pitch_v + (j >> 1) * 8);
 #pragma unroll
-    for (int dn = 0; dn < HD / 16; ++dn) {
-      if (dn * 16 < hd) {
+    for (int dn = 0; dn < DV / 16; ++dn) {
+      if (dn * 16 < dv) {
         uint32_t vf[4];
         ldmatrix_x4_trans(v_addr + dn * 32, vf);
         mma_bf16(acc[2 * dn], pa, vf[0], vf[1]);
@@ -271,7 +282,7 @@ flash_decode_split_kernel(const Args a) {
   __syncthreads();
   float* Wm = reinterpret_cast<float*>(Ks);  // [WARPS][ROWS]
   float* Wl = Wm + WARPS * ROWS;             // [WARPS][ROWS]
-  float* Wacc = Wl + WARPS * ROWS;           // [WARPS][ROWS][hd]
+  float* Wacc = Wl + WARPS * ROWS;           // [WARPS][ROWS][dv]
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -283,10 +294,10 @@ flash_decode_split_kernel(const Args a) {
   }
 #pragma unroll
   for (int jn = 0; jn < NT; ++jn) {
-    if (jn * 8 < hd) {
+    if (jn * 8 < dv) {
       const int col = jn * 8 + 2 * tig;
-      float* w0 = Wacc + (warp * ROWS + g) * hd + col;
-      float* w1 = Wacc + (warp * ROWS + g + 8) * hd + col;
+      float* w0 = Wacc + (warp * ROWS + g) * dv + col;
+      float* w1 = Wacc + (warp * ROWS + g + 8) * dv + col;
       w0[0] = acc[jn][0];
       w0[1] = acc[jn][1];
       w1[0] = acc[jn][2];
@@ -294,8 +305,8 @@ flash_decode_split_kernel(const Args a) {
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < n_rows * hd; idx += THREADS) {
-    const int r = idx / hd, col = idx % hd;
+  for (int idx = tid; idx < n_rows * dv; idx += THREADS) {
+    const int r = idx / dv, col = idx % dv;
     float mb = Wm[r];
 #pragma unroll
     for (int w = 1; w < WARPS; ++w) mb = fmaxf(mb, Wm[w * ROWS + r]);
@@ -304,10 +315,10 @@ flash_decode_split_kernel(const Args a) {
     for (int w = 0; w < WARPS; ++w) {
       const float wt = exp2f(Wm[w * ROWS + r] - mb);  // 0 for a warp that saw no position
       lb += wt * Wl[w * ROWS + r];
-      ab += wt * Wacc[(w * ROWS + r) * hd + col];
+      ab += wt * Wacc[(w * ROWS + r) * dv + col];
     }
     const long long row = (long long)b * a.hq + h0 + r;
-    a.part_acc[(row * a.n_split + split) * hd + col] = ab;
+    a.part_acc[(row * a.n_split + split) * dv + col] = ab;
     if (col == 0) {
       a.part_m[row * a.n_split + split] = mb;
       a.part_l[row * a.n_split + split] = lb;
@@ -326,25 +337,25 @@ flash_decode_combine_kernel(const Args a) {
   for (int s = 1; s < a.n_split; ++s) mb = fmaxf(mb, pm[s]);
   float lb = 0.0f;
   for (int s = 0; s < a.n_split; ++s) lb += exp2f(pm[s] - mb) * pl[s];
-  for (int col = threadIdx.x; col < a.hd; col += THREADS) {
+  for (int col = threadIdx.x; col < a.dv; col += THREADS) {
     float ab = 0.0f;
     for (int s = 0; s < a.n_split; ++s)
-      ab += exp2f(pm[s] - mb) * a.part_acc[(row * a.n_split + s) * a.hd + col];
+      ab += exp2f(pm[s] - mb) * a.part_acc[(row * a.n_split + s) * a.dv + col];
     a.o[b * a.o_sb + h * a.o_sh + col] = __float2bfloat16_rn(ab / lb);
   }
 }
 
-template <int HD>
+template <int HD, int DV>
 cudaError_t launch(const Args& a, int batch, int hkv, cudaStream_t stream) {
-  const size_t smem = split_smem_bytes(HD);
+  const size_t smem = split_smem_bytes(HD, DV);
   // opt in to more than 48 KB of dynamic shared memory, once per
   // instantiation (so that no such call lands inside a CUDA graph capture);
-  // sized for the largest head dim of the instantiation
+  // sized for the largest head dims of the instantiation
   static cudaError_t configured = cudaFuncSetAttribute(
-      flash_decode_split_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_decode_split_kernel<HD, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (configured != cudaSuccess) return configured;
   const dim3 grid(a.n_split, hkv * a.slices, batch);
-  flash_decode_split_kernel<HD><<<grid, THREADS, split_smem_bytes(a.hd), stream>>>(a);
+  flash_decode_split_kernel<HD, DV><<<grid, THREADS, split_smem_bytes(a.hd, a.dv), stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_decode_combine_kernel<<<dim3(a.hq, batch), THREADS, 0, stream>>>(a);
@@ -355,19 +366,21 @@ cudaError_t launch(const Args& a, int batch, int hkv, cudaStream_t stream) {
 
 // Plain C entry point (loaded with ctypes); bf16 only. strides: 10 values:
 // q (batch, head), k (batch, seq, head), v (batch, seq, head), o (batch,
-// head), in elements. part_m and part_l hold batch * hkv * group * n_split
-// floats, part_acc that times hd. Launches the split kernel and the combine
+// head), in elements. hd is the query/key head dim, dv (<= hd) the value
+// head dim, both multiples of 16. part_m and part_l hold batch * hkv * group
+// * n_split floats, part_acc that times dv. Launches the split kernel and the combine
 // kernel on `stream`, does not synchronize, and returns cudaGetLastError()
 // (0 = success).
 extern "C" int repro_flash_decode_split(const void* q, const void* k, const void* v, void* o,
                                         void* part_m, void* part_l, void* part_acc, int batch,
-                                        int hkv, int group, int hd, int length, int chunk,
+                                        int hkv, int group, int hd, int dv, int length, int chunk,
                                         int n_split, const long long* strides, float scale,
                                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || hkv <= 0 || group <= 0 || group > 2 * ROWS || hd <= 0 || hd > 256 ||
-      hd % 16 != 0 || length <= 0 || chunk <= 0 || chunk % TILE != 0 || n_split <= 0 ||
+      hd % 16 != 0 || dv <= 0 || dv > hd || dv % 16 != 0 || length <= 0 || chunk <= 0 ||
+      chunk % TILE != 0 || n_split <= 0 ||
       (long long)(n_split - 1) * chunk >= length || (long long)n_split * chunk < length)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
@@ -381,6 +394,7 @@ extern "C" int repro_flash_decode_split(const void* q, const void* k, const void
   a.hq = hkv * group;
   a.group = group;
   a.hd = hd;
+  a.dv = dv;
   a.length = length;
   a.chunk = chunk;
   a.n_split = n_split;
@@ -397,7 +411,12 @@ extern "C" int repro_flash_decode_split(const void* q, const void* k, const void
   a.o_sh = strides[9];
   a.scale_log2 = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd <= 64) return static_cast<int>(launch<64>(a, batch, hkv, s));
-  if (hd <= 128) return static_cast<int>(launch<128>(a, batch, hkv, s));
-  return static_cast<int>(launch<256>(a, batch, hkv, s));
+  // the instantiation: hd and dv each rounded up to 64, 128 or 256
+  if (hd <= 64) return static_cast<int>(launch<64, 64>(a, batch, hkv, s));
+  if (hd <= 128)
+    return static_cast<int>(dv <= 64 ? launch<128, 64>(a, batch, hkv, s)
+                                     : launch<128, 128>(a, batch, hkv, s));
+  if (dv <= 64) return static_cast<int>(launch<256, 64>(a, batch, hkv, s));
+  if (dv <= 128) return static_cast<int>(launch<256, 128>(a, batch, hkv, s));
+  return static_cast<int>(launch<256, 256>(a, batch, hkv, s));
 }

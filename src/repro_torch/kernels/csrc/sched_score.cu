@@ -8,7 +8,12 @@
 //   (_build_matrix_fn): per-read transfer times, the transfer fold X_u, the
 //   col_of gather to resources, the additive x_bias, the row maxima, the
 //   affinity fold S and the cost C = base + X, for every ready task of one
-//   activation, in one launch.
+//   activation, in one launch. Under the missing_bytes affinity
+//   (kSMissing) S is the same hop fold over the task's reads with their
+//   sizes as the per-read value, negated:
+//       S_u[i, u] = -(sum over reads r of hops(mask[i, r], u) * size[i, r])
+//   (repro/core/affinity.py:193-220): integer byte counts times 0, 1 or 2,
+//   exact in any order; a zero sum negates into -0.0, as the reference's.
 // * transfer_matrix_kernel, the standalone counterpart of
 //   transfer_matrix_pallas (the transfer fold alone, over dense padded
 //   reads), kept for its own tests and checks.
@@ -60,7 +65,8 @@ constexpr int kWarps = 4;   // ready tasks per block
 constexpr int kMaxU = 64;   // unique memories held in shared memory (n_u <= 63)
 
 // flags of one activation (sched_score.py's FLAG_*)
-constexpr int kWantX = 1, kXRows = 2, kBias = 4, kWantS = 8, kAccelOnly = 16, kWantC = 32;
+constexpr int kWantX = 1, kXRows = 2, kBias = 4, kWantS = 8, kAccelOnly = 16, kWantC = 32,
+              kSMissing = 64;
 
 // Slot offsets of each section, in the order of sched_score.py's
 // IN_SECTIONS + MACHINE_SECTIONS + OUT_SECTIONS.
@@ -129,16 +135,23 @@ score_activation_kernel(const int64_t* __restrict__ in, const int64_t* __restric
       xs[warp][u] = acc;
     }
   }
-  if (want_s) {  // S_u[i, :] over task i's accesses
+  if (want_s) {  // S_u[i, :] over task i's accesses (its reads under kSMissing)
+    const bool missing = flags & kSMissing;
     const int64_t begin = in[L.w_indptr + i], end = in[L.w_indptr + i + 1];
     for (int u = lane; u < n_u; u += 32) {
       const int64_t shift = mem_shift[u];
+      const bool hc = host_col[u] != 0;
       double acc = 0.0;
       for (int64_t k = begin; k < end; ++k) {
-        const bool resident = (in[L.w_masks + k] >> shift) & 1;
-        acc = __dadd_rn(acc, resident ? in_f[L.w_weights + k] : 0.0);
+        const int64_t m = in[L.w_masks + k];
+        const double w = in_f[L.w_weights + k];
+        if (missing) {
+          acc = hop_fold(acc, m, shift, hc, w);
+        } else {
+          acc = __dadd_rn(acc, ((m >> shift) & 1) ? w : 0.0);
+        }
       }
-      ss[warp][u] = acc;
+      ss[warp][u] = missing ? -acc : acc;
     }
   }
   __syncwarp();

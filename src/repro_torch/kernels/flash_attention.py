@@ -8,7 +8,9 @@ Counterpart of ``repro/kernels/flash_attention.py`` and its oracle
 
   * :func:`flash_attention_plain` — ``flash_attention_ref`` in torch: K/V
     repeated over each group, logits and softmax in f32, the bottom-right
-    causal mask (``tril(k = sk - sq)``), the result cast to q's dtype;
+    causal mask (``tril(k = sk - sq)``), the result cast to q's dtype. Like
+    the reference's oracle it takes a value head dim ``dv`` of its own
+    (MLA's values are narrower than its queries and keys);
   * :func:`flash_attention` — the wrapper of two hand-written CUDA kernels
     that replace the Pallas ``flash_attention``
     (``repro/kernels/flash_attention.py:71``). A CPU tensor takes the plain
@@ -18,27 +20,32 @@ Routes, chosen by :func:`attention_route` before any launch (never by
 catching a failure):
 
   * ``"tc"`` — ``csrc/flash_attention_sm90.cu``, bf16 on the tensor cores
-    (wgmma fed by TMA): q, k and v all bf16; ``d`` 64 or 128; every
-    operand's base 16-byte aligned and its batch, head and seq strides
-    multiples of 8 elements (a batch of one excepted), as TMA needs;
+    (wgmma fed by TMA): q, k and v all bf16; the query/key head dim ``dk``
+    a multiple of 16 from 48 to 128 and the value head dim ``dv`` a
+    multiple of 16 (at most ``dk``), so that more than half of each
+    64-wide TMA box of q and k is data (TMA zero-fills the rest: exact);
+    every operand's base 16-byte aligned and its batch, head and seq
+    strides multiples of 8 elements (a batch of one excepted), as TMA
+    needs;
   * ``"simt"`` — ``csrc/flash_attention.cu`` on the CUDA cores in f32:
-    everything else, f32 (no TF32), ``d`` 32 or 256 and unaligned views
+    everything else, f32 (no TF32), ``dk`` 32 or 256 and unaligned views
     included.
 
 ``flash_attention.launches`` counts every call that launched a kernel (one
 per layer of a prefill forward); ``flash_attention.launches_tc`` those that
 took the tensor-core route.
 
-Layout as the reference's: q ``(hq, sq, d)``, k and v ``(hk, sk, d)`` with
-``hq % hk == 0``, returning ``(hq, sq, d)``. A leading batch dimension is
-also taken (``(B, hq, sq, d)`` and ``(B, hk, sk, d)``), with any strides
-so long as ``d`` has unit stride: the model's ``(B, S, H, d)`` projections
-go in as ``transpose(1, 2)`` views, one launch per layer. The Pallas
-kernel's block sizes (``bq``, ``bk``) and ``interpret`` have no
-counterpart: the CUDA kernels have their own tiles and mask ragged ``sq``
-and ``sk`` themselves. f32 or bf16, all three alike; ``d <= 256``. A
-causal call with ``sq > sk`` raises: its first rows would see no key,
-where the reference's oracle gives NaN.
+Layout as the reference's: q ``(hq, sq, dk)``, k ``(hk, sk, dk)`` and v
+``(hk, sk, dv)`` with ``hq % hk == 0`` and ``dv <= dk``, returning
+``(hq, sq, dv)``. A leading batch dimension is also taken
+(``(B, hq, sq, dk)`` and ``(B, hk, sk, ·)``), with any strides so long as
+the head dim has unit stride: the model's ``(B, S, H, d)`` projections go
+in as ``transpose(1, 2)`` views, one launch per layer. The default
+``scale`` is ``1 / sqrt(dk)``. The Pallas kernel's block sizes (``bq``,
+``bk``) and ``interpret`` have no counterpart: the CUDA kernels have their
+own tiles and mask ragged ``sq`` and ``sk`` themselves. f32 or bf16, all
+three alike; ``dk <= 256``. A causal call with ``sq > sk`` raises: its
+first rows would see no key, where the reference's oracle gives NaN.
 """
 from __future__ import annotations
 
@@ -53,7 +60,7 @@ from ._build import build_library
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _SRC_TC = Path(__file__).resolve().parent / "csrc" / "flash_attention_sm90.cu"
 SOURCES = (_SRC, _SRC_TC)
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = range(48, 129, 16)  # dk of the tensor-core route (dv: a multiple of 16 <= dk)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 
@@ -64,7 +71,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale: Optional[float
     hk, sk = k.shape[-3], k.shape[-2]
     group = hq // hk
     if scale is None:
-        scale = 1.0 / d**0.5
+        scale = 1.0 / d**0.5  # of the query/key head dim
     k = k.repeat_interleave(group, dim=-3)
     v = v.repeat_interleave(group, dim=-3)
     logits = (q.float() @ k.float().transpose(-1, -2)) * scale
@@ -92,7 +99,7 @@ def build() -> str:
     lib, log = build_library(_SRC)
     lib_tc, log_tc = build_library(_SRC_TC)
     args = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float]
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_float]
         + [ctypes.c_int] * 2
     )
     lib.repro_flash_attention.argtypes = args + [ctypes.c_int, ctypes.c_void_p]
@@ -108,7 +115,8 @@ def attention_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``"tc"`` or ``"simt"`` for a call that passes :func:`_check`: a pure
     function of dtype, shape, strides and alignment (the module docstring
     states the rule)."""
-    if not all(t.dtype == torch.bfloat16 for t in (q, k, v)) or q.shape[-1] not in TC_HEAD_DIMS:
+    if (not all(t.dtype == torch.bfloat16 for t in (q, k, v)) or q.shape[-1] not in TC_HEAD_DIMS
+            or v.shape[-1] % 16):
         return "simt"
     batch = q.shape[0] if q.dim() == 4 else 1
     for t in (q, k, v):
@@ -124,16 +132,17 @@ def _check(q, k, v, causal):
             f"q, k, v must all be (h, s, d) or all (B, h, s, d), got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if k.shape != v.shape:
+    if k.shape[:-1] != v.shape[:-1]:
         raise ValueError(f"k and v differ in shape: {tuple(k.shape)} vs {tuple(v.shape)}")
     hq, sq, d = q.shape[-3:]
     hk, sk, dk = k.shape[-3:]
+    dv = v.shape[-1]
     if q.dim() == 4 and k.shape[0] != q.shape[0]:
         raise ValueError(f"batch sizes differ: q {q.shape[0]}, k {k.shape[0]}")
-    if dk != d or min(hq, hk, sq, sk, d) <= 0 or hq % hk:
+    if dk != d or min(hq, hk, sq, sk, d, dv) <= 0 or hq % hk or dv > d:
         raise ValueError(
-            f"shapes do not fit: q {tuple(q.shape)}, k {tuple(k.shape)} (need hq % hk == 0 "
-            "and one head dim)"
+            f"shapes do not fit: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
+            "(need hq % hk == 0, one query/key head dim and a value head dim no wider)"
         )
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
@@ -171,8 +180,8 @@ def flash_attention(
     ``flash_attention.launches`` counts the calls that launched a kernel,
     ``flash_attention.launches_tc`` those on the tensor-core route.
 
-    On the card, a 4-D call returns a ``(B, hq, sq, d)`` view of a
-    ``(B, sq, hq, d)`` tensor, so that ``out.transpose(1, 2)`` is
+    On the card, a 4-D call returns a ``(B, hq, sq, dv)`` view of a
+    ``(B, sq, hq, dv)`` tensor, so that ``out.transpose(1, 2)`` is
     contiguous."""
     _check(q, k, v, causal)
     dev = q.device
@@ -182,20 +191,21 @@ def flash_attention(
         raise ValueError(f"unsupported device {dev}")
     hq, sq, d = q.shape[-3:]
     hk, sk = k.shape[-3], k.shape[-2]
+    dv = v.shape[-1]
     if scale is None:
         scale = 1.0 / d**0.5
     build()
     route = attention_route(q, k, v)
     if q.dim() == 4:
-        out = torch.empty((q.shape[0], sq, hq, d), dtype=q.dtype, device=dev).transpose(1, 2)
+        out = torch.empty((q.shape[0], sq, hq, dv), dtype=q.dtype, device=dev).transpose(1, 2)
     else:
-        out = torch.empty((hq, sq, d), dtype=q.dtype, device=dev)
+        out = torch.empty((hq, sq, dv), dtype=q.dtype, device=dev)
     strides = (ctypes.c_longlong * 12)(
         *_bhs_strides(q), *_bhs_strides(k), *_bhs_strides(v), *_bhs_strides(out)
     )
     batch = q.shape[0] if q.dim() == 4 else 1
     args = (
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch, hq, hk, sq, sk, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), batch, hq, hk, sq, sk, d, dv,
         ctypes.cast(strides, ctypes.c_void_p), float(scale), int(bool(causal)),
     )
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -9,7 +9,8 @@ Counterpart of ``repro/kernels/flash_decode.py`` and its oracle
   * :func:`flash_decode_plain` — ``flash_decode_ref`` in torch: K/V
     repeated over each group, logits and softmax in f32 with positions
     ``>= length`` masked to -1e30, the P.V product in f32, cast to q's
-    dtype;
+    dtype. Like the reference's oracle it takes a value head dim ``dv`` of
+    its own (MLA's values are narrower than its queries and keys);
   * :func:`flash_decode` — the wrapper of two hand-written CUDA kernels
     that replace the Pallas ``flash_decode``
     (``repro/kernels/flash_decode.py:65``). A CPU tensor takes the plain
@@ -19,10 +20,11 @@ Routes, chosen by :func:`decode_route` before any launch (never by
 catching a failure):
 
   * ``"split"`` — ``csrc/flash_decode_split.cu``, split-KV on the tensor
-    cores: bf16; ``hd`` a multiple of 16 up to 256; a group
+    cores: bf16; the query/key head dim ``dk`` and the value head dim
+    ``dv`` multiples of 16 (``dv <= dk <= 256``); a group
     (``Hq / Hkv``) of at most 32; and every operand with unit stride
-    along ``hd``, a 16-byte-aligned base and its other strides multiples
-    of 8 elements (16-byte rows for ``cp.async``). :func:`decode_splits`
+    along the head dim, a 16-byte-aligned base and its other strides
+    multiples of 8 elements (16-byte rows for ``cp.async``). :func:`decode_splits`
     plans the grid; the f32 partial results go to scratch from
     ``torch.empty`` and a second kernel merges them;
   * ``"simt"`` — ``csrc/flash_decode.cu``, one block per (KV head,
@@ -33,9 +35,10 @@ catching a failure):
 layer of a decode forward); ``flash_decode.launches_split`` those that took
 the split route.
 
-Layout as the reference's: q ``(B, Hq, hd)``, the cache k and v
-``(B, S, Hkv, hd)`` (seq-major), ``Hq % Hkv == 0``; returns ``(B, Hq, hd)``.
-Any strides with unit stride along ``hd``. ``length`` is an int with
+Layout as the reference's: q ``(B, Hq, dk)``, the cache k ``(B, S, Hkv,
+dk)`` and v ``(B, S, Hkv, dv)`` (seq-major), ``Hq % Hkv == 0``, ``dv <= dk``;
+returns ``(B, Hq, dv)``. The default ``scale`` is ``1 / sqrt(dk)``. Any
+strides with unit stride along the head dim. ``length`` is an int with
 ``1 <= length <= S``: the kernels read only the live positions, and a
 length of 0 would leave nothing to attend to. The Pallas kernel's block
 size ``bk`` and ``interpret`` have no counterpart: the CUDA kernels have
@@ -122,13 +125,13 @@ def build() -> str:
     lib_split, log_split = build_library(_SRC_SPLIT)
     fn = lib.repro_flash_decode
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_float]
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_float]
         + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     fn = lib_split.repro_flash_decode_split
     fn.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_float,
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_float,
                                                       ctypes.c_int, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -154,11 +157,13 @@ def decode_splits(batch: int, hkv: int, length: int, n_sm: int = N_SM) -> Tuple[
     return chunk, -(-length // chunk)
 
 
-def split_smem_bytes(hd: int) -> int:
+def split_smem_bytes(hd: int, dv: Optional[int] = None) -> int:
     """Shared memory of one split-kernel block (``split_smem_bytes`` of
     ``csrc/flash_decode_split.cu``): Q's 16 rows and a 3-stage ring of
-    64-position K and V tiles, rows padded by 8 bf16."""
-    return 2 * (hd + 8) * (16 + 2 * 3 * TILE)
+    64-position K tiles (``hd`` wide) and V tiles (``dv``, default ``hd``),
+    rows padded by 8 bf16."""
+    dv = hd if dv is None else dv
+    return 2 * ((hd + 8) * (16 + 3 * TILE) + (dv + 8) * 3 * TILE)
 
 
 def _rows_16b(t: torch.Tensor) -> bool:
@@ -174,35 +179,39 @@ def decode_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``"split"`` or ``"simt"`` for a call that passes :func:`_check`: a pure
     function of dtype, shape, strides and alignment (the module docstring
     states the rule)."""
-    hd = q.shape[-1]
+    hd, dv = q.shape[-1], v.shape[-1]
     group = q.shape[1] // k.shape[2]
     if (
         all(t.dtype == torch.bfloat16 for t in (q, k, v)) and hd % 16 == 0 and hd <= 256
-        and group <= MAX_SPLIT_GROUP and all(_rows_16b(t) for t in (q, k, v))
+        and dv % 16 == 0 and group <= MAX_SPLIT_GROUP and all(_rows_16b(t) for t in (q, k, v))
     ):
         return "split"
     return "simt"
 
 
-def smem_bytes(group: int, hd: int) -> int:
-    """Shared memory one block takes (``smem_bytes`` of ``csrc/flash_decode.cu``)."""
+def smem_bytes(group: int, hd: int, dv: Optional[int] = None) -> int:
+    """Shared memory one block takes (``smem_bytes`` of ``csrc/flash_decode.cu``;
+    ``dv`` defaults to ``hd``)."""
     tk = 32
-    return 4 * (2 * group * hd + tk * (hd + 1) + tk * hd + group * tk + 3 * group)
+    dv = hd if dv is None else dv
+    return 4 * (group * (hd + dv) + tk * (hd + 1) + tk * dv + group * tk + 3 * group)
 
 
 def _check(q, k, v, length) -> str:
     """Raise on what neither kernel takes; return the call's route."""
-    if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
+    if q.dim() != 3 or k.dim() != 4 or v.dim() != 4 or k.shape[:-1] != v.shape[:-1]:
         raise ValueError(
-            f"need q (B, Hq, hd) and k, v (B, S, Hkv, hd), got "
+            f"need q (B, Hq, dk), k (B, S, Hkv, dk) and v (B, S, Hkv, dv), got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
     B, Hq, hd = q.shape
     Bk, S, Hkv, hdk = k.shape
-    if Bk != B or hdk != hd or min(B, Hq, hd, S, Hkv) <= 0 or Hq % Hkv:
+    dv = v.shape[-1]
+    if Bk != B or hdk != hd or min(B, Hq, hd, S, Hkv, dv) <= 0 or Hq % Hkv or dv > hd:
         raise ValueError(
-            f"shapes do not fit: q {tuple(q.shape)}, cache {tuple(k.shape)} "
-            "(need one batch, one head dim and Hq % Hkv == 0)"
+            f"shapes do not fit: q {tuple(q.shape)}, cache {tuple(k.shape)}, {tuple(v.shape)} "
+            "(need one batch, one query/key head dim, a value head dim no wider and "
+            "Hq % Hkv == 0)"
         )
     if not 1 <= length <= S:
         raise ValueError(f"length {length} outside 1..{S}")
@@ -211,16 +220,16 @@ def _check(q, k, v, length) -> str:
             f"q, k and v must all be float32 or all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}"
         )
     route = decode_route(q, k, v)
-    if route == "simt" and smem_bytes(Hq // Hkv, hd) > MAX_SMEM_BYTES:
+    if route == "simt" and smem_bytes(Hq // Hkv, hd, dv) > MAX_SMEM_BYTES:
         raise ValueError(
-            f"group {Hq // Hkv} x head dim {hd} needs {smem_bytes(Hq // Hkv, hd)} bytes of "
-            f"shared memory, more than a block has ({MAX_SMEM_BYTES})"
+            f"group {Hq // Hkv} x head dims {hd}/{dv} needs {smem_bytes(Hq // Hkv, hd, dv)} "
+            f"bytes of shared memory, more than a block has ({MAX_SMEM_BYTES})"
         )
     devices = {t.device for t in (q, k, v)}
     if len(devices) != 1:
         raise ValueError(f"inputs lie on several devices: {devices}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if hd > 1 and t.stride(-1) != 1:
+        if t.shape[-1] > 1 and t.stride(-1) != 1:
             raise ValueError(f"{name} needs unit stride along hd, got strides {t.stride()}")
     return route
 
@@ -246,11 +255,11 @@ def flash_decode(
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     B, Hq, hd = q.shape
-    Hkv = k.shape[2]
+    Hkv, dv = k.shape[2], v.shape[-1]
     if scale is None:
         scale = 1.0 / hd**0.5
     build()
-    out = torch.empty((B, Hq, hd), dtype=q.dtype, device=dev)
+    out = torch.empty((B, Hq, dv), dtype=q.dtype, device=dev)
     qs, ks, vs, os_ = q.stride(), k.stride(), v.stride(), out.stride()
     strides = (ctypes.c_longlong * 10)(
         qs[0], qs[1], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], os_[0], os_[1]
@@ -260,16 +269,16 @@ def flash_decode(
         chunk, n_split = decode_splits(B, Hkv, length)
         # f32 scratch: each split's m and l, then its acc, per (sequence, head)
         rows = B * Hq * n_split
-        part = torch.empty((2 + hd) * rows, dtype=torch.float32, device=dev)
+        part = torch.empty((2 + dv) * rows, dtype=torch.float32, device=dev)
         p0 = part.data_ptr()
         err = _lib_split.repro_flash_decode_split(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), p0, p0 + 4 * rows,
-            p0 + 8 * rows, B, Hkv, Hq // Hkv, hd, length, chunk, n_split,
+            p0 + 8 * rows, B, Hkv, Hq // Hkv, hd, dv, length, chunk, n_split,
             ctypes.cast(strides, ctypes.c_void_p), float(scale), dev.index, stream,
         )
     else:
         err = _lib.repro_flash_decode(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hkv, Hq // Hkv, hd,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hkv, Hq // Hkv, hd, dv,
             length, ctypes.cast(strides, ctypes.c_void_p), float(scale), _DTYPE_CODE[q.dtype],
             dev.index, stream,
         )

@@ -208,7 +208,8 @@ transfer_matrix.launches = 0
 # one activation in one launch: the layout, its packing, the plain version
 # and the kernel's wrapper
 
-FLAG_X, FLAG_X_ROWS, FLAG_BIAS, FLAG_S, FLAG_ACCEL_ONLY, FLAG_C = 1, 2, 4, 8, 16, 32
+FLAG_X, FLAG_X_ROWS, FLAG_BIAS, FLAG_S, FLAG_ACCEL_ONLY, FLAG_C, FLAG_S_MISSING = (
+    1, 2, 4, 8, 16, 32, 64)
 
 # the sections of the three flat buffers, in order; every slot is 8 bytes
 # (int64 or f64). The C struct ``Layout`` of csrc/sched_score.cu takes the
@@ -232,7 +233,10 @@ class ScoreSpec:
     all, ``n_u`` unique memories, ``n_res`` resources. ``want_x``: the
     transfer matrix X (full rows with ``x_rows``, else the row maxima;
     ``want_bias`` adds an (n × n_res) bias to it first). ``want_s``: the
-    affinity matrix S (zero off accelerators with ``accel_only``).
+    affinity matrix S (zero off accelerators with ``accel_only``); with
+    ``s_missing`` the affinity accesses are the reads and their weights
+    the read sizes, and S is the missing_bytes score: minus the hop fold
+    of the sizes, ``-Σ hops(mask, u) · size`` (-0.0 where it is 0).
     ``want_c``: the cost ``C = base + X`` (``base`` without ``want_x``).
     """
 
@@ -247,6 +251,7 @@ class ScoreSpec:
     want_s: bool = False
     accel_only: bool = False
     want_c: bool = False
+    s_missing: bool = False
 
     def __post_init__(self) -> None:
         for name in ("n", "nnz_r", "nnz_w", "n_u", "n_res"):
@@ -268,13 +273,16 @@ class ScoreSpec:
             raise ValueError("x_rows and want_bias need want_x")
         if self.accel_only and not self.want_s:
             raise ValueError("accel_only needs want_s")
+        if self.s_missing and (self.accel_only or not self.want_s):
+            raise ValueError("s_missing needs want_s and excludes accel_only")
         if not (self.want_x or self.want_s or self.want_c):
             raise ValueError("the activation asks for no output")
 
     @property
     def flags(self) -> int:
         return (FLAG_X * self.want_x | FLAG_X_ROWS * self.x_rows | FLAG_BIAS * self.want_bias
-                | FLAG_S * self.want_s | FLAG_ACCEL_ONLY * self.accel_only | FLAG_C * self.want_c)
+                | FLAG_S * self.want_s | FLAG_ACCEL_ONLY * self.accel_only | FLAG_C * self.want_c
+                | FLAG_S_MISSING * self.s_missing)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -471,10 +479,13 @@ def score_activation_plain(packed_in: torch.Tensor, layout: ScoreLayout,
             views["X_max"].copy_(X.amax(dim=1))
     if spec.want_s:
         wm, ww = _dense(got["w_indptr"], [got["w_masks"], got["w_weights"]])
-        terms = torch.where(_resident(wm, mem_shift), ww[:, :, None], 0.0)
-        S_u = torch.zeros((n, spec.n_u), dtype=torch.float64, device=out.device)
-        for r in range(ww.shape[1]):  # in access order from +0.0
-            S_u = S_u + terms[:, r]
+        if spec.s_missing:  # the reads' hop fold of their sizes, negated
+            S_u = -_hop_fold(wm, ww, _resident(wm, mem_shift), host_col)
+        else:
+            terms = torch.where(_resident(wm, mem_shift), ww[:, :, None], 0.0)
+            S_u = torch.zeros((n, spec.n_u), dtype=torch.float64, device=out.device)
+            for r in range(ww.shape[1]):  # in access order from +0.0
+                S_u = S_u + terms[:, r]
         S = S_u[:, col_of]
         if spec.accel_only:
             S = torch.where(accel[None, :], S, 0.0)

@@ -1,6 +1,7 @@
 """Serving entry point: prefill a batch of requests, then decode tokens.
 
-``python -m repro_torch.launch.serve --arch chatglm3-6b`` (on the card);
+``python -m repro_torch.launch.serve --arch chatglm3-6b`` (on the card;
+``--arch minicpm3-4b`` serves the MLA model the same way);
 ``--smoke --device cpu`` runs the reduced config on the CPU, where the
 attention kernels take their plain versions.
 """

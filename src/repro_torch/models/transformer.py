@@ -1,10 +1,11 @@
-"""Model assembly for the dense GQA transformer family: init, cache, forward.
+"""Model assembly for the dense transformer family: init, cache, forward.
 
 Counterpart of ``repro/models/transformer.py`` for configs whose blocks are
-all attention with a dense MLP (chatglm3-6b, granite-8b, gemma-7b). Any
-other family (MLA, MoE, Mamba / hybrid, xLSTM, encoder-decoder, VLM and
-audio frontends) raises :class:`NotImplementedError`: ``ROADMAP.md`` lists
-them as later slices.
+all attention with a dense MLP: GQA attention (chatglm3-6b, granite-8b,
+gemma-7b) or Multi-head Latent Attention (minicpm3-4b, :mod:`.mla`). Any
+other family (MoE, Mamba / hybrid, xLSTM, encoder-decoder, VLM and audio
+frontends) raises :class:`NotImplementedError`: ``ROADMAP.md`` lists them
+as later slices.
 
 Where the reference differs in form only:
 
@@ -18,8 +19,9 @@ Where the reference differs in form only:
     here: exactly one term is non-zero, so the two are equal;
   * ``constrain_batch`` (a no-op on one card) and ``remat`` (which does not
     matter when serving) are left out;
-  * the cache keeps the reference's structure, ``{"p0": {"k", "v"}}`` with
-    a leading layer axis, and a decode step updates it in place.
+  * the cache keeps the reference's structure, ``{"p0": {"k", "v"}}`` (MLA:
+    ``{"p0": {"c_kv", "k_rope"}}``) with a leading layer axis, and a decode
+    step updates it in place.
 """
 from __future__ import annotations
 
@@ -30,54 +32,68 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import attention as attn
+from . import mla as mla_mod
 from .layers import _dtype, dense_init, embed_apply, embed_init, mlp_apply, mlp_init, norm_apply, norm_init
 from .rope import rope_table
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense attention-only transformer."""
+    """Raise unless ``cfg`` is a dense attention-only transformer (GQA or
+    MLA attention)."""
     if (
-        cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None
+        cfg.family != "dense" or cfg.moe is not None
         or tuple(cfg.block_pattern) != ("attn",) or cfg.enc_layers or cfg.frontend_tokens
     ):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (mla={cfg.mla is not None}, "
             f"moe={cfg.moe is not None}, blocks {cfg.block_pattern}) is not ported yet; "
-            "the port serves dense attention-only configs (ROADMAP.md, queue 1 item 7)"
+            "the port serves dense attention-only configs, GQA or MLA (ROADMAP.md, queue 1 "
+            "item 7)"
         )
 
 
 # ---------------------------------------------------------------------------
 def block_init(cfg: ModelConfig, gen, dtype, device) -> Dict:
     d = cfg.d_model
-    return {
-        "norm1": norm_init(cfg.norm, d, dtype, device),
-        "attn": attn.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dtype, device),
-        "norm2": norm_init(cfg.norm, d, dtype, device),
-        "mlp": mlp_init(gen, d, cfg.d_ff, cfg.act, dtype, device),
-    }
+    p = {"norm1": norm_init(cfg.norm, d, dtype, device)}
+    if cfg.mla is not None:
+        p["mla"] = mla_mod.mla_init(gen, d, cfg.n_heads, cfg.mla, dtype, device)
+    else:
+        p["attn"] = attn.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dtype, device)
+    p["norm2"] = norm_init(cfg.norm, d, dtype, device)
+    p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.act, dtype, device)
+    return p
 
 
 def block_apply(cfg: ModelConfig, params: Dict, x, *, rope_cos, rope_sin, cache=None, cache_pos=None):
-    """One pre-norm block: attention then the MLP, each residual."""
+    """One pre-norm block: attention (GQA or MLA) then the MLP, each residual."""
     h = norm_apply(cfg.norm, params["norm1"], x)
-    y, _ = attn.attn_apply(
-        params["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
-        rope_cos=rope_cos, rope_sin=rope_sin, rope_style=cfg.rope_style, causal=True,
-        cache=cache, cache_pos=cache_pos,
-    )
+    if cfg.mla is not None:
+        y, _ = mla_mod.mla_apply(
+            params["mla"], h, n_heads=cfg.n_heads, mla_cfg=cfg.mla, rope_cos=rope_cos,
+            rope_sin=rope_sin, cache=cache, cache_pos=cache_pos,
+        )
+    else:
+        y, _ = attn.attn_apply(
+            params["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+            rope_cos=rope_cos, rope_sin=rope_sin, rope_style=cfg.rope_style, causal=True,
+            cache=cache, cache_pos=cache_pos,
+        )
     x = x + y
     h = norm_apply(cfg.norm, params["norm2"], x)
     return x + mlp_apply(params["mlp"], h, cfg.act)
 
 
 def cache_init(cfg: ModelConfig, B: int, S: int, device="cuda") -> Dict:
-    """Zero KV cache ``{"p0": {"k", "v"}}``, each (n_layers, B, S, Hkv, hd)
+    """Zero KV cache ``{"p0": {"k", "v"}}``, each (n_layers, B, S, Hkv, hd),
+    or under MLA ``{"p0": {"c_kv", "k_rope"}}`` (:func:`.mla.mla_cache_init`),
     in the compute dtype."""
     check_supported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
     dt = _dtype(cfg.compute_dtype)
+    if cfg.mla is not None:
+        return {"p0": mla_mod.mla_cache_init(cfg.n_layers, B, S, cfg.mla, dt, dev)}
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
     return {"p0": {
         "k": torch.zeros(shape, dtype=dt, device=dev),
         "v": torch.zeros(shape, dtype=dt, device=dev),
@@ -103,9 +119,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> 
 
 # ---------------------------------------------------------------------------
 def _rope_tables(cfg: ModelConfig, positions):
-    if cfg.rope_style == "none":
+    if cfg.mla is not None:  # MLA rotates its rope dims alone, in full style
+        rot = cfg.mla.qk_rope_dim
+    elif cfg.rope_style == "none":
         return None, None
-    rot = cfg.hd // 2 if cfg.rope_style == "half" else cfg.hd
+    else:
+        rot = cfg.hd // 2 if cfg.rope_style == "half" else cfg.hd
     return rope_table(positions, rot, cfg.rope_theta)
 
 
@@ -140,7 +159,7 @@ def forward(
     for i, bp in enumerate(params["blocks"]):
         layer_cache = None
         if cache is not None:
-            layer_cache = {"k": cache["p0"]["k"][i], "v": cache["p0"]["v"][i]}
+            layer_cache = {name: buf[i] for name, buf in cache["p0"].items()}
         x = block_apply(cfg, bp, x, rope_cos=cos, rope_sin=sin, cache=layer_cache,
                         cache_pos=cache_pos)
     x = norm_apply(cfg.norm, params["final_norm"], x)

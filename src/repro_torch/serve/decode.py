@@ -1,7 +1,8 @@
 """Serving: prefill and single-token decode steps.
 
-Counterpart of ``repro/serve/decode.py`` for the dense family (the
-encoder-decoder cross cache waits for that family, ``ROADMAP.md``).
+Counterpart of ``repro/serve/decode.py`` for the dense family, GQA and MLA
+attention alike (the encoder-decoder cross cache waits for that family,
+``ROADMAP.md``).
 """
 from __future__ import annotations
 

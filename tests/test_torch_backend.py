@@ -131,4 +131,4 @@ def test_host_rows_bitwise_equal_numpy(n_ready, affinity):
 
 def test_unknown_affinity_rejected():
     with pytest.raises(ValueError, match="affinity"):
-        DADA(affinity="missing_bytes", device="cpu")
+        DADA(affinity="no_such_score", device="cpu")

@@ -89,7 +89,9 @@ def test_cuda_kernel_rejects_mixed_devices(cuda):
         port.transfer_matrix(masks.to(cuda), per_read, mem_shift, host_col)
 
 
-@pytest.mark.parametrize("spec", ["heft", "dada?alpha=0.5&use_cp=1", "dada?alpha=0.5"])
+@pytest.mark.parametrize("spec", ["heft", "dada?alpha=0.5&use_cp=1", "dada?alpha=0.5",
+                                  "dada?alpha=0.5&affinity=missing_bytes",
+                                  "dada?alpha=0.5&use_cp=1&affinity=missing_bytes"])
 def test_cuda_simulation_equals_cpu(cuda, spec):
     """A whole simulation scored on the card equals the CPU run."""
     from repro_torch.configs.paper_machine import paper_machine
@@ -133,12 +135,14 @@ LATENCY, BANDWIDTH = 1.5e-5, 1.2e10  # a PCIe-like link
 
 
 def activation_case(seed, n, n_u, n_res, *, want_x=True, x_rows=False, want_bias=False,
-                    want_s=True, accel_only=False, want_c=True, host=True):
+                    want_s=True, accel_only=False, want_c=True, host=True, s_missing=False):
     """A seeded packed activation: (layout, packed input, machine buffer),
     both int64 numpy arrays. Masks over the host bit and ``n_u`` memory
     shifts up to 62 (no host column when ``host`` is False), with data
     that exists nowhere, host-only data, reads of size 0, task 0 without
-    reads and task 1 without affinity accesses."""
+    reads and task 1 without affinity accesses. With ``s_missing`` the
+    affinity accesses are read-like (weights are sizes, some 0) and S is
+    the missing_bytes fold."""
     rng = np.random.default_rng(seed)
     n_dev = n_u - 1 if host else n_u
     shifts = np.sort(rng.choice(np.arange(1, port.MAX_SHIFT + 1), n_dev, replace=False))
@@ -168,9 +172,12 @@ def activation_case(seed, n, n_u, n_res, *, want_x=True, x_rows=False, want_bias
         sizes = rng.integers(0, 1 << 22, len(masks)).astype(np.float64)
         sizes[::6] = 0.0
         reads = (indptr, masks, sizes)
-    if want_s:
+    if want_s or s_missing:
         indptr, masks = csr(3, 1)
-        writes = (indptr, masks, rng.integers(1, 1 << 22, len(masks)).astype(np.float64))
+        weights = rng.integers(1, 1 << 22, len(masks)).astype(np.float64)
+        if s_missing:
+            weights[::6] = 0.0
+        writes = (indptr, masks, weights)
     bias = None
     if want_bias:
         bias = rng.random((n, n_res)) * 1e-3
@@ -178,7 +185,7 @@ def activation_case(seed, n, n_u, n_res, *, want_x=True, x_rows=False, want_bias
     layout = port.score_layout(port.ScoreSpec(
         n=n, nnz_r=len(reads[1]) if reads else 0, nnz_w=len(writes[1]) if writes else 0,
         n_u=n_u, n_res=n_res, want_x=want_x, x_rows=x_rows, want_bias=want_bias,
-        want_s=want_s, accel_only=accel_only, want_c=want_c,
+        want_s=want_s or s_missing, accel_only=accel_only, want_c=want_c, s_missing=s_missing,
     ))
     packed = np.zeros(layout.n_in, dtype=np.int64)
     port.pack_activation(
@@ -229,6 +236,29 @@ def test_cuda_score_activation_equals_plain_every_flag(cuda, shape, flags):
     assert port.score_activation.launches == before + 1
     assert torch.equal(got.cpu(), want)
     assert torch.equal(plain_card.cpu(), want)
+
+
+# the missing_bytes flag (s_missing: S from the reads' sizes, hop-folded and
+# negated) with every X / C combination
+MISSING_FLAGS = [dict(want_x=x != "none", x_rows=x.startswith("rows"), want_bias="bias" in x,
+                      want_c=c, s_missing=True)
+                 for x in ("none", "max", "max+bias", "rows", "rows+bias") for c in (False, True)]
+
+
+@pytest.mark.parametrize("flags", MISSING_FLAGS, ids=_flag_id)
+@pytest.mark.parametrize("shape", ACTIVATION_SHAPES, ids=lambda s: f"n{s[0]}-u{s[1]}-r{s[2]}")
+def test_cuda_score_activation_missing_bytes_equals_plain(cuda, shape, flags):
+    """Bit for bit (torch.equal: -0.0 where the plain version has it)."""
+    n, n_u, n_res, host = shape
+    layout, packed, machine = activation_case(n * 3 + n_u, n, n_u, n_res, host=host, **flags)
+    cpu_in, cpu_mach = torch.from_numpy(packed), torch.from_numpy(machine)
+    want = port.score_activation_plain(cpu_in, layout, cpu_mach)
+    before = port.score_activation.launches
+    got = port.score_activation(cpu_in.to(cuda), layout, cpu_mach.to(cuda))
+    torch.cuda.synchronize()
+    assert port.score_activation.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(torch.signbit(got.cpu()), torch.signbit(want))
 
 
 @pytest.mark.parametrize("shape", ACTIVATION_SHAPES, ids=lambda s: f"n{s[0]}-u{s[1]}-r{s[2]}")
@@ -760,6 +790,120 @@ def test_cuda_flash_decode_simt_route(cuda, case):
     want = fd.flash_decode_plain(q, k, v, 150)
     tol = DECODE_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# a value head dim of its own (MLA: dk 96, dv 64), on every route
+
+
+@pytest.mark.parametrize("dk,dv", [(96, 64), (48, 32), (128, 64), (64, 16)])
+@pytest.mark.parametrize(
+    "B,hq,hk,sq,sk,causal",
+    [(2, 40, 40, 200, 200, True), (2, 8, 2, 77, 300, True), (1, 4, 1, 130, 65, False)],
+)
+def test_cuda_flash_attention_dv_tc_matches_plain(cuda, B, hq, hk, sq, sk, causal, dk, dv):
+    q, k = (t.to(cuda).transpose(1, 2) for t in _draw(
+        dk + dv + sq, ((B, sq, hq, dk), (B, sk, hk, dk)), torch.bfloat16))
+    v = _draw(dv + sk, ((B, sk, hk, dv),), torch.bfloat16)[0].to(cuda).transpose(1, 2)
+    assert fa.attention_route(q, k, v) == "tc"
+    before_tc = fa.flash_attention.launches_tc
+    got = fa.flash_attention(q, k, v, causal=causal, scale=dk ** -0.5)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, scale=dk ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_tc == before_tc + 1
+    assert got.shape == (B, hq, sq, dv) and got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dk,dv", [(96, 64), (48, 32), (32, 16), (256, 64)])
+def test_cuda_flash_attention_dv_simt_matches_plain(cuda, dk, dv, dtype):
+    """f32, and bf16 head dims the tensor-core kernel does not take
+    (dk 32 and 256; bf16 (96, 64) and (48, 32) go in unaligned)."""
+    q, k = (t.to(cuda) for t in _draw(dk, ((6, 90, dk + 8), (3, 90, dk + 8)), dtype))
+    v = _draw(dv, ((3, 90, dv + 8),), dtype)[0].to(cuda)
+    off = 1 if dtype == torch.bfloat16 and dk in (96, 48) else 0
+    q, k, v = q[..., off:off + dk], k[..., off:off + dk], v[..., off:off + dv]
+    assert fa.attention_route(q, k, v) == "simt"
+    before = (fa.flash_attention.launches, fa.flash_attention.launches_tc)
+    got = fa.flash_attention(q, k, v)
+    want = fa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches, fa.flash_attention.launches_tc) == (before[0] + 1, before[1])
+    assert got.shape == (6, 90, dv)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dk,dv", [(96, 64), (48, 32), (256, 64), (128, 16)])
+@pytest.mark.parametrize("B,hq,hk,S,length", [(4, 40, 40, 96, 96), (2, 8, 2, 700, 65),
+                                              (2, 32, 1, 300, 1)])
+def test_cuda_flash_decode_dv_split_matches_plain(cuda, B, hq, hk, S, length, dk, dv):
+    q, k = (t.to(cuda) for t in _draw(dk + length, ((B, hq, dk), (B, S, hk, dk)), torch.bfloat16))
+    v = _draw(dv + S, ((B, S, hk, dv),), torch.bfloat16)[0].to(cuda)
+    assert fd.decode_route(q, k, v) == "split"
+    before_split = fd.flash_decode.launches_split
+    got = fd.flash_decode(q, k, v, length, scale=dk ** -0.5)
+    want = fd.flash_decode_plain(q, k, v, length, scale=dk ** -0.5)
+    torch.cuda.synchronize()
+    assert fd.flash_decode.launches_split == before_split + 1
+    assert got.shape == (B, hq, dv)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dk,dv", [(96, 64), (48, 32), (24, 8)])
+def test_cuda_flash_decode_dv_simt_matches_plain(cuda, dk, dv, dtype):
+    """f32, and bf16 views the split kernel does not take (unaligned, or a
+    head dim that is no multiple of 16)."""
+    q, k = (t.to(cuda) for t in _draw(dk, ((2, 16, dk + 8), (2, 200, 2, dk + 8)), dtype))
+    v = _draw(dv, ((2, 200, 2, dv + 8),), dtype)[0].to(cuda)
+    off = 1 if dtype == torch.bfloat16 else 0
+    q, k, v = q[..., off:off + dk], k[..., off:off + dk], v[..., off:off + dv]
+    assert fd.decode_route(q, k, v) == "simt"
+    before = (fd.flash_decode.launches, fd.flash_decode.launches_split)
+    got = fd.flash_decode(q, k, v, 150)
+    want = fd.flash_decode_plain(q, k, v, 150)
+    torch.cuda.synchronize()
+    assert (fd.flash_decode.launches, fd.flash_decode.launches_split) == (before[0] + 1, before[1])
+    tol = DECODE_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_cuda_mla_serving_takes_the_tensor_core_routes(cuda):
+    """minicpm3-4b's attention widths (40 heads, dk 96, dv 64) at two layers
+    and d 256, bf16: every prefill layer on "tc", every decode layer on
+    "split"; the card's logits near the CPU's (plain versions) and the two
+    paths' last logits near each other."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import prefill_into_cache
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+
+    cfg = get_config("minicpm3-4b").scaled(n_layers=2, d_model=256, d_ff=512, vocab=1000)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(cuda)
+
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, 12)))
+    out = {}
+    for dev, p in (("cuda", to(params)), ("cpu", params)):
+        counts = (fa.flash_attention.launches_tc, fd.flash_decode.launches_split)
+        logits = make_prefill_step(cfg)(p, {"tokens": prompt.to(dev)})
+        _, cache = prefill_into_cache(p, cfg, prompt.to(dev), 13)
+        _, step_logits, _ = make_serve_step(cfg)(p, cache, prompt[:, -1:].to(dev), 11)
+        out[dev] = (logits.cpu(), step_logits.cpu(),
+                    fa.flash_attention.launches_tc - counts[0],
+                    fd.flash_decode.launches_split - counts[1])
+    assert out["cuda"][2:] == (cfg.n_layers, 13 * cfg.n_layers) and out["cpu"][2:] == (0, 0)
+    for k in (0, 1):
+        scale = out["cpu"][k].abs().max()
+        assert (out["cuda"][k] - out["cpu"][k]).abs().max() < 6e-2 * scale
+    assert (out["cuda"][0] - out["cuda"][1]).abs().max() < 6e-2 * out["cuda"][0].abs().max()
 
 
 def test_cuda_tensor_core_routes_replay_in_a_graph(cuda):
