@@ -116,7 +116,9 @@ non-zero and no phase carries on past its own failure):
               decode at a decode_32k-like shape: B 16, S 32 768; and
               minicpm3-4b's prefill B 4 x 2048 and serving step) beside
               the plain version, the bound and
-              scaled_dot_product_attention;
+              scaled_dot_product_attention; the MoE models' widths (grok-1:
+              48 query heads over 8 KV heads; kimi-k2: 64 over 8; hd 128)
+              at the serving shapes on the "tc" and "split" routes;
   8. serve    chatglm3-6b at full width and depth (6.24e9 random bf16
               parameters from a seeded generator) on the card: prefill of
               4 x 2048 tokens through make_prefill_step; then
@@ -137,6 +139,28 @@ non-zero and no phase carries on past its own failure):
               logits within SERVE_LOGIT_TOL; prints prefill tokens/s, ms a
               decode step and peak device memory; then its smoke config on
               the card against the CPU at f32;
+  8c. moe     the MoE transformers at full width with the depth cut, as
+              one card holds them: grok-1-314b at 4 of its 64 layers
+              (d 6144, 48 / 8 heads, 8 experts top-2, expert ff 32 768;
+              2.13e10 random bf16 parameters) and kimi-k2-1t-a32b at 1 of
+              its 61 (d 7168, 64 / 8 heads, 384 experts top-8, expert ff
+              2 048; 1.94e10), each as the serve phase runs chatglm3-6b
+              (4 x 2048 prefill twice, a 64-token prompt through the cache,
+              32 greedy steps; every prefill layer on "tc", every decode
+              layer on "split"), one freed before the next is made. The
+              timed runs use the config's capacity factor (1.25) and a
+              third prefill prints the assignments it drops; the two
+              paths' logits are compared at the factor that drops nothing
+              (E / K), within MOE_LOGIT_TOL, with the tokens whose top-k
+              set differs between the paths printed. An expert_perm from
+              plan_expert_placement (4 groups) with the expert weights
+              moved to their new slots must give equal logits
+              (torch.equal), prefill and a decode step. Prints parameters,
+              peak memory, tokens/s, ms a step beside their bounds, and a
+              profile of one prefill and one decode step split into the
+              expert products, the router, dispatch and combine, attention
+              and idle time; then the smoke config on the card against
+              the CPU at f32;
   9. profile  one NT 16 Cholesky simulation per strategy under
               torch.profiler (twice with one strategy object; the second is
               read): device busy time against wall time, each placement
@@ -277,7 +301,8 @@ non-zero and no phase carries on past its own failure):
  16. report   a JSON line of every ported kernel (launches_paper,
               launches_verify, launches_memory, launches_faults and
               launches_serving: each kernel's launches in those phases;
-              launches_mla and launches_missing_bytes likewise),
+              launches_mla, launches_moe and launches_missing_bytes
+              likewise),
               then the last line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits 2 without printing a result when there is
@@ -285,6 +310,8 @@ none. Imports nothing of JAX and nothing of the ``repro`` package.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -341,6 +368,9 @@ ATTN_CASES = [
     (None, 2, 1, 77, 45, 128, False), (None, 4, 4, 65, 65, 256, True),
     (SERVE_B, 32, 2, SERVE_PROMPT, SERVE_PROMPT, 128, True),  # the shared prompt
     (SERVE_B, 32, 2, SERVE_PREFILL, SERVE_PREFILL, 128, True),  # the prefill
+    # the MoE models' prefill: grok-1 (group 6) and kimi-k2 (group 8)
+    (SERVE_B, 48, 8, SERVE_PREFILL, SERVE_PREFILL, 128, True),
+    (SERVE_B, 64, 8, SERVE_PREFILL, SERVE_PREFILL, 128, True),
     # the tensor-core route's edges: d 64 and 128, sq / sk no multiple of 128
     # or 64, causal with sk > sq, B > 1 strided views
     (2, 8, 2, 77, 300, 64, True), (3, 32, 2, 257, 257, 128, True),
@@ -358,6 +388,16 @@ ATTN_DV_CASES = [
     (SERVE_B, 40, 40, SERVE_PROMPT, SERVE_PROMPT, 96, 64, True),  # the MLA prompt
     (SERVE_B, 40, 40, SERVE_PREFILL, SERVE_PREFILL, 96, 64, True),  # the MLA prefill
 ]
+# the MoE models at full width, depth cut to what one card holds:
+# (arch, layers served)
+MOE_ARCHS = (("grok-1-314b", 4), ("kimi-k2-1t-a32b", 1))
+# |prefill logits - decode-path logits| over the largest |logit|, bf16, at
+# the capacity factor that drops nothing: tools/moe_logit_gap.py (the same
+# code on the CPU, widths 256 / 512, the published heads and experts) gives
+# at most 1.67e-2 (grok-1, 4 layers, d 256, one token's route flipped); the
+# tolerance is three times that
+MOE_LOGIT_TOL = 5e-2
+MOE_GROUPS = 4  # device groups of the relabelling check's placement
 DECODE_DV_CASES = [
     (SERVE_B, 40, 40, SERVE_PROMPT + SERVE_STEPS, 96, 64, SERVE_PROMPT + SERVE_STEPS),  # MLA
     (SERVE_B, 40, 40, 1, 96, 64, 1), (2, 8, 2, 700, 48, 32, 65), (2, 40, 40, 300, 48, 32, 300),
@@ -408,6 +448,9 @@ DECODE_CASES = [
     (SERVE_B, 32, 2, SERVE_PROMPT + SERVE_STEPS, 128, 1),  # the serving cache
     (SERVE_B, 32, 2, SERVE_PROMPT + SERVE_STEPS, 128, SERVE_PROMPT + SERVE_STEPS),
     (DECODE_32K[0], 32, 2, DECODE_32K[1], 128, DECODE_32K[1]),
+    # the MoE models' serving cache: grok-1 (group 6) and kimi-k2 (group 8)
+    (SERVE_B, 48, 8, SERVE_PROMPT + SERVE_STEPS, 128, SERVE_PROMPT + SERVE_STEPS),
+    (SERVE_B, 64, 8, SERVE_PROMPT + SERVE_STEPS, 128, SERVE_PROMPT + SERVE_STEPS),
     # the split route's edges: groups 1, 16 and 32 at lengths 1, a last
     # split of one position (chunk 64 + 1) and the whole cache
     *[(2, 2 * group, 2, 700, 128, length) for group in (1, 16, 32) for length in (1, 65, 700)],
@@ -1563,12 +1606,13 @@ def gemm_timing(tg, dev):
     return rows
 
 
-def device_time(prof):
+def device_time(prof, skip=()):
     """Device time of a torch.profiler run: the total (us) and each
-    kernel's, largest first."""
+    kernel's, largest first (``skip``: record_function range names, whose
+    device-side spans are no kernels)."""
     by_name = {
         e.key: e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA
+        if e.device_type == DeviceType.CUDA and e.key not in skip
     }
     return sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1])
 
@@ -1851,50 +1895,166 @@ def _leaves(tree):
         yield tree
 
 
-def profile_window(fn, label):
+def profile_window(fn, label, ranges=()):
     """``fn`` under torch.profiler (twice: the first run warms the profiler
-    up); prints wall, device busy time, idle share and the top kernels."""
+    up); prints wall, device busy time, idle share and the top kernels, and
+    the device time under each ``ranges`` name (torch.profiler
+    record_function ranges, nested ranges inside their parents); returns
+    the window's figures."""
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             w0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - w0
-    busy_us, top = device_time(prof)
+    busy_us, top = device_time(prof, skip=ranges)
     print(f"profile {label}: wall_s={wall:.6f} device_busy_s={busy_us / 1e6:.6f} "
           f"device_idle_share={1.0 - busy_us / 1e6 / wall:.4f}", flush=True)
     for name, us in top[:8]:
         print(f"  {us / 1e6:.6f} s  {100 * us / busy_us:.1f} %  {name[:110]}")
+    spans = dict.fromkeys(ranges, 0.0)
+    for e in prof.events():  # the host-side range: its kernels and its children's
+        if e.name in spans and e.device_type == DeviceType.CPU:
+            spans[e.name] += getattr(e, "device_time_total", 0.0) / 1e6
+    return dict(wall_s=wall, device_busy_s=busy_us / 1e6,
+                device_idle_share=1.0 - busy_us / 1e6 / wall, spans_s=spans)
 
 
-def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "granite-8b", "gemma-7b")):
-    """``arch`` served at full width and depth on the card (chatglm3-6b; the
-    mla phase: minicpm3-4b), then ``smoke_archs`` at f32 on the card against
-    the CPU; returns the main path's launch counts and rates."""
+@contextlib.contextmanager
+def patched(pairs):
+    """Replace ``module.name`` by ``wrap(original)`` for each (module, name,
+    wrap) inside the block."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in pairs]
+    for mod, name, wrap in pairs:
+        setattr(mod, name, wrap(getattr(mod, name)))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def ranged(label):
+    """A wrapper that runs a function inside a record_function range."""
+    def wrap(fn):
+        def inner(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def routing_probe(moe_mod, record):
+    """A ``moe_apply`` wrapper that appends, for each call, the call's
+    expert ids (B, S, K, each token's set sorted), the assignments it drops
+    and the assignments it routes (routing once more beside the layer)."""
+    def wrap(fn):
+        def inner(params, x, *, moe_cfg, expert_perm=None, n_chunks=1):
+            B, S, d = x.shape
+            _, _, idx = moe_mod.route(params, x.reshape(B * S, d), moe_cfg, expert_perm)
+            X, Tc, C = moe_mod.dispatch_shape(B * S, n_chunks, moe_cfg)
+            counts = torch.zeros((X, moe_cfg.n_experts), dtype=torch.int64, device=x.device)
+            counts.scatter_add_(1, idx.reshape(X, -1), torch.ones_like(idx.reshape(X, -1)))
+            record.append((idx.reshape(B, S, -1).sort(dim=-1).values,
+                           int((counts - C).clamp(min=0).sum()), idx.numel()))
+            return fn(params, x, moe_cfg=moe_cfg, expert_perm=expert_perm, n_chunks=n_chunks)
+        return inner
+    return wrap
+
+
+def route_flips(record, n_pre, n_layers, prompt_len):
+    """From a routing_probe record of a prefill (its first ``n_pre`` calls,
+    one a layer) followed by ``prompt_len`` decode steps over the same
+    tokens: by layer, the tokens whose top-k set differs between the two
+    paths, and how many of them sit at the prompt's last position."""
+    pre, steps = record[:n_pre], record[n_pre:n_pre + prompt_len * n_layers]
+    flips, last = [], 0
+    for layer in range(n_layers):
+        dec = torch.cat([steps[i * n_layers + layer][0] for i in range(prompt_len)], 1)
+        differs = (pre[layer][0] != dec).any(-1)
+        flips.append(int(differs.sum()))
+        last += int(differs[:, -1].sum())
+    return flips, last
+
+
+def moe_bounds(cfg, n_bytes):
+    """The serving path's bounds on an H100 at ``cfg``'s widths (ms): the
+    4 x 2048 prefill (the larger of its weight bytes over the memory rate
+    and its bf16 tensor-core flop plus the router's f32 flop over their
+    peaks; the expert products count every capacity row, as the dispatch
+    buffer computes them) and a decode step at the serving cache (every
+    parameter read once but the embedding table, of which B rows, plus the
+    cache; and the same with only the min(B K, E) experts a step can
+    touch)."""
+    from repro_torch.models.moe import dispatch_shape
+
+    d, hq, hk, hd, V, L = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.vocab, cfg.n_layers
+    E, K, ff = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff
+    B, S = SERVE_B, SERVE_PREFILL
+    T = B * S
+    C = dispatch_shape(T, 1, cfg.moe)[2]
+    proj = 2 * T * d * (hq * hd + 2 * hk * hd) + 2 * T * hq * hd * d
+    attn = 4 * hd * hq * B * S * (S + 1) // 2
+    experts = 6 * E * C * d * ff
+    flop = L * (proj + attn + experts) + 2 * B * d * V
+    router_flop = L * 2 * T * d * E
+    prefill_ms = max(n_bytes / H100_HBM_BYTES_PER_S,
+                     flop / H100_BF16_FLOPS + router_flop / H100_FP32_FLOPS) * 1e3
+    cache = SERVE_PROMPT + SERVE_STEPS
+    step_bytes = n_bytes - 2 * V * d + 2 * B * d + L * 2 * 2 * B * cache * hk * hd
+    touched = min(B * K, E)
+    touched_bytes = step_bytes - L * (E - touched) * 3 * d * ff * 2
+    return dict(capacity_prefill=C, prefill_flop=flop, prefill_router_f32_flop=router_flop,
+                prefill_bound_ms=prefill_ms, prefill_bound_tps=T / prefill_ms * 1e3,
+                decode_bytes=step_bytes, decode_bound_ms=step_bytes / H100_HBM_BYTES_PER_S * 1e3,
+                decode_touched_experts=touched, decode_touched_bytes=touched_bytes,
+                decode_touched_bound_ms=touched_bytes / H100_HBM_BYTES_PER_S * 1e3)
+
+
+def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "granite-8b", "gemma-7b"),
+                n_layers=None):
+    """``arch`` served at full width on the card (chatglm3-6b; the mla phase:
+    minicpm3-4b; the moe phase: grok-1-314b and kimi-k2-1t-a32b), at its
+    full depth or at ``n_layers``, then ``smoke_archs`` at f32 on the card
+    against the CPU; returns the main path's launch counts and rates."""
     from repro_torch.configs.registry import get_config, smoke_config
+    from repro_torch.dist.sched_bridge import plan_expert_placement
     from repro_torch.launch.serve import prefill_into_cache
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import forward, init_params
     from repro_torch.serve.decode import make_prefill_step, make_serve_step
 
     cfg = get_config(arch)
+    full_layers = cfg.n_layers
+    if n_layers is not None:
+        cfg = cfg.scaled(n_layers=n_layers)
     n_layers = cfg.n_layers
+    moe = cfg.moe
     w0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     leaves = list(_leaves(params))
     n_params = sum(t.numel() for t in leaves)
     n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    param_dtype = leaves[0].dtype
+    del leaves  # the relabelling check replaces expert tensors: hold no old ones
     heads = (f"MLA {cfg.mla}" if cfg.mla is not None
              else f"{cfg.n_kv_heads} KV heads, hd {cfg.hd}")
-    print(f"{arch}: {n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, {heads}, "
-          f"ff {cfg.d_ff}, vocab {cfg.vocab}; "
-          f"{n_params} parameters ({n_bytes} bytes, {leaves[0].dtype}) made on the card in "
+    depth = f"{n_layers} of its {full_layers} layers" if n_layers != full_layers else f"{n_layers} layers"
+    experts = ("" if moe is None else f", {moe.n_experts} experts top-{moe.top_k}, expert ff "
+               f"{moe.d_ff}, capacity factor {moe.capacity_factor}")
+    print(f"{arch}: {depth}, d {cfg.d_model}, {cfg.n_heads} heads, {heads}, "
+          f"ff {cfg.d_ff}, vocab {cfg.vocab}{experts}; "
+          f"{n_params} parameters ({n_bytes} bytes, {param_dtype}) made on the card in "
           f"{time.perf_counter() - w0:.3f} s (seed 0)", flush=True)
-    # the config's analytic count leaves out the 2 L + 1 norm scales, and
-    # under MLA the two latent norms of each layer
+    # the config's analytic count leaves out the 2 L + 1 norm scales, under
+    # MLA the two latent norms of each layer, under MoE the routers
     want = int(cfg.params_count()) + (2 * n_layers + 1) * cfg.d_model
     if cfg.mla is not None:
         want += n_layers * (cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank)
+    if moe is not None:
+        want += n_layers * cfg.d_model * moe.n_experts
     if n_params != want:
         raise SystemExit(f"parameter count {n_params} != {want} (the config's)")
     rng = np.random.default_rng(0)
@@ -1903,6 +2063,17 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
     cache_len = SERVE_PROMPT + SERVE_STEPS
     prefill = make_prefill_step(cfg)
     serve = make_serve_step(cfg)
+    # the two paths' logits are compared where both route alike: capacity
+    # depends on each call's tokens (a decode step's B never drops; a
+    # 64-token prompt at the config's factor drops whenever the random
+    # router is unbalanced), so under MoE at the factor that drops nothing
+    check_cfg = cfg
+    if moe is not None:
+        check_cfg = cfg.scaled(moe=dataclasses.replace(moe, capacity_factor=moe.n_experts / moe.top_k))
+    prefill_check = make_prefill_step(check_cfg)
+    record = []
+    probe = (patched([(moe_mod, "moe_apply", routing_probe(moe_mod, record))]) if moe is not None
+             else contextlib.nullcontext())
     with torch.inference_mode():
         prefill(params, {"tokens": prompt})  # warm-up: library handles, the allocator
         torch.cuda.synchronize()
@@ -1918,17 +2089,26 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
             torch.cuda.synchronize()
             prefill_walls.append(time.perf_counter() - w0)
             n_prefill += 1
-        logits_prefill = prefill(params, {"tokens": prompt})
-        n_prefill += 1
-        w0 = time.perf_counter()
-        last, cache = prefill_into_cache(params, cfg, prompt, cache_len)
-        torch.cuda.synchronize()
-        fill_wall = time.perf_counter() - w0
-        n_decode += SERVE_PROMPT
-        # the decode path's logits at the prompt's last position: running the
-        # last prompt token again at its own position rewrites the same K/V
-        _, logits_dec, cache = serve(params, cache, prompt[:, -1:], SERVE_PROMPT - 1)
-        n_decode += 1
+        with probe:
+            if moe is not None:  # the timed prefill once more, its drops counted
+                again = prefill(params, {"tokens": long_prompt})
+                n_prefill += 1
+                drops = [r[1] for r in record]
+                routed = sum(r[2] for r in record)
+                record.clear()
+                rerun_equal = torch.equal(again, logits_long)
+            logits_prefill = prefill_check(params, {"tokens": prompt})
+            n_prefill += 1
+            n_pre = len(record)
+            w0 = time.perf_counter()
+            last, cache = prefill_into_cache(params, check_cfg, prompt, cache_len)
+            torch.cuda.synchronize()
+            fill_wall = time.perf_counter() - w0
+            n_decode += SERVE_PROMPT
+            # the decode path's logits at the prompt's last position: running the
+            # last prompt token again at its own position rewrites the same K/V
+            _, logits_dec, cache = serve(params, cache, prompt[:, -1:], SERVE_PROMPT - 1)
+            n_decode += 1
         toks = [last]
         w0 = time.perf_counter()
         for i in range(SERVE_STEPS):
@@ -1965,18 +2145,35 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
         a, b = logits_prefill[:, 0], logits_dec[:, 0]
         gap = ((a - b).abs().max() / a.abs().max()).item()
         agree = (a.argmax(-1) == b.argmax(-1)).sum().item()
+        tol = SERVE_LOGIT_TOL if moe is None else MOE_LOGIT_TOL
         print(f"last-position logits, prefill vs prefill_into_cache + one step: max |diff| / "
-              f"max |logit| = {gap:.6f} (tol {SERVE_LOGIT_TOL}); largest logit "
+              f"max |logit| = {gap:.6f} (tol {tol}); largest logit "
               f"{a.abs().max().item():.4f}; argmax agrees on {agree} of {SERVE_B}; greedy "
               f"next token from the cache path equals the prefill's argmax on "
               f"{(last.long() == a.argmax(-1)).sum().item()} of {SERVE_B}", flush=True)
-        if not gap < SERVE_LOGIT_TOL:
-            raise SystemExit(f"prefill and decode paths disagree: {gap} >= {SERVE_LOGIT_TOL}")
+        out_moe = {}
+        if moe is not None:
+            flips, last_flips = route_flips(record, n_pre, n_layers, SERVE_PROMPT)
+            print(f"routes: the timed prefill ({SERVE_B} x {SERVE_PREFILL}, capacity factor "
+                  f"{moe.capacity_factor}) drops {sum(drops)} of {routed} assignments (by layer "
+                  f"{drops}; run again with the routes probed, logits equal: {rerun_equal}); "
+                  f"no-drop check (capacity factor {check_cfg.moe.capacity_factor}): "
+                  f"{sum(r[1] for r in record)} dropped; tokens whose top-k set differs between "
+                  f"the prefill and the cache path, by layer, {flips} of {SERVE_B * SERVE_PROMPT}; "
+                  f"at the compared last positions {last_flips}", flush=True)
+            if sum(r[1] for r in record):
+                raise SystemExit("the no-drop check dropped assignments")
+            out_moe = dict(dropped=sum(drops), dropped_by_layer=drops, routed=routed,
+                           rerun_equal=rerun_equal,
+                           route_flips_by_layer=flips, route_flips_last_position=last_flips)
+        if not gap < tol:
+            raise SystemExit(f"prefill and decode paths disagree: {gap} >= {tol}")
         prefill_tps = SERVE_B * SERVE_PREFILL / min(prefill_walls)
         decode_tps = SERVE_B * SERVE_STEPS / decode_wall
         print(f"prefill {SERVE_B} x {SERVE_PREFILL} tokens: wall_s {prefill_walls} -> "
               f"{prefill_tps:.1f} tokens/s; prefill_into_cache {SERVE_B} x {SERVE_PROMPT} tokens "
-              f"(one decode step each) {fill_wall:.3f} s; {SERVE_STEPS} decode steps x {SERVE_B} "
+              f"(one decode step each{'; routes probed' if moe is not None else ''}) "
+              f"{fill_wall:.3f} s; {SERVE_STEPS} decode steps x {SERVE_B} "
               f"in {decode_wall:.3f} s -> {decode_tps:.1f} tokens/s, "
               f"{1e3 * decode_wall / SERVE_STEPS:.3f} ms a step; sample {tokens[0, :12].tolist()}",
               flush=True)
@@ -1987,11 +2184,74 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
                    decode_tps=decode_tps, logit_gap=gap, n_params=n_params, peak_bytes=peak,
                    peak_gb=peak / 1e9, prefill_walls=prefill_walls,
                    decode_step_ms=1e3 * decode_wall / SERVE_STEPS, sample=tokens[0, :12].tolist())
-        profile_window(lambda: prefill(params, {"tokens": long_prompt}),
-                       f"prefill {SERVE_B} x {SERVE_PREFILL}")
+        ranges = ()
+        if moe is not None:
+            bounds = moe_bounds(cfg, n_bytes)
+            print(f"bounds (H100: {H100_HBM_BYTES_PER_S:.3g} B/s, {H100_BF16_FLOPS:.3g} bf16 "
+                  f"flop/s): prefill {bounds['prefill_bound_ms']:.3f} ms "
+                  f"({bounds['prefill_flop']:.4g} bf16 flop, {bounds['prefill_router_f32_flop']:.4g} "
+                  f"f32 router flop; C {bounds['capacity_prefill']}) -> "
+                  f"{bounds['prefill_bound_tps']:.1f} tokens/s, measured {prefill_tps:.1f} "
+                  f"({100 * prefill_tps / bounds['prefill_bound_tps']:.2f} %); decode step "
+                  f"{bounds['decode_bound_ms']:.3f} ms ({bounds['decode_bytes']} bytes), measured "
+                  f"{out['decode_step_ms']:.3f}; with only the {bounds['decode_touched_experts']} "
+                  f"experts a step can touch {bounds['decode_touched_bound_ms']:.3f} ms",
+                  flush=True)
+            out.update(out_moe, n_bytes=n_bytes, full_layers=full_layers, bounds=bounds,
+                       fill_wall_s=fill_wall)
+            # relabelling: an expert_perm from the placement planner, each
+            # expert's weights moved to its new slot, gives the same logits
+            placement = plan_expert_placement(
+                np.random.default_rng(0).pareto(1.5, moe.n_experts) * 100, MOE_GROUPS)
+            label = torch.as_tensor(placement.inv_perm, device=dev)  # expert e -> its slot
+            slots = torch.as_tensor(placement.perm, device=dev)  # slot -> expert
+            pos = SERVE_PROMPT + SERVE_STEPS - 1  # rewrites the last position with its own token
+            _, base_step, cache = serve(params, cache, toks[-2][:, None], pos)
+            for bp in params["blocks"]:
+                for k in ("w_up", "w_gate", "w_down"):
+                    bp["moe"][k] = bp["moe"][k][slots]
+            relabelled = forward(params, cfg, long_prompt, expert_perm=label,
+                                 last_logit_only=True)[0]
+            step_relabelled = forward(params, cfg, toks[-2][:, None], cache=cache, cache_pos=pos,
+                                      expert_perm=label)[0]
+            same = (torch.equal(relabelled, logits_long), torch.equal(step_relabelled, base_step))
+            print(f"relabelling by plan_expert_placement ({MOE_GROUPS} groups of "
+                  f"{moe.n_experts // MOE_GROUPS}, group loads {placement.group_load.round(3).tolist()}): "
+                  f"prefill logits equal {same[0]} (max |diff| "
+                  f"{(relabelled - logits_long).abs().max().item()}), decode step equal {same[1]} "
+                  f"(max |diff| {(step_relabelled - base_step).abs().max().item()})", flush=True)
+            if not all(same):
+                raise SystemExit("relabelled experts gave other logits")
+            for bp in params["blocks"]:  # back to the original slots
+                for k in ("w_up", "w_gate", "w_down"):
+                    bp["moe"][k] = bp["moe"][k][label]
+            out["relabel_equal"] = True
+            ranges = ("moe", "moe.experts", "moe.router", "attention")
+        annotate = patched([(moe_mod, "moe_apply", ranged("moe")),
+                            (moe_mod, "_experts", ranged("moe.experts")),
+                            (moe_mod, "route", ranged("moe.router")),
+                            (attn_mod, "attn_apply", ranged("attention"))]) if ranges else (
+            contextlib.nullcontext())
         pos = SERVE_PROMPT + SERVE_STEPS - 1  # rewrites the last position with its own token
-        profile_window(lambda: serve(params, cache, toks[-2][:, None], pos),
-                       f"decode step at {pos}")
+        with annotate:
+            windows = [profile_window(lambda: prefill(params, {"tokens": long_prompt}),
+                                      f"prefill {SERVE_B} x {SERVE_PREFILL}", ranges),
+                       profile_window(lambda: serve(params, cache, toks[-2][:, None], pos),
+                                      f"decode step at {pos}", ranges)]
+        if moe is not None:
+            for key, win in zip(("prefill", "decode"), windows):
+                sp, busy = win["spans_s"], win["device_busy_s"]
+                parts = {"expert products": sp["moe.experts"], "router": sp["moe.router"],
+                         "dispatch and combine": sp["moe"] - sp["moe.experts"] - sp["moe.router"],
+                         "attention": sp["attention"],
+                         "other": busy - sp["moe"] - sp["attention"]}
+                win["shares_of_wall"] = {k: v / win["wall_s"] for k, v in parts.items()}
+                win["shares_of_wall"]["idle"] = win["device_idle_share"]
+                print(f"profile {key} shares of the window's wall "
+                      f"({'not measured: no device time under the ranges' if sp['moe'] == 0 else ''}"
+                      f"): " + ", ".join(f"{k} {100 * v:.2f} %"
+                                         for k, v in win["shares_of_wall"].items()), flush=True)
+                out[f"profile_{key}"] = win
     del params, cache, logits_long
     torch.cuda.empty_cache()
 
@@ -3310,6 +3570,16 @@ def main() -> int:
     served_mla = serve_phase(fa, fd, dev, MLA_ARCH, smoke_archs=(MLA_ARCH,))
     done("mla", t0)
 
+    # ---- 8c. moe: grok-1-314b and kimi-k2-1t-a32b at full width, depth cut -----
+    t0 = phase("moe")
+    served_moe = {}
+    for arch, layers in MOE_ARCHS:
+        w0 = time.perf_counter()
+        served_moe[arch] = serve_phase(fa, fd, dev, arch, smoke_archs=(arch,), n_layers=layers)
+        served_moe[arch]["wall_s"] = time.perf_counter() - w0
+        print(f"moe {arch}: {served_moe[arch]['wall_s']:.3f} s", flush=True)
+    done("moe", t0)
+
     # ---- 9. profile ---------------------------------------------------------
     t0 = phase("profile")
     launch_structure = {}
@@ -3525,6 +3795,10 @@ def main() -> int:
             f"launches_{kernel_route}": served[f"{key}_launches_{kernel_route}"],
             "launches_mla": served_mla[f"{key}_launches"],
             f"launches_mla_{kernel_route}": served_mla[f"{key}_launches_{kernel_route}"],
+            "launches_moe": sum(r[f"{key}_launches"] for r in served_moe.values()),
+            f"launches_moe_{kernel_route}": sum(r[f"{key}_launches_{kernel_route}"]
+                                                for r in served_moe.values()),
+            "launches_moe_by_arch": {a: r[f"{key}_launches"] for a, r in served_moe.items()},
             "max_abs_err": max(err.values()),
             "max_abs_err_by_route": err,
             "max_abs_err_dv_by_route": err_dv,
@@ -3548,6 +3822,7 @@ def main() -> int:
     kernels.append(episode_entry)
     print(json.dumps({"serve": served}))
     print(json.dumps({"mla": served_mla}))
+    print(json.dumps({"moe": served_moe}))
     print(json.dumps({"paper": paper}))
     print(json.dumps({"verify": verified}))
     print(json.dumps({"memory": memory}))

@@ -66,14 +66,16 @@ def machine_from_spec(spec: Mapping[str, Any]) -> MachineModel:
 
 def params_from_jax(tree: Mapping[str, Any], cfg, device="cuda") -> Dict[str, Any]:
     """The port's parameters from the reference's tree (nested dicts of numpy
-    arrays, as ``repro.models.transformer.init_params`` lays them out) for a
-    dense config ``cfg``, GQA or MLA (``w_dq``, ``q_norm``, ``w_uq``,
-    ``w_dkv``, ``kv_norm``, ``w_kr``, ``w_uk``, ``w_uv``, ``wo`` under each
-    block's ``"mla"``): the leading ``n_periods`` axis of the blocks is
-    unstacked into a list of per-layer dicts, and every array is cast to the
-    compute dtype on ``device`` (the reference casts at every call; once
-    gives the same numbers). bf16 numpy arrays (ml_dtypes) widen to f32
-    exactly on the way."""
+    arrays, as ``repro.models.transformer.init_params`` lays them out) for an
+    attention-only config ``cfg``, GQA or MLA (``w_dq``, ``q_norm``,
+    ``w_uq``, ``w_dkv``, ``kv_norm``, ``w_kr``, ``w_uk``, ``w_uv``, ``wo``
+    under each block's ``"mla"``), dense or MoE (``router``, ``w_up``,
+    ``w_gate``, ``w_down`` under each block's ``"moe"`` in place of
+    ``"mlp"``): the leading ``n_periods`` axis of the blocks is unstacked
+    into a list of per-layer dicts, and every array is cast to the compute
+    dtype on ``device``, the f32 router too (the reference's
+    ``_cast_floats`` casts at every call; once gives the same numbers).
+    bf16 numpy arrays (ml_dtypes) widen to f32 exactly on the way."""
     from .models.layers import _dtype
     from .models.transformer import check_supported
 

@@ -4,6 +4,13 @@
 ``--arch minicpm3-4b`` serves the MLA model the same way);
 ``--smoke --device cpu`` runs the reduced config on the CPU, where the
 attention kernels take their plain versions.
+
+The MoE models run with ``--smoke`` (``--arch grok-1-314b --smoke``,
+``--arch kimi-k2-1t-a32b --smoke``, on the CPU or the card). Their full
+configs do not fit one card (633 GB and 2.08 TB of bf16 weights), and
+the CLI has no depth flag, as the reference's has none: ``chip_smoke.py``
+serves both at full width on one card with the depth cut (grok-1 at 4 of
+its 64 layers, kimi-k2 at 1 of its 61) through the same entry points.
 """
 from __future__ import annotations
 

@@ -1,11 +1,12 @@
-"""Model assembly for the dense transformer family: init, cache, forward.
+"""Model assembly for the attention-only transformers: init, cache, forward.
 
 Counterpart of ``repro/models/transformer.py`` for configs whose blocks are
-all attention with a dense MLP: GQA attention (chatglm3-6b, granite-8b,
-gemma-7b) or Multi-head Latent Attention (minicpm3-4b, :mod:`.mla`). Any
-other family (MoE, Mamba / hybrid, xLSTM, encoder-decoder, VLM and audio
-frontends) raises :class:`NotImplementedError`: ``ROADMAP.md`` lists them
-as later slices.
+all attention, GQA (chatglm3-6b, granite-8b, gemma-7b) or Multi-head Latent
+Attention (minicpm3-4b, :mod:`.mla`), each followed by a dense MLP or, at
+the reference's MoE positions, a Mixture-of-Experts MLP (grok-1-314b,
+kimi-k2-1t-a32b, :mod:`.moe`). Any other family (Mamba / hybrid, xLSTM,
+encoder-decoder, VLM and audio frontends) raises
+:class:`NotImplementedError`: ``ROADMAP.md`` lists them as later slices.
 
 Where the reference differs in form only:
 
@@ -33,27 +34,42 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import attention as attn
 from . import mla as mla_mod
+from . import moe as moe_mod
 from .layers import _dtype, dense_init, embed_apply, embed_init, mlp_apply, mlp_init, norm_apply, norm_init
 from .rope import rope_table
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense attention-only transformer (GQA or
-    MLA attention)."""
+    """Raise unless ``cfg`` is an attention-only transformer (GQA or MLA
+    attention), dense or MoE."""
     if (
-        cfg.family != "dense" or cfg.moe is not None
+        cfg.family not in ("dense", "moe") or (cfg.family == "moe") != (cfg.moe is not None)
         or tuple(cfg.block_pattern) != ("attn",) or cfg.enc_layers or cfg.frontend_tokens
     ):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (mla={cfg.mla is not None}, "
             f"moe={cfg.moe is not None}, blocks {cfg.block_pattern}) is not ported yet; "
-            "the port serves dense attention-only configs, GQA or MLA (ROADMAP.md, queue 1 "
-            "item 7)"
+            "the port serves attention-only configs, GQA or MLA, dense or MoE (ROADMAP.md, "
+            "queue 1 item 7)"
         )
 
 
+def _has_mlp(kind: str) -> bool:
+    return kind in ("attn", "mamba")
+
+
+def _is_moe_position(cfg: ModelConfig, j: int) -> bool:
+    """The reference's rule: by the pattern position ``j = i % cfg.period``,
+    not by the layer index."""
+    return (
+        cfg.moe is not None
+        and _has_mlp(cfg.block_pattern[j])
+        and (j % cfg.moe.every == cfg.moe.every - 1)
+    )
+
+
 # ---------------------------------------------------------------------------
-def block_init(cfg: ModelConfig, gen, dtype, device) -> Dict:
+def block_init(cfg: ModelConfig, j: int, gen, dtype, device) -> Dict:
     d = cfg.d_model
     p = {"norm1": norm_init(cfg.norm, d, dtype, device)}
     if cfg.mla is not None:
@@ -61,12 +77,18 @@ def block_init(cfg: ModelConfig, gen, dtype, device) -> Dict:
     else:
         p["attn"] = attn.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dtype, device)
     p["norm2"] = norm_init(cfg.norm, d, dtype, device)
-    p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.act, dtype, device)
+    if _is_moe_position(cfg, j):
+        p["moe"] = moe_mod.moe_init(gen, d, cfg.moe, dtype, device)
+    else:
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.act, dtype, device)
     return p
 
 
-def block_apply(cfg: ModelConfig, params: Dict, x, *, rope_cos, rope_sin, cache=None, cache_pos=None):
-    """One pre-norm block: attention (GQA or MLA) then the MLP, each residual."""
+def block_apply(cfg: ModelConfig, params: Dict, x, *, rope_cos, rope_sin, cache=None,
+                cache_pos=None, expert_perm=None, moe_chunks: int = 1):
+    """One pre-norm block: attention (GQA or MLA) then the MLP or MoE, each
+    residual. Returns (x, f32 aux loss: 0 without MoE)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm_apply(cfg.norm, params["norm1"], x)
     if cfg.mla is not None:
         y, _ = mla_mod.mla_apply(
@@ -81,7 +103,12 @@ def block_apply(cfg: ModelConfig, params: Dict, x, *, rope_cos, rope_sin, cache=
         )
     x = x + y
     h = norm_apply(cfg.norm, params["norm2"], x)
-    return x + mlp_apply(params["mlp"], h, cfg.act)
+    if "moe" in params:
+        y, aux = moe_mod.moe_apply(params["moe"], h, moe_cfg=cfg.moe, expert_perm=expert_perm,
+                                   n_chunks=moe_chunks)
+    else:
+        y = mlp_apply(params["mlp"], h, cfg.act)
+    return x + y, aux
 
 
 def cache_init(cfg: ModelConfig, B: int, S: int, device="cuda") -> Dict:
@@ -113,7 +140,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> 
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab), dt, dev)
-    params["blocks"] = [block_init(cfg, generator, dt, dev) for _ in range(cfg.n_layers)]
+    params["blocks"] = [
+        block_init(cfg, i % cfg.period, generator, dt, dev) for i in range(cfg.n_layers)
+    ]
     return params
 
 
@@ -135,14 +164,18 @@ def forward(
     *,
     cache: Optional[Dict] = None,
     cache_pos: Optional[int] = None,
+    expert_perm=None,
+    moe_chunks: int = 1,
     last_logit_only: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
-    """Decoder forward. Returns (f32 logits, cache, aux loss).
+    """Decoder forward. Returns (f32 logits, cache, f32 aux loss).
 
     prefill: ``cache=None``, tokens (B, S).
     decode: the cache from :func:`cache_init` and an int ``cache_pos``;
     tokens (B, 1); the cache is updated in place and returned.
-    The aux loss is 0 for the dense family (it belongs to MoE).
+    ``expert_perm`` and ``moe_chunks`` go to every MoE layer
+    (:func:`.moe.moe_apply`); the aux loss is the sum of the MoE layers'
+    (0 for the dense family).
     """
     check_supported(cfg)
     cdt = _dtype(cfg.compute_dtype)
@@ -156,12 +189,16 @@ def forward(
     if cache is not None:
         positions = positions + int(cache_pos)
     cos, sin = _rope_tables(cfg, positions)
+    if expert_perm is not None:
+        expert_perm = torch.as_tensor(expert_perm, device=x.device).long()
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, bp in enumerate(params["blocks"]):
         layer_cache = None
         if cache is not None:
             layer_cache = {name: buf[i] for name, buf in cache["p0"].items()}
-        x = block_apply(cfg, bp, x, rope_cos=cos, rope_sin=sin, cache=layer_cache,
-                        cache_pos=cache_pos)
+        x, aux = block_apply(cfg, bp, x, rope_cos=cos, rope_sin=sin, cache=layer_cache,
+                             cache_pos=cache_pos, expert_perm=expert_perm, moe_chunks=moe_chunks)
+        aux_total = aux_total + aux
     x = norm_apply(cfg.norm, params["final_norm"], x)
     if last_logit_only:
         x = x[:, -1:]
@@ -169,4 +206,4 @@ def forward(
         logits = x @ params["embed"]["table"].T.to(x.dtype)
     else:
         logits = x @ params["lm_head"].to(x.dtype)
-    return logits.float(), cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits.float(), cache, aux_total

@@ -906,6 +906,135 @@ def test_cuda_mla_serving_takes_the_tensor_core_routes(cuda):
     assert (out["cuda"][0] - out["cuda"][1]).abs().max() < 6e-2 * out["cuda"][0].abs().max()
 
 
+# ---------------------------------------------------------------------------
+# MoE (models/moe.py): routing, dispatch, expert products and combine on the
+# card against the CPU
+
+
+def _moe_inputs(E, K, cf, dtype, seed, shape=(4, 16), d=64, ff=48):
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+
+    cfg = MoEConfig(n_experts=E, top_k=K, d_ff=ff, capacity_factor=cf)
+    params = moe.moe_init(torch.Generator().manual_seed(seed), d, cfg, dtype, "cpu")
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(shape + (d,))).to(dtype)
+    return cfg, params, x
+
+
+@pytest.mark.parametrize("perm", [False, True])
+@pytest.mark.parametrize("n_chunks", [1, 4])
+@pytest.mark.parametrize("E,K,cf", [(8, 2, 0.1), (8, 2, 1.25), (16, 4, 8.0), (384, 8, 1.25)])
+def test_cuda_moe_apply_equals_cpu_f32(cuda, E, K, cf, n_chunks, perm):
+    """f32, TF32 off around the router: the same routes, drops and
+    outputs within 1e-5 of max |y| (tests/test_torch_moe.py's tolerance),
+    the aux loss within 1e-6."""
+    from repro_torch.models import moe
+
+    cfg, params, x = _moe_inputs(E, K, cf, torch.float32, E + K)
+    p = torch.as_tensor(np.random.default_rng(E).permutation(E)) if perm else None
+    want = moe.moe_apply(params, x, moe_cfg=cfg, n_chunks=n_chunks, expert_perm=p)
+    card = {k: v.to(cuda) for k, v in params.items()}
+    got = moe.moe_apply(card, x.to(cuda), moe_cfg=cfg, n_chunks=n_chunks,
+                        expert_perm=None if p is None else p.to(cuda))
+    torch.cuda.synchronize()
+    assert got[0].device.type == "cuda" and got[0].dtype == torch.float32
+    _, _, idx_cpu = moe.route(params, x.reshape(-1, x.shape[-1]), cfg, p)
+    _, _, idx_card = moe.route(card, x.to(cuda).reshape(-1, x.shape[-1]), cfg,
+                               None if p is None else p.to(cuda))
+    assert torch.equal(idx_card.cpu(), idx_cpu)
+    scale = max(float(want[0].abs().max()), 1.0)
+    assert float((got[0].cpu() - want[0]).abs().max()) <= 1e-5 * scale
+    assert abs(float(got[1]) - float(want[1])) <= 1e-6
+
+
+def test_cuda_moe_router_stays_f32_under_tf32(cuda):
+    """With TF32 switched on for the process, the router product still runs
+    in true f32 (the routes equal the CPU's), and the setting comes back."""
+    from repro_torch.models import moe
+
+    cfg, params, x = _moe_inputs(384, 8, 1.25, torch.float32, 3, shape=(8, 64), d=512)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _, _, idx = moe.route({k: v.to(cuda) for k, v in params.items()},
+                              x.to(cuda).reshape(-1, 512), cfg)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    _, _, want = moe.route(params, x.reshape(-1, 512), cfg)
+    assert torch.equal(idx.cpu(), want)
+
+
+def test_cuda_moe_relabelling_is_exact(cuda):
+    """An expert_perm from plan_expert_placement with the expert weights
+    moved to their new slots: bf16 outputs equal bit for bit on the card,
+    drops included (the check chip_smoke.py's moe phase makes at full
+    width)."""
+    from repro_torch.dist.sched_bridge import plan_expert_placement
+    from repro_torch.models import moe
+
+    cfg, params, x = _moe_inputs(16, 4, 1.25, torch.bfloat16, 5, shape=(4, 64), d=256, ff=128)
+    card = {k: v.to(cuda) for k, v in params.items()}
+    pl = plan_expert_placement(np.random.default_rng(0).pareto(1.5, 16) * 100, 4)
+    moved = dict(card, **{k: card[k][torch.as_tensor(pl.perm, device=cuda)]
+                          for k in ("w_up", "w_gate", "w_down")})
+    base = moe.moe_apply(card, x.to(cuda), moe_cfg=cfg)[0]
+    got = moe.moe_apply(moved, x.to(cuda), moe_cfg=cfg,
+                        expert_perm=torch.as_tensor(pl.inv_perm, device=cuda))[0]
+    assert torch.equal(got, base)
+
+
+def test_cuda_moe_serving_takes_the_tensor_core_routes(cuda):
+    """grok-1-314b's attention widths (48 query heads over 8 KV heads, hd
+    128) with 8 experts top-2 at two layers and d 256, bf16: every prefill
+    layer on "tc", every decode layer on "split"; at f32 the card's logits
+    and greedy tokens equal the CPU's (1e-4)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import prefill_into_cache
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+
+    base = get_config("grok-1-314b")
+    cfg = base.scaled(n_layers=2, d_model=256, d_ff=512, vocab=1000,
+                      moe=dataclasses.replace(base.moe, d_ff=128))
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(cuda)
+
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, 12)))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    counts = (fa.flash_attention.launches_tc, fd.flash_decode.launches_split)
+    logits = make_prefill_step(cfg)(to(params), {"tokens": prompt.to(cuda)})
+    _, cache = prefill_into_cache(to(params), cfg, prompt.to(cuda), 13)
+    assert (fa.flash_attention.launches_tc - counts[0],
+            fd.flash_decode.launches_split - counts[1]) == (cfg.n_layers, 12 * cfg.n_layers)
+    assert torch.isfinite(logits).all()
+    f32 = cfg.scaled(compute_dtype="float32")
+    params = init_params(f32, torch.Generator().manual_seed(0), "cpu")
+    out = {}
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev, p in (("cuda", to(params)), ("cpu", params)):
+            lg = make_prefill_step(f32)(p, {"tokens": prompt.to(dev)})
+            last, c = prefill_into_cache(p, f32, prompt.to(dev), 16)
+            seq = [last]
+            for i in range(3):
+                nxt, _, c = make_serve_step(f32)(p, c, seq[-1][:, None], 12 + i)
+                seq.append(nxt)
+            out[dev] = (lg.cpu(), torch.stack(seq, 1).cpu())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max() < 1e-4 * max(out["cpu"][0].abs().max(), 1)
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
 def test_cuda_tensor_core_routes_replay_in_a_graph(cuda):
     """Both new kernels captured in one CUDA graph: replays equal eager."""
     q, k, v = _bshd(21, 2, 300, 300, 8, 2, 128, cuda)

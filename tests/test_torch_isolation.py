@@ -39,7 +39,9 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.bench.common", "repro_torch.bench.figures",
             "repro_torch.bench.paper_validation", "repro_torch.bench.serving_load",
             "repro_torch.bench.scenario_matrix", "repro_torch.runtime.load",
-            "repro_torch.runtime.rescore"} <= set(modules)
+            "repro_torch.runtime.rescore", "repro_torch.models.moe", "repro_torch.dist",
+            "repro_torch.dist.sched_bridge", "repro_torch.dist.elastic",
+            "repro_torch.dist.straggler"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}:\n"
@@ -73,6 +75,9 @@ def test_no_source_file_imports_jax_or_repro():
     assert {"common.py", "figures.py", "paper_validation.py", "serving_load.py",
             "scenario_matrix.py"} <= {f.name for f in files if f.parent.name == "bench"}
     assert {"load.py", "rescore.py"} <= {f.name for f in files if f.parent.name == "runtime"}
+    assert "moe.py" in {f.name for f in files if f.parent.name == "models"}
+    assert {"__init__.py", "sched_bridge.py", "elastic.py", "straggler.py"} <= {
+        f.name for f in files if f.parent.name == "dist"}
     offenders = {
         str(f.relative_to(ROOT)): sorted(
             r for r in set(_imported_roots(f)) if r in ("jax", "jaxlib", "repro")
