@@ -5,7 +5,7 @@
 Phases (each prints its own lines and its wall time; any failure exits
 non-zero and no phase carries on past its own failure):
 
-  1. build    build the eight CUDA sources of the ported kernels from the
+  1. build    build the nine CUDA sources of the ported kernels from the
               repo, one nvcc each, started together; print their ptxas
               reports and the card (name and power limit, from nvidia-smi);
   2. kernel   the fused activation scorer (score_activation) against its
@@ -161,6 +161,36 @@ non-zero and no phase carries on past its own failure):
               expert products, the router, dispatch and combine, attention
               and idle time; then the smoke config on the card against
               the CPU at f32;
+  8d. hybrid  the selective scan (selective_scan: four lanes a channel,
+              the states in registers, runs of 32 steps staged in shared
+              memory) against its plain version (the reference's step
+              looped) on the card: jamba's prefill (B 4, S 2048, din
+              8 192, N 16, h0 zeros) and decode step (S 1, a normal h0),
+              odd S and channels no multiple of 64 (tests/_scan_cases.py,
+              shared with the card tests; N 16, the one state size the
+              kernel takes); y and hT each within SCAN_TOL of their
+              largest magnitude, two calls equal, refusals launching
+              nothing. Then
+              jamba-v0.1-52b at full width and 16 of its 32 layers (14
+              Mamba and 2 attention layers, 8 MoE and 8 dense MLPs; 2.6e10
+              random bf16 parameters, seed 0) as the moe phase serves
+              grok-1, the counts set to 0 just before its main path and
+              read just after: 14 selective_scan launches a forward, 2
+              flash_attention ("tc") a prefill and 2 flash_decode
+              ("split") a decode step. The prefill-against-cache check
+              fills the first 63 prompt tokens and runs the 64th as the
+              compared step (a Mamba state advances, it is not
+              rewritten), every expert routed, within HYBRID_LOGIT_TOL;
+              the timed greedy steps start from a cache that the whole
+              prompt filled at the config's own top-2; the relabelling check moves the experts of the MoE layers
+              only and restores the Mamba states between its two steps.
+              Prints parameters (the config's count plus the routers and
+              din (N + 2) a Mamba layer), peak memory, tokens/s and ms a
+              step beside their bounds, drops at capacity factor 1.25, a
+              profile split into Mamba (the scan apart, summed by kernel
+              name), MoE, attention, other and idle; then the smoke config on the card against
+              the CPU at f32, and the kernel's ms, device ms, plain ms
+              and bound at the prefill and decode shapes;
   9. profile  one NT 16 Cholesky simulation per strategy under
               torch.profiler (twice with one strategy object; the second is
               read): device busy time against wall time, each placement
@@ -301,8 +331,9 @@ non-zero and no phase carries on past its own failure):
  16. report   a JSON line of every ported kernel (launches_paper,
               launches_verify, launches_memory, launches_faults and
               launches_serving: each kernel's launches in those phases;
-              launches_mla, launches_moe and launches_missing_bytes
-              likewise),
+              launches_mla, launches_moe, launches_hybrid and
+              launches_missing_bytes likewise; selective_scan's launches
+              are the hybrid phase's),
               then the last line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits 2 without printing a result when there is
@@ -371,6 +402,9 @@ ATTN_CASES = [
     # the MoE models' prefill: grok-1 (group 6) and kimi-k2 (group 8)
     (SERVE_B, 48, 8, SERVE_PREFILL, SERVE_PREFILL, 128, True),
     (SERVE_B, 64, 8, SERVE_PREFILL, SERVE_PREFILL, 128, True),
+    # the hybrid's prefill and prompt: jamba (group 4)
+    (SERVE_B, 32, 8, SERVE_PREFILL, SERVE_PREFILL, 128, True),
+    (SERVE_B, 32, 8, SERVE_PROMPT, SERVE_PROMPT, 128, True),
     # the tensor-core route's edges: d 64 and 128, sq / sk no multiple of 128
     # or 64, causal with sk > sq, B > 1 strided views
     (2, 8, 2, 77, 300, 64, True), (3, 32, 2, 257, 257, 128, True),
@@ -398,6 +432,33 @@ MOE_ARCHS = (("grok-1-314b", 4), ("kimi-k2-1t-a32b", 1))
 # tolerance is three times that
 MOE_LOGIT_TOL = 5e-2
 MOE_GROUPS = 4  # device groups of the relabelling check's placement
+# the hybrid at full width, depth cut to what one card holds: 16 of 32 layers
+# (two periods: 14 Mamba and 2 attention layers, 8 MoE and 8 dense MLPs;
+# 52.1 GB of bf16 weights, where all 32 layers are 103.1 GB)
+HYBRID_ARCH, HYBRID_LAYERS = "jamba-v0.1-52b", 16
+# |prefill logits - decode-path logits| over the largest |logit| for the
+# hybrid, bf16, compared with every expert routed (top-k 16 at capacity
+# factor 1): at the published top-2 one bf16 ulp flips a token's experts and
+# the Mamba recurrence carries the flip to every later token (at widths 256 /
+# 512, 141-167 of 2 048 routes flip and the gap is 0.38-0.43,
+# tools/moe_logit_gap.py); with every expert routed nothing discrete is left.
+# On an H100, tools/hybrid_fault_gap.py reads 0.0440 sound and 0.958 with
+# the decode step's conv window never shifted; the tolerance is about twice
+# the sound reading. A decode step that never advances its ssm state reads
+# 0.0581 there, inside bf16 rounding at this level: mamba_step_check holds
+# the Mamba state path at f32 instead, where the same fault reads 7.2e-2
+# against a sound 2.6e-6
+HYBRID_LOGIT_TOL = 1e-1
+# one Mamba layer at jamba's widths in f32: its full-sequence run against its
+# decode steps, max |diff| over the largest |y| (the smoke configs' f32
+# card-against-CPU limit; the two paths differ only in GEMM shapes and so in
+# summation order)
+MAMBA_STEP_TOL = 1e-4
+# selective_scan against its plain version at tests/_scan_cases.py's
+# SCAN_CASES: y and hT each within this of their largest magnitude (f32; the
+# kernel sums over n and fuses multiply-adds in another order than the plain
+# loop)
+SCAN_TOL = 1e-5
 DECODE_DV_CASES = [
     (SERVE_B, 40, 40, SERVE_PROMPT + SERVE_STEPS, 96, 64, SERVE_PROMPT + SERVE_STEPS),  # MLA
     (SERVE_B, 40, 40, 1, 96, 64, 1), (2, 8, 2, 700, 48, 32, 65), (2, 40, 40, 300, 48, 32, 300),
@@ -451,6 +512,9 @@ DECODE_CASES = [
     # the MoE models' serving cache: grok-1 (group 6) and kimi-k2 (group 8)
     (SERVE_B, 48, 8, SERVE_PROMPT + SERVE_STEPS, 128, SERVE_PROMPT + SERVE_STEPS),
     (SERVE_B, 64, 8, SERVE_PROMPT + SERVE_STEPS, 128, SERVE_PROMPT + SERVE_STEPS),
+    # the hybrid's serving cache: jamba (group 4), at its first and last length
+    (SERVE_B, 32, 8, SERVE_PROMPT + SERVE_STEPS, 128, 1),
+    (SERVE_B, 32, 8, SERVE_PROMPT + SERVE_STEPS, 128, SERVE_PROMPT + SERVE_STEPS),
     # the split route's edges: groups 1, 16 and 32 at lengths 1, a last
     # split of one position (chunk 64 + 1) and the whole cache
     *[(2, 2 * group, 2, 700, 128, length) for group in (1, 16, 32) for length in (1, 65, 700)],
@@ -1697,7 +1761,8 @@ def attention_check(fa, fd, dev):
                         f"{dtype} causal={causal}: max |diff| {(g - want).abs().max().item()}")
             err = (g - wants[0]).abs().max().item()
             fa_err[route] = max(fa_err.get(route, 0.0), err)
-            print(f"  flash_attention {shape} dk {d} dv {dv} {str(dtype)[6:]} causal={causal}: "
+            print(f"  flash_attention {shape} kv heads {hk} dk {d} dv {dv} {str(dtype)[6:]} "
+                  f"causal={causal}: "
                   f"route {route}, max |kernel - plain| {err}")
             if dv != d:
                 fa_err_dv[route] = max(fa_err_dv.get(route, 0.0), err)
@@ -1895,12 +1960,19 @@ def _leaves(tree):
         yield tree
 
 
+# the port's own kernels by name: they launch from their ctypes libraries,
+# whose runtime calls torch.profiler does not tie to a record_function
+# range, so a range's device time leaves them out and they are summed by name
+OWN_KERNELS = {"selective_scan": ("selective_scan_kernel",),
+               "flash": ("flash_attention", "flash_decode")}
+
+
 def profile_window(fn, label, ranges=()):
     """``fn`` under torch.profiler (twice: the first run warms the profiler
     up); prints wall, device busy time, idle share and the top kernels, and
     the device time under each ``ranges`` name (torch.profiler
-    record_function ranges, nested ranges inside their parents); returns
-    the window's figures."""
+    record_function ranges, nested ranges inside their parents) and of each
+    group of OWN_KERNELS (by kernel name); returns the window's figures."""
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             w0 = time.perf_counter()
@@ -1916,8 +1988,10 @@ def profile_window(fn, label, ranges=()):
     for e in prof.events():  # the host-side range: its kernels and its children's
         if e.name in spans and e.device_type == DeviceType.CPU:
             spans[e.name] += getattr(e, "device_time_total", 0.0) / 1e6
+    own = {group: sum(us for name, us in top if any(k in name for k in keys)) / 1e6
+           for group, keys in OWN_KERNELS.items()}
     return dict(wall_s=wall, device_busy_s=busy_us / 1e6,
-                device_idle_share=1.0 - busy_us / 1e6 / wall, spans_s=spans)
+                device_idle_share=1.0 - busy_us / 1e6 / wall, spans_s=spans, own_kernels_s=own)
 
 
 @contextlib.contextmanager
@@ -1940,6 +2014,21 @@ def ranged(label):
         def inner(*args, **kwargs):
             with torch.profiler.record_function(label):
                 return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def frozen(keys):
+    """A ``mamba_apply`` wrapper that plants a fault in the decode step: it
+    puts the state's ``keys`` ("ssm", "conv") back after each step, as a
+    step that forgot to write them would leave them."""
+    def wrap(fn):
+        def inner(params, x, *, state=None, **kwargs):
+            saved = {} if state is None else {k: state[k].clone() for k in keys}
+            out = fn(params, x, state=state, **kwargs)
+            for k, t in saved.items():
+                state[k].copy_(t)
+            return out
         return inner
     return wrap
 
@@ -2011,18 +2100,201 @@ def moe_bounds(cfg, n_bytes):
                 decode_touched_bound_ms=touched_bytes / H100_HBM_BYTES_PER_S * 1e3)
 
 
+def hybrid_bounds(cfg, n_bytes):
+    """The serving path's bounds on an H100 for the attention / Mamba hybrid
+    at ``cfg``'s widths and depth (ms), block kind by block kind: the 4 x
+    2048 prefill (the larger of its weight bytes over the memory rate and
+    its bf16 tensor-core flop plus its f32 operations over their peaks:
+    Mamba's four projections in bf16, its scan and conv taps in f32 (an
+    exponential counted as one operation); attention's projections and
+    causal pairs at attention layers only, no rope; the experts over every
+    capacity row and the f32 router at MoE positions; the dense MLP
+    elsewhere) and a decode step at the serving cache (every parameter read
+    once but the embedding table, of which B rows; each attention layer's
+    live K/V; each Mamba layer's ``ssm`` read and written, B din N f32 each
+    way, and its conv window; and the same with only the min(B K, E)
+    experts a step can touch)."""
+    from repro_torch.models.moe import dispatch_shape
+    from repro_torch.models.transformer import _is_moe_position
+
+    d, hq, hk, hd, V, L = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.vocab, cfg.n_layers
+    din, N, w = cfg.mamba_expand * d, cfg.mamba_d_state, cfg.mamba_d_conv
+    rank = max(1, d // 16)
+    E, K, ff = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff
+    B, S = SERVE_B, SERVE_PREFILL
+    T = B * S
+    C = dispatch_shape(T, 1, cfg.moe)[2]
+    kinds = [cfg.block_pattern[i % cfg.period] for i in range(L)]
+    moe_layers = sum(_is_moe_position(cfg, i % cfg.period) for i in range(L))
+    flop, f32_ops = 2 * B * d * V, 0  # the last position's logits
+    for i, kind in enumerate(kinds):
+        if kind == "mamba":
+            flop += 2 * T * (d * 2 * din + din * (rank + 2 * N) + rank * din + din * d)
+            f32_ops += T * din * (1 + 7 * N) + 2 * T * din * w
+        else:
+            flop += (2 * T * d * (hq * hd + 2 * hk * hd) + 2 * T * hq * hd * d
+                     + 4 * hd * hq * B * S * (S + 1) // 2)
+        if _is_moe_position(cfg, i % cfg.period):
+            flop += 6 * E * C * d * ff
+            f32_ops += 2 * T * d * E
+        else:
+            flop += 6 * T * d * cfg.d_ff
+    prefill_ms = max(n_bytes / H100_HBM_BYTES_PER_S,
+                     flop / H100_BF16_FLOPS + f32_ops / H100_FP32_FLOPS) * 1e3
+    cache = SERVE_PROMPT + SERVE_STEPS
+    state_bytes = kinds.count("mamba") * 2 * (B * din * N * 4 + B * (w - 1) * din * 2)
+    kv_bytes = kinds.count("attn") * 2 * 2 * B * cache * hk * hd
+    step_bytes = n_bytes - 2 * V * d + 2 * B * d + kv_bytes + state_bytes
+    touched = min(B * K, E)
+    touched_bytes = step_bytes - moe_layers * (E - touched) * 3 * d * ff * 2
+    return dict(capacity_prefill=C, prefill_flop=flop, prefill_f32_ops=f32_ops,
+                prefill_bound_ms=prefill_ms, prefill_bound_tps=T / prefill_ms * 1e3,
+                decode_bytes=step_bytes, decode_state_bytes=state_bytes,
+                decode_bound_ms=step_bytes / H100_HBM_BYTES_PER_S * 1e3,
+                decode_touched_experts=touched, decode_touched_bytes=touched_bytes,
+                decode_touched_bound_ms=touched_bytes / H100_HBM_BYTES_PER_S * 1e3)
+
+
+def scan_bound(B, S, din, N):
+    """(bound ms, bound_by, bytes, operations) of one selective_scan call:
+    dt, x, B, C, A and h0 read once, y and hT written once (f32); per token,
+    channel and state dt A, the exponential, a_bar h + bx (2), dx B and
+    h C summed (2), plus dt x per token and channel, at the f32 rate."""
+    nbytes = 4 * (2 * B * S * din + 2 * B * S * N + din * N + B * din * N + B * S * din
+                  + B * din * N)
+    ops = B * S * din * (1 + 7 * N)
+    bytes_ms, ops_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3, ops / H100_FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), nbytes, ops
+
+
+def scan_check(ssk, dev):
+    """selective_scan against its plain version on the card at SCAN_CASES:
+    y and hT each within SCAN_TOL of their largest magnitude; two calls give
+    the same bits; refusals launch nothing. Returns (max abs err, max
+    relative err, cases)."""
+    from _scan_cases import SCAN_CASES, scan_inputs
+
+    max_abs = max_rel = 0.0
+    for case in SCAN_CASES:
+        args = scan_inputs(*case[:4], sum(case[:4]), dev, case[4])
+        want = ssk.selective_scan_plain(*args)
+        got = ssk.selective_scan(*args)
+        again = ssk.selective_scan(*args)
+        torch.cuda.synchronize()
+        rels = [rel_err(g, w) for g, w in zip(got, want)]
+        abss = [(g - w).abs().max().item() for g, w in zip(got, want)]
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"selective_scan B{case[0]} S{case[1]} din{case[2]} N{case[3]} "
+              f"h0 {'zeros' if case[4] else 'normal'}: y / hT max |diff| {abs(abss[0]):.3e} / "
+              f"{abss[1]:.3e}, over their largest magnitude {rels[0]:.3e} / {rels[1]:.3e} "
+              f"(tol {SCAN_TOL}); two calls equal {same}", flush=True)
+        if not (max(rels) <= SCAN_TOL and same):
+            raise SystemExit(f"selective_scan disagrees with its plain version at {case}")
+        max_abs, max_rel = max(max_abs, *abss), max(max_rel, *rels)
+    args = scan_inputs(2, 5, 70, 16, 1, dev)
+    must_refuse("bf16 dt", lambda: ssk.selective_scan(args[0].bfloat16(), *args[1:]),
+                ssk.selective_scan)
+    must_refuse("a non-contiguous dt", lambda: ssk.selective_scan(
+        args[0].transpose(1, 2).contiguous().transpose(1, 2), *args[1:]), ssk.selective_scan)
+    must_refuse("an A of the wrong shape", lambda: ssk.selective_scan(
+        *args[:4], args[4][:, :8], args[5]), ssk.selective_scan)
+    must_refuse("N 12", lambda: ssk.selective_scan(*scan_inputs(2, 5, 70, 12, 1, dev)),
+                ssk.selective_scan)
+    must_refuse("a CPU h0", lambda: ssk.selective_scan(*args[:5], args[5].cpu()),
+                ssk.selective_scan)
+    return max_abs, max_rel, len(SCAN_CASES)
+
+
+def mamba_step_check(dev, cfg):
+    """One Mamba layer at ``cfg``'s widths, f32 weights (seed 3) on the
+    card: ``mamba_apply`` over a B 4 x 64 sequence from the zero state
+    against 64 decode steps through the state; y at every position within
+    MAMBA_STEP_TOL of its largest magnitude. The same with a fault planted
+    (``frozen``: the ssm or the conv state put back after each step) must
+    read above it. Returns the gaps by run."""
+    from repro_torch.models import mamba as mamba_mod
+
+    kw = dict(expand=cfg.mamba_expand, d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv)
+    params = mamba_mod.mamba_init(torch.Generator(device=dev).manual_seed(3), cfg.d_model,
+                                  dtype=torch.float32, device=dev, **kw)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (SERVE_B, SERVE_PROMPT, cfg.d_model)), dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        full, _ = mamba_mod.mamba_apply(params, x, **kw)
+        gaps = {}
+        for name, keys in (("sound", ()), ("ssm frozen", ("ssm",)), ("conv frozen", ("conv",))):
+            state = mamba_mod.mamba_state_init(SERVE_B, cfg.d_model, dtype=torch.float32,
+                                               device=dev, **kw)
+            with patched([(mamba_mod, "mamba_apply", frozen(keys))]):
+                steps = torch.cat([mamba_mod.mamba_apply(params, x[:, t:t + 1], state=state,
+                                                         **kw)[0]
+                                   for t in range(SERVE_PROMPT)], 1)
+            gaps[name] = ((steps - full).abs().max() / full.abs().max()).item()
+    print(f"mamba_apply, one layer at d {cfg.d_model} (din {cfg.mamba_expand * cfg.d_model}, N "
+          f"{cfg.mamba_d_state}), f32, B {SERVE_B} x {SERVE_PROMPT}: the full sequence against "
+          f"{SERVE_PROMPT} decode steps, max |diff| over the largest |y|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items()) + f" (tol {MAMBA_STEP_TOL}: the "
+          "sound run within it, each planted fault above it)", flush=True)
+    if not gaps["sound"] <= MAMBA_STEP_TOL < min(gaps["ssm frozen"], gaps["conv frozen"]):
+        raise SystemExit(f"the Mamba decode steps and the full sequence: {gaps} against "
+                         f"{MAMBA_STEP_TOL}")
+    return gaps
+
+
+def scan_timing(ssk, dev, din, N):
+    """The kernel's ms per call (CUDA events around back-to-back calls),
+    device ms (from a CUDA graph), the plain loop's ms and the bound, at the
+    main path's prefill (B 4, S 2048) and decode step (S 1) shapes."""
+    from _scan_cases import scan_inputs
+
+    rows = {}
+    for key, S, h0_zero in (("prefill", SERVE_PREFILL, True), ("decode", 1, False)):
+        args = scan_inputs(SERVE_B, S, din, N, 7, dev, h0_zero)
+        ms = time_ms(lambda: ssk.selective_scan(*args), reps=20)
+        device_ms = graph_ms(lambda: ssk.selective_scan(*args), reps=10)
+        plain_ms = event_ms(lambda: ssk.selective_scan_plain(*args), reps=1 if S > 1 else 5)
+        bound_ms, bound_by, nbytes, ops = scan_bound(SERVE_B, S, din, N)
+        rows[key] = dict(shape=f"B{SERVE_B} S{S} din{din} N{N} f32", ms=ms, device_ms=device_ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                         operations=ops, share_of_bound=bound_ms / device_ms)
+        print(f"selective_scan {rows[key]['shape']}: kernel {ms:.6f} ms per call "
+              f"({device_ms:.6f} ms on the device, from a CUDA graph), plain loop "
+              f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} bytes, {ops} "
+              f"operations), {100 * bound_ms / device_ms:.2f} % of the bound; no PyTorch call "
+              f"computes it", flush=True)
+    return rows
+
+
+def compare_cfg(cfg):
+    """The config at which serve_phase compares the prefill's logits with
+    the cache path's. Both must route alike: capacity depends on each call's
+    tokens (a decode step's B never drops; a 64-token prompt at the config's
+    factor drops whenever the random router is unbalanced), so under MoE the
+    factor that drops nothing, E / K; the hybrid with every expert routed
+    (HYBRID_LOGIT_TOL says why); a dense config as it is."""
+    moe = cfg.moe
+    if moe is None:
+        return cfg
+    if "mamba" in cfg.block_pattern:
+        return cfg.scaled(moe=dataclasses.replace(moe, top_k=moe.n_experts, capacity_factor=1.0))
+    return cfg.scaled(moe=dataclasses.replace(moe, capacity_factor=moe.n_experts / moe.top_k))
+
+
 def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "granite-8b", "gemma-7b"),
                 n_layers=None):
     """``arch`` served at full width on the card (chatglm3-6b; the mla phase:
-    minicpm3-4b; the moe phase: grok-1-314b and kimi-k2-1t-a32b), at its
-    full depth or at ``n_layers``, then ``smoke_archs`` at f32 on the card
-    against the CPU; returns the main path's launch counts and rates."""
+    minicpm3-4b; the moe phase: grok-1-314b and kimi-k2-1t-a32b; the hybrid
+    phase: jamba-v0.1-52b), at its full depth or at ``n_layers``, then
+    ``smoke_archs`` at f32 on the card against the CPU; returns the main
+    path's launch counts and rates."""
     from repro_torch.configs.registry import get_config, smoke_config
     from repro_torch.dist.sched_bridge import plan_expert_placement
+    from repro_torch.kernels import selective_scan as ssk
     from repro_torch.launch.serve import prefill_into_cache
     from repro_torch.models import attention as attn_mod
+    from repro_torch.models import mamba as mamba_mod
     from repro_torch.models import moe as moe_mod
-    from repro_torch.models.transformer import forward, init_params
+    from repro_torch.models.transformer import _is_moe_position, forward, init_params
     from repro_torch.serve.decode import make_prefill_step, make_serve_step
 
     cfg = get_config(arch)
@@ -2031,6 +2303,11 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
         cfg = cfg.scaled(n_layers=n_layers)
     n_layers = cfg.n_layers
     moe = cfg.moe
+    kinds = [cfg.block_pattern[i % cfg.period] for i in range(n_layers)]
+    n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba")
+    n_moe = sum(_is_moe_position(cfg, i % cfg.period) for i in range(n_layers))
+    hybrid = n_mamba > 0
+    mamba_keys = [f"p{j}" for j, kind in enumerate(cfg.block_pattern) if kind == "mamba"]
     w0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
@@ -2043,18 +2320,23 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
              else f"{cfg.n_kv_heads} KV heads, hd {cfg.hd}")
     depth = f"{n_layers} of its {full_layers} layers" if n_layers != full_layers else f"{n_layers} layers"
     experts = ("" if moe is None else f", {moe.n_experts} experts top-{moe.top_k}, expert ff "
-               f"{moe.d_ff}, capacity factor {moe.capacity_factor}")
+               f"{moe.d_ff}, capacity factor {moe.capacity_factor}, {n_moe} MoE layers")
+    blocks = ("" if not hybrid else f", {n_mamba} Mamba layers (expand {cfg.mamba_expand}, "
+              f"d_state {cfg.mamba_d_state}, conv {cfg.mamba_d_conv}) and {n_attn} attention "
+              f"layers by the pattern {cfg.block_pattern}")
     print(f"{arch}: {depth}, d {cfg.d_model}, {cfg.n_heads} heads, {heads}, "
-          f"ff {cfg.d_ff}, vocab {cfg.vocab}{experts}; "
+          f"ff {cfg.d_ff}, vocab {cfg.vocab}{experts}{blocks}; "
           f"{n_params} parameters ({n_bytes} bytes, {param_dtype}) made on the card in "
           f"{time.perf_counter() - w0:.3f} s (seed 0)", flush=True)
     # the config's analytic count leaves out the 2 L + 1 norm scales, under
-    # MLA the two latent norms of each layer, under MoE the routers
+    # MLA the two latent norms of each layer, under MoE the router of each
+    # MoE layer, and in a Mamba layer a_log, dt_bias and d_skip: din (N + 2)
     want = int(cfg.params_count()) + (2 * n_layers + 1) * cfg.d_model
     if cfg.mla is not None:
         want += n_layers * (cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank)
     if moe is not None:
-        want += n_layers * cfg.d_model * moe.n_experts
+        want += n_moe * cfg.d_model * moe.n_experts
+    want += n_mamba * cfg.mamba_expand * cfg.d_model * (cfg.mamba_d_state + 2)
     if n_params != want:
         raise SystemExit(f"parameter count {n_params} != {want} (the config's)")
     rng = np.random.default_rng(0)
@@ -2063,13 +2345,7 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
     cache_len = SERVE_PROMPT + SERVE_STEPS
     prefill = make_prefill_step(cfg)
     serve = make_serve_step(cfg)
-    # the two paths' logits are compared where both route alike: capacity
-    # depends on each call's tokens (a decode step's B never drops; a
-    # 64-token prompt at the config's factor drops whenever the random
-    # router is unbalanced), so under MoE at the factor that drops nothing
-    check_cfg = cfg
-    if moe is not None:
-        check_cfg = cfg.scaled(moe=dataclasses.replace(moe, capacity_factor=moe.n_experts / moe.top_k))
+    check_cfg = compare_cfg(cfg)
     prefill_check = make_prefill_step(check_cfg)
     record = []
     probe = (patched([(moe_mod, "moe_apply", routing_probe(moe_mod, record))]) if moe is not None
@@ -2081,6 +2357,7 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
         # ---- the main path, counted from here ----
         fa.flash_attention.launches = fa.flash_attention.launches_tc = 0
         fd.flash_decode.launches = fd.flash_decode.launches_split = 0
+        ssk.selective_scan.launches = 0
         n_prefill = n_decode = 0
         prefill_walls = []
         for _ in range(2):
@@ -2100,15 +2377,33 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
             logits_prefill = prefill_check(params, {"tokens": prompt})
             n_prefill += 1
             n_pre = len(record)
+            # the decode path's logits at the prompt's last position. With
+            # attention alone the whole prompt fills the cache and its last
+            # token runs again at its own position, which rewrites the same
+            # K/V; a Mamba state is advanced, not rewritten, so the hybrid
+            # fills the first SERVE_PROMPT - 1 tokens and runs the last as
+            # the compared step
+            n_fill = SERVE_PROMPT - 1 if hybrid else SERVE_PROMPT
             w0 = time.perf_counter()
-            last, cache = prefill_into_cache(params, check_cfg, prompt, cache_len)
+            last, cache = prefill_into_cache(params, check_cfg, prompt[:, :n_fill], cache_len)
             torch.cuda.synchronize()
             fill_wall = time.perf_counter() - w0
-            n_decode += SERVE_PROMPT
-            # the decode path's logits at the prompt's last position: running the
-            # last prompt token again at its own position rewrites the same K/V
-            _, logits_dec, cache = serve(params, cache, prompt[:, -1:], SERVE_PROMPT - 1)
+            n_decode += n_fill
+            nxt, logits_dec, cache = make_serve_step(check_cfg)(params, cache, prompt[:, -1:],
+                                                                SERVE_PROMPT - 1)
+            check_next = nxt if hybrid else last
             n_decode += 1
+        if hybrid:
+            # every expert's routes filled the compared cache: the timed
+            # steps start from one that the whole prompt filled at the
+            # config's own top-2, as a user's would
+            del cache
+            w0 = time.perf_counter()
+            last, cache = prefill_into_cache(params, cfg, prompt, cache_len)
+            torch.cuda.synchronize()
+            fill_wall = time.perf_counter() - w0
+            n_fill = SERVE_PROMPT
+            n_decode += SERVE_PROMPT
         toks = [last]
         w0 = time.perf_counter()
         for i in range(SERVE_STEPS):
@@ -2119,17 +2414,20 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
         n_decode += SERVE_STEPS
         fa_launches, fd_launches = fa.flash_attention.launches, fd.flash_decode.launches
         fa_tc, fd_split = fa.flash_attention.launches_tc, fd.flash_decode.launches_split
+        ss_launches = ssk.selective_scan.launches
         # ---- end of the main path ----
         peak = torch.cuda.max_memory_allocated()
         print(f"main path: {n_prefill} prefill forwards, {n_decode} decode forwards; "
               f"flash_attention launches {fa_launches} (tensor-core route {fa_tc}), "
-              f"flash_decode launches {fd_launches} (split route {fd_split}); "
-              f"peak device memory {peak} bytes", flush=True)
-        if fa_launches != n_layers * n_prefill or fd_launches != n_layers * n_decode:
-            raise SystemExit(f"launches per forward are not {n_layers}: flash_attention "
-                             f"{fa_launches} over {n_prefill}, flash_decode {fd_launches} over "
-                             f"{n_decode}")
-        if fa_tc != n_layers * n_prefill or fd_split != n_layers * n_decode:
+              f"flash_decode launches {fd_launches} (split route {fd_split}), selective_scan "
+              f"launches {ss_launches}; peak device memory {peak} bytes", flush=True)
+        if (fa_launches != n_attn * n_prefill or fd_launches != n_attn * n_decode
+                or ss_launches != n_mamba * (n_prefill + n_decode)):
+            raise SystemExit(f"launches per forward are not {n_attn} attention and {n_mamba} "
+                             f"scans: flash_attention {fa_launches} over {n_prefill}, flash_decode "
+                             f"{fd_launches} over {n_decode}, selective_scan {ss_launches} over "
+                             f"{n_prefill + n_decode}")
+        if fa_tc != n_attn * n_prefill or fd_split != n_attn * n_decode:
             raise SystemExit(f"the serving path left the tensor-core routes: flash_attention "
                              f"tc {fa_tc} of {fa_launches}, flash_decode split {fd_split} of "
                              f"{fd_launches}")
@@ -2145,19 +2443,20 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
         a, b = logits_prefill[:, 0], logits_dec[:, 0]
         gap = ((a - b).abs().max() / a.abs().max()).item()
         agree = (a.argmax(-1) == b.argmax(-1)).sum().item()
-        tol = SERVE_LOGIT_TOL if moe is None else MOE_LOGIT_TOL
+        tol = HYBRID_LOGIT_TOL if hybrid else SERVE_LOGIT_TOL if moe is None else MOE_LOGIT_TOL
         print(f"last-position logits, prefill vs prefill_into_cache + one step: max |diff| / "
               f"max |logit| = {gap:.6f} (tol {tol}); largest logit "
               f"{a.abs().max().item():.4f}; argmax agrees on {agree} of {SERVE_B}; greedy "
               f"next token from the cache path equals the prefill's argmax on "
-              f"{(last.long() == a.argmax(-1)).sum().item()} of {SERVE_B}", flush=True)
+              f"{(check_next.long() == a.argmax(-1)).sum().item()} of {SERVE_B}", flush=True)
         out_moe = {}
         if moe is not None:
-            flips, last_flips = route_flips(record, n_pre, n_layers, SERVE_PROMPT)
+            flips, last_flips = route_flips(record, n_pre, n_moe, SERVE_PROMPT)
             print(f"routes: the timed prefill ({SERVE_B} x {SERVE_PREFILL}, capacity factor "
                   f"{moe.capacity_factor}) drops {sum(drops)} of {routed} assignments (by layer "
                   f"{drops}; run again with the routes probed, logits equal: {rerun_equal}); "
-                  f"no-drop check (capacity factor {check_cfg.moe.capacity_factor}): "
+                  f"no-drop check (top-{check_cfg.moe.top_k}, capacity factor "
+                  f"{check_cfg.moe.capacity_factor}): "
                   f"{sum(r[1] for r in record)} dropped; tokens whose top-k set differs between "
                   f"the prefill and the cache path, by layer, {flips} of {SERVE_B * SERVE_PROMPT}; "
                   f"at the compared last positions {last_flips}", flush=True)
@@ -2171,14 +2470,15 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
         prefill_tps = SERVE_B * SERVE_PREFILL / min(prefill_walls)
         decode_tps = SERVE_B * SERVE_STEPS / decode_wall
         print(f"prefill {SERVE_B} x {SERVE_PREFILL} tokens: wall_s {prefill_walls} -> "
-              f"{prefill_tps:.1f} tokens/s; prefill_into_cache {SERVE_B} x {SERVE_PROMPT} tokens "
-              f"(one decode step each{'; routes probed' if moe is not None else ''}) "
+              f"{prefill_tps:.1f} tokens/s; prefill_into_cache {SERVE_B} x {n_fill} tokens "
+              f"(one decode step each{'; routes probed' if moe is not None and not hybrid else ''}) "
               f"{fill_wall:.3f} s; {SERVE_STEPS} decode steps x {SERVE_B} "
               f"in {decode_wall:.3f} s -> {decode_tps:.1f} tokens/s, "
               f"{1e3 * decode_wall / SERVE_STEPS:.3f} ms a step; sample {tokens[0, :12].tolist()}",
               flush=True)
         out = dict(arch=arch, n_layers=n_layers, fa_launches=fa_launches,
-                   fd_launches=fd_launches, fa_launches_tc=fa_tc,
+                   fd_launches=fd_launches, fa_launches_tc=fa_tc, ss_launches=ss_launches,
+                   n_attention_layers=n_attn, n_mamba_layers=n_mamba, n_moe_layers=n_moe,
                    fd_launches_split=fd_split, prefill_forwards=n_prefill,
                    decode_forwards=n_decode, prefill_tps=prefill_tps,
                    decode_tps=decode_tps, logit_gap=gap, n_params=n_params, peak_bytes=peak,
@@ -2186,11 +2486,13 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
                    decode_step_ms=1e3 * decode_wall / SERVE_STEPS, sample=tokens[0, :12].tolist())
         ranges = ()
         if moe is not None:
-            bounds = moe_bounds(cfg, n_bytes)
+            bounds = hybrid_bounds(cfg, n_bytes) if hybrid else moe_bounds(cfg, n_bytes)
+            f32_ops = bounds["prefill_f32_ops" if hybrid else "prefill_router_f32_flop"]
             print(f"bounds (H100: {H100_HBM_BYTES_PER_S:.3g} B/s, {H100_BF16_FLOPS:.3g} bf16 "
-                  f"flop/s): prefill {bounds['prefill_bound_ms']:.3f} ms "
-                  f"({bounds['prefill_flop']:.4g} bf16 flop, {bounds['prefill_router_f32_flop']:.4g} "
-                  f"f32 router flop; C {bounds['capacity_prefill']}) -> "
+                  f"flop/s, {H100_FP32_FLOPS:.3g} f32): prefill {bounds['prefill_bound_ms']:.3f} ms "
+                  f"({bounds['prefill_flop']:.4g} bf16 flop, {f32_ops:.4g} f32 "
+                  f"{'operations (scan, conv, router)' if hybrid else 'router flop'}; "
+                  f"C {bounds['capacity_prefill']}) -> "
                   f"{bounds['prefill_bound_tps']:.1f} tokens/s, measured {prefill_tps:.1f} "
                   f"({100 * prefill_tps / bounds['prefill_bound_tps']:.2f} %); decode step "
                   f"{bounds['decode_bound_ms']:.3f} ms ({bounds['decode_bytes']} bytes), measured "
@@ -2206,12 +2508,19 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
             label = torch.as_tensor(placement.inv_perm, device=dev)  # expert e -> its slot
             slots = torch.as_tensor(placement.perm, device=dev)  # slot -> expert
             pos = SERVE_PROMPT + SERVE_STEPS - 1  # rewrites the last position with its own token
+            # a Mamba state advances at each step: both compared steps start from this one
+            states = {key: {n: t.clone() for n, t in cache[key].items()} for key in mamba_keys}
             _, base_step, cache = serve(params, cache, toks[-2][:, None], pos)
             for bp in params["blocks"]:
-                for k in ("w_up", "w_gate", "w_down"):
-                    bp["moe"][k] = bp["moe"][k][slots]
+                if "moe" in bp:
+                    for k in ("w_up", "w_gate", "w_down"):
+                        bp["moe"][k] = bp["moe"][k][slots]
             relabelled = forward(params, cfg, long_prompt, expert_perm=label,
                                  last_logit_only=True)[0]
+            for key, saved in states.items():
+                for n, t in saved.items():
+                    cache[key][n].copy_(t)
+            del states
             step_relabelled = forward(params, cfg, toks[-2][:, None], cache=cache, cache_pos=pos,
                                       expert_perm=label)[0]
             same = (torch.equal(relabelled, logits_long), torch.equal(step_relabelled, base_step))
@@ -2223,15 +2532,23 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
             if not all(same):
                 raise SystemExit("relabelled experts gave other logits")
             for bp in params["blocks"]:  # back to the original slots
-                for k in ("w_up", "w_gate", "w_down"):
-                    bp["moe"][k] = bp["moe"][k][label]
+                if "moe" in bp:
+                    for k in ("w_up", "w_gate", "w_down"):
+                        bp["moe"][k] = bp["moe"][k][label]
             out["relabel_equal"] = True
             ranges = ("moe", "moe.experts", "moe.router", "attention")
-        annotate = patched([(moe_mod, "moe_apply", ranged("moe")),
-                            (moe_mod, "_experts", ranged("moe.experts")),
-                            (moe_mod, "route", ranged("moe.router")),
-                            (attn_mod, "attn_apply", ranged("attention"))]) if ranges else (
-            contextlib.nullcontext())
+        if hybrid:  # the Mamba blocks in one range (the scan summed by name)
+            ranges = ("mamba", "moe", "attention")
+            annotate = patched([(mamba_mod, "mamba_apply", ranged("mamba")),
+                                (moe_mod, "moe_apply", ranged("moe")),
+                                (attn_mod, "attn_apply", ranged("attention"))])
+        elif ranges:
+            annotate = patched([(moe_mod, "moe_apply", ranged("moe")),
+                                (moe_mod, "_experts", ranged("moe.experts")),
+                                (moe_mod, "route", ranged("moe.router")),
+                                (attn_mod, "attn_apply", ranged("attention"))])
+        else:
+            annotate = contextlib.nullcontext()
         pos = SERVE_PROMPT + SERVE_STEPS - 1  # rewrites the last position with its own token
         with annotate:
             windows = [profile_window(lambda: prefill(params, {"tokens": long_prompt}),
@@ -2240,11 +2557,20 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
                                       f"decode step at {pos}", ranges)]
         if moe is not None:
             for key, win in zip(("prefill", "decode"), windows):
-                sp, busy = win["spans_s"], win["device_busy_s"]
-                parts = {"expert products": sp["moe.experts"], "router": sp["moe.router"],
-                         "dispatch and combine": sp["moe"] - sp["moe.experts"] - sp["moe.router"],
-                         "attention": sp["attention"],
-                         "other": busy - sp["moe"] - sp["attention"]}
+                sp, busy, own = win["spans_s"], win["device_busy_s"], win["own_kernels_s"]
+                # the flash kernels belong to attention and the scan to Mamba,
+                # though no range holds them (OWN_KERNELS)
+                attention = sp["attention"] + own["flash"]
+                if hybrid:
+                    parts = {"mamba (scan apart)": sp["mamba"],
+                             "selective_scan": own["selective_scan"],
+                             "moe": sp["moe"], "attention": attention}
+                else:
+                    parts = {"expert products": sp["moe.experts"], "router": sp["moe.router"],
+                             "dispatch and combine": sp["moe"] - sp["moe.experts"]
+                             - sp["moe.router"],
+                             "attention": attention}
+                parts["other"] = busy - sum(parts.values())
                 win["shares_of_wall"] = {k: v / win["wall_s"] for k, v in parts.items()}
                 win["shares_of_wall"]["idle"] = win["device_idle_share"]
                 print(f"profile {key} shares of the window's wall "
@@ -3084,8 +3410,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    sys.path.insert(0, str(ROOT / "tests"))  # _place_cases: the seeded placement cases
+    sys.path.insert(0, str(ROOT / "tests"))  # _place_cases, _scan_cases: seeded kernel cases
     from repro_torch.configs.paper_machine import paper_machine
+    from repro_torch.configs.registry import get_config
     from repro_torch.core import Simulator, cached_graph, run_batch
     from repro_torch.core import episode as episode_mod
     from repro_torch.kernels import flash_attention as fa
@@ -3093,6 +3420,7 @@ def main() -> int:
     from repro_torch.kernels import sched_episode as se
     from repro_torch.kernels import sched_place as sp
     from repro_torch.kernels import sched_score as ss
+    from repro_torch.kernels import selective_scan as ssk
     from repro_torch.kernels import tile_gemm as tg
     from repro_torch.kernels._build import build_library
     from repro_torch.linalg import tiles
@@ -3111,7 +3439,7 @@ def main() -> int:
     t0 = phase("build")
     card = card_line()
     print(card)
-    kernel_modules = (ss, sp, tg, fa, fd, se)
+    kernel_modules = (ss, sp, tg, fa, fd, se, ssk)
     sources = [src for mod in kernel_modules for src in mod.SOURCES]
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, started together
         reports = list(pool.map(lambda src: build_library(src)[1], sources))
@@ -3131,6 +3459,11 @@ def main() -> int:
         raise SystemExit("no ptxas report for sched_place.cu")
     for row in place_ptxas:
         print(f"place ptxas: {row}")
+    scan_ptxas = ptxas_table(reports[sources.index(ssk._SRC)])
+    if not scan_ptxas:
+        raise SystemExit("no ptxas report for selective_scan.cu")
+    for row in scan_ptxas:
+        print(f"selective_scan ptxas: {row}")
     done("build", t0)
 
     # ---- 2. kernels against their plain versions -----------------------------
@@ -3580,6 +3913,22 @@ def main() -> int:
         print(f"moe {arch}: {served_moe[arch]['wall_s']:.3f} s", flush=True)
     done("moe", t0)
 
+    # ---- 8d. hybrid: jamba-v0.1-52b at full width, 16 of its 32 layers --------
+    t0 = phase("hybrid")
+    scan_abs_err, scan_rel_err, scan_cases = scan_check(ssk, dev)
+    hybrid_cfg = get_config(HYBRID_ARCH)
+    mamba_step_gaps = mamba_step_check(dev, hybrid_cfg)
+    torch.cuda.empty_cache()
+    served_hybrid = serve_phase(fa, fd, dev, HYBRID_ARCH, smoke_archs=(HYBRID_ARCH,),
+                                n_layers=HYBRID_LAYERS)
+    served_hybrid["mamba_step_gaps"] = mamba_step_gaps
+    scan_rows = scan_timing(ssk, dev, hybrid_cfg.mamba_expand * hybrid_cfg.d_model,
+                            hybrid_cfg.mamba_d_state)
+    torch.cuda.empty_cache()
+    served_hybrid["wall_s"] = time.perf_counter() - t0
+    print(f"hybrid {HYBRID_ARCH}: {served_hybrid['wall_s']:.3f} s", flush=True)
+    done("hybrid", t0)
+
     # ---- 9. profile ---------------------------------------------------------
     t0 = phase("profile")
     launch_structure = {}
@@ -3799,6 +4148,8 @@ def main() -> int:
             f"launches_moe_{kernel_route}": sum(r[f"{key}_launches_{kernel_route}"]
                                                 for r in served_moe.values()),
             "launches_moe_by_arch": {a: r[f"{key}_launches"] for a, r in served_moe.items()},
+            "launches_hybrid": served_hybrid[f"{key}_launches"],
+            f"launches_hybrid_{kernel_route}": served_hybrid[f"{key}_launches_{kernel_route}"],
             "max_abs_err": max(err.values()),
             "max_abs_err_by_route": err,
             "max_abs_err_dv_by_route": err_dv,
@@ -3820,9 +4171,31 @@ def main() -> int:
     episode_entry["launches_faults"] = fault_launches["episode_scan"]
     episode_entry["launches_serving"] = serving_launches["episode_scan"]
     kernels.append(episode_entry)
+    kernels.append({
+        "name": "selective_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/models/mamba.py:82 (lax.scan; no Pallas kernel)",
+        "launches": served_hybrid["ss_launches"],
+        "launches_by_phase": {"hybrid": served_hybrid["ss_launches"]},
+        "max_abs_err": scan_abs_err,
+        "max_rel_err": scan_rel_err,
+        "tol_rel": SCAN_TOL,
+        "cases": scan_cases,
+        "ms": scan_rows["prefill"]["ms"],
+        "device_ms": scan_rows["prefill"]["device_ms"],
+        "plain_ms": scan_rows["prefill"]["plain_ms"],
+        "bound_ms": scan_rows["prefill"]["bound_ms"],
+        "bound_by": scan_rows["prefill"]["bound_by"],
+        "library_ms": None,
+        "shape": scan_rows["prefill"]["shape"],
+        "decode_step": scan_rows["decode"],
+        "ptxas": scan_ptxas,
+    })
     print(json.dumps({"serve": served}))
     print(json.dumps({"mla": served_mla}))
     print(json.dumps({"moe": served_moe}))
+    print(json.dumps({"hybrid": served_hybrid}))
     print(json.dumps({"paper": paper}))
     print(json.dumps({"verify": verified}))
     print(json.dumps({"memory": memory}))

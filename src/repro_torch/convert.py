@@ -66,16 +66,20 @@ def machine_from_spec(spec: Mapping[str, Any]) -> MachineModel:
 
 def params_from_jax(tree: Mapping[str, Any], cfg, device="cuda") -> Dict[str, Any]:
     """The port's parameters from the reference's tree (nested dicts of numpy
-    arrays, as ``repro.models.transformer.init_params`` lays them out) for an
-    attention-only config ``cfg``, GQA or MLA (``w_dq``, ``q_norm``,
-    ``w_uq``, ``w_dkv``, ``kv_norm``, ``w_kr``, ``w_uk``, ``w_uv``, ``wo``
-    under each block's ``"mla"``), dense or MoE (``router``, ``w_up``,
-    ``w_gate``, ``w_down`` under each block's ``"moe"`` in place of
-    ``"mlp"``): the leading ``n_periods`` axis of the blocks is unstacked
-    into a list of per-layer dicts, and every array is cast to the compute
-    dtype on ``device``, the f32 router too (the reference's
-    ``_cast_floats`` casts at every call; once gives the same numbers).
-    bf16 numpy arrays (ml_dtypes) widen to f32 exactly on the way."""
+    arrays, as ``repro.models.transformer.init_params`` lays them out) for a
+    config ``cfg`` the port serves: attention blocks GQA or MLA (``w_dq``,
+    ``q_norm``, ``w_uq``, ``w_dkv``, ``kv_norm``, ``w_kr``, ``w_uk``,
+    ``w_uv``, ``wo`` under each block's ``"mla"``), Mamba blocks (``w_in``,
+    ``conv_w``, ``conv_b``, ``w_x``, ``w_dt``, ``dt_bias``, ``a_log``,
+    ``d_skip``, ``w_out`` under ``"mamba"``), dense or MoE (``router``,
+    ``w_up``, ``w_gate``, ``w_down`` under each block's ``"moe"`` in place
+    of ``"mlp"``). Each pattern position's subtree ``p{j}`` has a leading
+    ``n_periods`` axis; its entry ``k`` becomes layer ``period * k + j`` of
+    a list of per-layer dicts. Every array is cast to the compute dtype on
+    ``device``, the f32 router, ``a_log``, ``dt_bias`` and ``d_skip`` too
+    (the reference's ``_cast_floats`` casts at every call; once gives the
+    same numbers). bf16 numpy arrays (ml_dtypes) widen to f32 exactly on
+    the way."""
     from .models.layers import _dtype
     from .models.transformer import check_supported
 
@@ -89,14 +93,17 @@ def params_from_jax(tree: Mapping[str, Any], cfg, device="cuda") -> Dict[str, An
             a = a.astype(np.float32)
         return torch.from_numpy(np.array(a)).to(device=dev, dtype=dt)
 
-    def layer(sub, i):
-        return {k: layer(v, i) if isinstance(v, Mapping) else tensor(v[i]) for k, v in sub.items()}
+    def layer(sub, k):
+        return {n: layer(v, k) if isinstance(v, Mapping) else tensor(v[k]) for n, v in sub.items()}
 
-    stacked = tree["blocks"]["p0"]
+    period = cfg.period
+    blocks = [
+        layer(tree["blocks"][f"p{i % period}"], i // period) for i in range(cfg.n_layers)
+    ]
     out: Dict[str, Any] = {
         "embed": {"table": tensor(tree["embed"]["table"])},
         "final_norm": {k: tensor(v) for k, v in tree["final_norm"].items()},
-        "blocks": [layer(stacked, i) for i in range(cfg.n_layers)],
+        "blocks": blocks,
     }
     if "lm_head" in tree:
         out["lm_head"] = tensor(tree["lm_head"])

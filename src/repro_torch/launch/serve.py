@@ -5,12 +5,14 @@
 ``--smoke --device cpu`` runs the reduced config on the CPU, where the
 attention kernels take their plain versions.
 
-The MoE models run with ``--smoke`` (``--arch grok-1-314b --smoke``,
-``--arch kimi-k2-1t-a32b --smoke``, on the CPU or the card). Their full
-configs do not fit one card (633 GB and 2.08 TB of bf16 weights), and
-the CLI has no depth flag, as the reference's has none: ``chip_smoke.py``
-serves both at full width on one card with the depth cut (grok-1 at 4 of
-its 64 layers, kimi-k2 at 1 of its 61) through the same entry points.
+The MoE models and the attention / Mamba hybrid run with ``--smoke``
+(``--arch grok-1-314b --smoke``, ``--arch kimi-k2-1t-a32b --smoke``,
+``--arch jamba-v0.1-52b --smoke``, on the CPU or the card). Their full
+configs do not fit one card (633 GB, 2.08 TB and 103 GB of bf16 weights),
+and the CLI has no depth flag, as the reference's has none:
+``chip_smoke.py`` serves them at full width on one card with the depth
+cut (grok-1 at 4 of its 64 layers, kimi-k2 at 1 of its 61, jamba at 16 of
+its 32) through the same entry points.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ from ..serve.decode import make_serve_step
 
 def prefill_into_cache(params, cfg, tokens, cache_len):
     """Run the prompt through decode steps to fill the cache (the
-    reference's simple path). Returns the greedy next token and the cache."""
+    reference's simple path; a Mamba layer's state advances token by token).
+    Returns the greedy next token and the cache."""
     B, S = tokens.shape
     cache = cache_init(cfg, B, cache_len, tokens.device)
     serve = make_serve_step(cfg)

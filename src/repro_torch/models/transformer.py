@@ -1,18 +1,22 @@
-"""Model assembly for the attention-only transformers: init, cache, forward.
+"""Model assembly: init, cache and forward of the served configs.
 
-Counterpart of ``repro/models/transformer.py`` for configs whose blocks are
-all attention, GQA (chatglm3-6b, granite-8b, gemma-7b) or Multi-head Latent
-Attention (minicpm3-4b, :mod:`.mla`), each followed by a dense MLP or, at
-the reference's MoE positions, a Mixture-of-Experts MLP (grok-1-314b,
-kimi-k2-1t-a32b, :mod:`.moe`). Any other family (Mamba / hybrid, xLSTM,
-encoder-decoder, VLM and audio frontends) raises
-:class:`NotImplementedError`: ``ROADMAP.md`` lists them as later slices.
+Counterpart of ``repro/models/transformer.py`` for decoder-only configs
+whose blocks are attention or Mamba. Attention is GQA (chatglm3-6b,
+granite-8b, gemma-7b) or Multi-head Latent Attention (minicpm3-4b,
+:mod:`.mla`); the hybrid family (jamba-v0.1-52b) interleaves Mamba blocks
+(:mod:`.mamba`) with attention by its block pattern. Every block is
+followed by a dense MLP or, at the reference's MoE positions, a
+Mixture-of-Experts MLP (grok-1-314b, kimi-k2-1t-a32b, jamba's odd
+positions; :mod:`.moe`). xLSTM, encoder-decoder and the VLM and audio
+frontends raise :class:`NotImplementedError`: ``ROADMAP.md`` lists them as
+later slices.
 
 Where the reference differs in form only:
 
   * its ``scan`` over periods is a plain loop over layers here, and the
     parameters are a list of per-layer dicts (``convert.params_from_jax``
-    unstacks the reference's leading ``n_periods`` axis);
+    unstacks the reference's leading ``n_periods`` axis of each pattern
+    position ``p{j}``: layer ``period * k + j`` is period ``k``'s ``p{j}``);
   * its ``_cast_floats`` casts every float parameter to the compute dtype
     on every call; here parameters are held in the compute dtype, cast
     once when made or converted, which gives the same numbers;
@@ -20,9 +24,12 @@ Where the reference differs in form only:
     here: exactly one term is non-zero, so the two are equal;
   * ``constrain_batch`` (a no-op on one card) and ``remat`` (which does not
     matter when serving) are left out;
-  * the cache keeps the reference's structure, ``{"p0": {"k", "v"}}`` (MLA:
-    ``{"p0": {"c_kv", "k_rope"}}``) with a leading layer axis, and a decode
-    step updates it in place.
+  * the cache keeps the reference's structure, one key ``p{j}`` a pattern
+    position whose leaves carry a leading ``n_periods`` axis: ``{"k", "v"}``
+    (MLA: ``{"c_kv", "k_rope"}``) at attention positions and ``{"ssm",
+    "conv"}`` at Mamba positions (an attention-only config has period 1:
+    ``{"p0": ...}`` with a leading layer axis); a decode step updates it in
+    place.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from . import attention as attn
+from . import mamba as mb
 from . import mla as mla_mod
 from . import moe as moe_mod
 from .layers import _dtype, dense_init, embed_apply, embed_init, mlp_apply, mlp_init, norm_apply, norm_init
@@ -40,17 +48,22 @@ from .rope import rope_table
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is an attention-only transformer (GQA or MLA
-    attention), dense or MoE."""
-    if (
-        cfg.family not in ("dense", "moe") or (cfg.family == "moe") != (cfg.moe is not None)
-        or tuple(cfg.block_pattern) != ("attn",) or cfg.enc_layers or cfg.frontend_tokens
-    ):
+    """Raise unless ``cfg`` is a decoder-only config the port serves: an
+    attention-only transformer (GQA or MLA attention), dense or MoE, or the
+    hybrid family (attention and Mamba blocks, GQA attention)."""
+    kinds = set(cfg.block_pattern)
+    attention_only = (
+        cfg.family in ("dense", "moe") and (cfg.family == "moe") == (cfg.moe is not None)
+        and tuple(cfg.block_pattern) == ("attn",)
+    )
+    hybrid = cfg.family == "hybrid" and kinds <= {"attn", "mamba"} and cfg.mla is None
+    if not (attention_only or hybrid) or cfg.enc_layers or cfg.frontend_tokens:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (mla={cfg.mla is not None}, "
             f"moe={cfg.moe is not None}, blocks {cfg.block_pattern}) is not ported yet; "
-            "the port serves attention-only configs, GQA or MLA, dense or MoE (ROADMAP.md, "
-            "queue 1 item 7)"
+            "the port serves attention-only configs (GQA or MLA, dense or MoE) and the "
+            "attention / Mamba hybrid; xLSTM, encoder-decoder and the VLM and audio frontends "
+            "are ROADMAP.md, queue 1 items 7(4)-7(6)"
         )
 
 
@@ -69,13 +82,21 @@ def _is_moe_position(cfg: ModelConfig, j: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
-def block_init(cfg: ModelConfig, j: int, gen, dtype, device) -> Dict:
+def block_init(cfg: ModelConfig, kind: str, j: int, gen, dtype, device) -> Dict:
+    """The parameters of one block of ``kind`` ("attn" or "mamba") at
+    pattern position ``j``."""
     d = cfg.d_model
     p = {"norm1": norm_init(cfg.norm, d, dtype, device)}
-    if cfg.mla is not None:
-        p["mla"] = mla_mod.mla_init(gen, d, cfg.n_heads, cfg.mla, dtype, device)
+    if kind == "attn":
+        if cfg.mla is not None:
+            p["mla"] = mla_mod.mla_init(gen, d, cfg.n_heads, cfg.mla, dtype, device)
+        else:
+            p["attn"] = attn.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dtype, device)
+    elif kind == "mamba":
+        p["mamba"] = mb.mamba_init(gen, d, expand=cfg.mamba_expand, d_state=cfg.mamba_d_state,
+                                   d_conv=cfg.mamba_d_conv, dtype=dtype, device=device)
     else:
-        p["attn"] = attn.attn_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, dtype, device)
+        raise ValueError(kind)
     p["norm2"] = norm_init(cfg.norm, d, dtype, device)
     if _is_moe_position(cfg, j):
         p["moe"] = moe_mod.moe_init(gen, d, cfg.moe, dtype, device)
@@ -84,23 +105,31 @@ def block_init(cfg: ModelConfig, j: int, gen, dtype, device) -> Dict:
     return p
 
 
-def block_apply(cfg: ModelConfig, params: Dict, x, *, rope_cos, rope_sin, cache=None,
-                cache_pos=None, expert_perm=None, moe_chunks: int = 1):
-    """One pre-norm block: attention (GQA or MLA) then the MLP or MoE, each
-    residual. Returns (x, f32 aux loss: 0 without MoE)."""
+def block_apply(cfg: ModelConfig, kind: str, j: int, params: Dict, x, *, rope_cos, rope_sin,
+                cache=None, cache_pos=None, expert_perm=None, moe_chunks: int = 1):
+    """One pre-norm block of ``kind`` at pattern position ``j``: attention
+    (GQA or MLA) or Mamba, then the MLP or MoE, each residual. ``cache``
+    is the layer's slice of the cache, updated in place. Returns (x, f32
+    aux loss: 0 without MoE)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm_apply(cfg.norm, params["norm1"], x)
-    if cfg.mla is not None:
-        y, _ = mla_mod.mla_apply(
-            params["mla"], h, n_heads=cfg.n_heads, mla_cfg=cfg.mla, rope_cos=rope_cos,
-            rope_sin=rope_sin, cache=cache, cache_pos=cache_pos,
-        )
+    if kind == "attn":
+        if cfg.mla is not None:
+            y, _ = mla_mod.mla_apply(
+                params["mla"], h, n_heads=cfg.n_heads, mla_cfg=cfg.mla, rope_cos=rope_cos,
+                rope_sin=rope_sin, cache=cache, cache_pos=cache_pos,
+            )
+        else:
+            y, _ = attn.attn_apply(
+                params["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
+                rope_cos=rope_cos, rope_sin=rope_sin, rope_style=cfg.rope_style, causal=True,
+                cache=cache, cache_pos=cache_pos,
+            )
+    elif kind == "mamba":
+        y, _ = mb.mamba_apply(params["mamba"], h, expand=cfg.mamba_expand,
+                              d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv, state=cache)
     else:
-        y, _ = attn.attn_apply(
-            params["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, hd=cfg.hd,
-            rope_cos=rope_cos, rope_sin=rope_sin, rope_style=cfg.rope_style, causal=True,
-            cache=cache, cache_pos=cache_pos,
-        )
+        raise ValueError(kind)
     x = x + y
     h = norm_apply(cfg.norm, params["norm2"], x)
     if "moe" in params:
@@ -112,19 +141,32 @@ def block_apply(cfg: ModelConfig, params: Dict, x, *, rope_cos, rope_sin, cache=
 
 
 def cache_init(cfg: ModelConfig, B: int, S: int, device="cuda") -> Dict:
-    """Zero KV cache ``{"p0": {"k", "v"}}``, each (n_layers, B, S, Hkv, hd),
-    or under MLA ``{"p0": {"c_kv", "k_rope"}}`` (:func:`.mla.mla_cache_init`),
-    in the compute dtype."""
+    """The zero cache, the reference's ``cache_init``: ``{"p{j}": ...}`` for
+    each pattern position ``j``, every leaf with a leading ``n_periods``
+    axis. Attention: ``{"k", "v"}``, each (n_periods, B, S, Hkv, hd), or
+    under MLA ``{"c_kv", "k_rope"}`` (:func:`.mla.mla_cache_init`), in the
+    compute dtype; Mamba: ``{"ssm"}`` (n_periods, B, din, N) f32 and
+    ``{"conv"}`` (n_periods, B, d_conv - 1, din) in the compute dtype."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg.compute_dtype)
-    if cfg.mla is not None:
-        return {"p0": mla_mod.mla_cache_init(cfg.n_layers, B, S, cfg.mla, dt, dev)}
-    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
-    return {"p0": {
-        "k": torch.zeros(shape, dtype=dt, device=dev),
-        "v": torch.zeros(shape, dtype=dt, device=dev),
-    }}
+    n_periods = cfg.n_layers // cfg.period
+    out = {}
+    for j, kind in enumerate(cfg.block_pattern):
+        if kind == "mamba":
+            state = mb.mamba_state_init(B, cfg.d_model, expand=cfg.mamba_expand,
+                                        d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv,
+                                        dtype=dt, device=dev)
+            out[f"p{j}"] = {k: t.new_zeros((n_periods,) + t.shape) for k, t in state.items()}
+        elif cfg.mla is not None:
+            out[f"p{j}"] = mla_mod.mla_cache_init(n_periods, B, S, cfg.mla, dt, dev)
+        else:
+            shape = (n_periods, B, S, cfg.n_kv_heads, cfg.hd)
+            out[f"p{j}"] = {
+                "k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev),
+            }
+    return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> Dict:
@@ -141,7 +183,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda") -> 
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab), dt, dev)
     params["blocks"] = [
-        block_init(cfg, i % cfg.period, generator, dt, dev) for i in range(cfg.n_layers)
+        block_init(cfg, cfg.block_pattern[i % cfg.period], i % cfg.period, generator, dt, dev)
+        for i in range(cfg.n_layers)
     ]
     return params
 
@@ -193,11 +236,13 @@ def forward(
         expert_perm = torch.as_tensor(expert_perm, device=x.device).long()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, bp in enumerate(params["blocks"]):
+        j = i % cfg.period
         layer_cache = None
-        if cache is not None:
-            layer_cache = {name: buf[i] for name, buf in cache["p0"].items()}
-        x, aux = block_apply(cfg, bp, x, rope_cos=cos, rope_sin=sin, cache=layer_cache,
-                             cache_pos=cache_pos, expert_perm=expert_perm, moe_chunks=moe_chunks)
+        if cache is not None:  # period i // period of position j
+            layer_cache = {name: buf[i // cfg.period] for name, buf in cache[f"p{j}"].items()}
+        x, aux = block_apply(cfg, cfg.block_pattern[j], j, bp, x, rope_cos=cos, rope_sin=sin,
+                             cache=layer_cache, cache_pos=cache_pos, expert_perm=expert_perm,
+                             moe_chunks=moe_chunks)
         aux_total = aux_total + aux
     x = norm_apply(cfg.norm, params["final_norm"], x)
     if last_logit_only:

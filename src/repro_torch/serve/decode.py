@@ -1,7 +1,9 @@
 """Serving: prefill and single-token decode steps.
 
-Counterpart of ``repro/serve/decode.py`` for the attention-only
-transformers, GQA and MLA attention, dense and MoE alike (the
+Counterpart of ``repro/serve/decode.py`` for the served decoder-only
+configs: the attention-only transformers (GQA and MLA attention, dense and
+MoE alike) and the attention / Mamba hybrid, whose cache holds each Mamba
+layer's ``ssm`` and ``conv`` state beside the attention layers' K/V (the
 encoder-decoder cross cache waits for that family, ``ROADMAP.md``).
 """
 from __future__ import annotations
@@ -35,8 +37,8 @@ def make_decode_cache(cfg: ModelConfig, B: int, S: int, device="cuda") -> Dict:
 
 def make_serve_step(cfg: ModelConfig, moe_chunks: int = 1):
     """``serve_step(params, cache, tokens, pos) -> (next_token, logits, cache)``:
-    one decode step at the int position ``pos``; the cache is updated in
-    place; the next token is the greedy argmax (int32). ``moe_chunks`` goes
+    one decode step at the int position ``pos``; the cache (K/V and Mamba
+    states) is updated in place; the next token is the greedy argmax (int32). ``moe_chunks`` goes
     to every MoE layer's dispatch."""
     check_supported(cfg)
 

@@ -13,6 +13,7 @@ import torch
 from _episode_cases import FIGURE_SPECS, case_graph, cases, configs, plan_and_batch, tile_graph
 from _place_cases import (LIVE_KINDS, MACHINES, MID_ROUND, dada_case, heft_case, live_case,
                           live_heft_case, packed_dada, packed_heft)
+from _scan_cases import SCAN_CASES, scan_inputs
 from repro_torch.core import episode as ep
 from repro_torch.core import run_batch
 from repro_torch.kernels import sched_episode as se
@@ -672,7 +673,9 @@ def _bshd(seed, B, sq, sk, hq, hk, d, device):
     "B,hq,hk,sq,sk,causal",
     [(1, 4, 4, 128, 128, True), (2, 8, 2, 100, 100, True), (2, 8, 2, 77, 300, True),
      (1, 4, 1, 1, 129, True), (2, 6, 3, 200, 65, False), (3, 32, 2, 257, 257, True),
-     (2, 4, 2, 130, 1000, False)],
+     (2, 4, 2, 130, 1000, False),
+     # jamba's prompt and prefill (32 query heads over 8 KV heads)
+     (4, 32, 8, 64, 64, True), (4, 32, 8, 2048, 2048, True)],
 )
 def test_cuda_flash_attention_tc_matches_plain(cuda, B, hq, hk, sq, sk, causal, d):
     """Ragged sq and sk (no multiple of 128 or 64), causal with sk > sq,
@@ -736,7 +739,9 @@ def _decode_cases():
         for length in sorted({1, chunk + 1, S}):
             cases.append((2, group * hk, hk, S, 128, length))
     return cases + [(4, 32, 2, 96, 128, 96), (3, 8, 1, 300, 64, 171), (2, 4, 4, 64, 256, 33),
-                    (1, 24, 1, 130, 16, 130)]
+                    (1, 24, 1, 130, 16, 130),
+                    # jamba's serving cache (group 4) at its first and last length
+                    (4, 32, 8, 96, 128, 1), (4, 32, 8, 96, 128, 96)]
 
 
 @pytest.mark.parametrize("B,hq,hk,S,d,length", _decode_cases())
@@ -1830,3 +1835,129 @@ def test_cuda_serving_engine_raises_without_a_card(cuda, monkeypatch):
         Engine(paper_machine(2), strategy, rescore="incremental")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_serving(make_arrivals("poisson", 2), paper_machine(2), "heft")
+
+
+# ---------------------------------------------------------------------------
+# the selective scan (kernels/selective_scan.py, csrc/selective_scan.cu) at
+# tests/_scan_cases.py's shapes and the hybrid model (jamba-v0.1-52b) on the card
+@pytest.mark.parametrize("case", SCAN_CASES, ids=lambda c: "-".join(map(str, c[:4])))
+def test_cuda_selective_scan_equals_plain(cuda, case):
+    """y and hT each within 1e-5 of their largest magnitude (f32; the sum
+    over n and the fused multiply-adds run in another order than the plain
+    loop's), one launch a call."""
+    from repro_torch.kernels import selective_scan as ssk
+
+    B, S, din, N, h0_zero = case
+    args = scan_inputs(B, S, din, N, sum(case[:4]), cuda, h0_zero)
+    want = ssk.selective_scan_plain(*args)
+    before = ssk.selective_scan.launches
+    got = ssk.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ssk.selective_scan.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32 and g.device.type == "cuda"
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+    assert torch.equal(ssk.selective_scan(*args)[0], got[0])  # no atomics: the same bits
+
+
+def test_cuda_selective_scan_refuses_and_launches_nothing(cuda):
+    from repro_torch.kernels import selective_scan as ssk
+
+    args = scan_inputs(2, 5, 70, 16, 1, cuda)
+    before = ssk.selective_scan.launches
+    with pytest.raises(ValueError, match="float32"):
+        ssk.selective_scan(args[0].bfloat16(), *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        ssk.selective_scan(args[0].transpose(1, 2).contiguous().transpose(1, 2), *args[1:])
+    with pytest.raises(ValueError, match="shape"):
+        ssk.selective_scan(*args[:4], args[4][:, :8], args[5])
+    with pytest.raises(ValueError, match="state size"):
+        ssk.selective_scan(*scan_inputs(2, 5, 70, 12, 1, cuda))
+    with pytest.raises(ValueError, match="devices"):
+        ssk.selective_scan(*args[:5], args[5].cpu())
+    assert ssk.selective_scan.launches == before
+
+
+def _jamba_narrow(n_layers=8):
+    """jamba-v0.1-52b's attention widths (32 query heads over 8 KV heads,
+    hd 128), its pattern, 16 experts top-2 and d_state 16, at d 256."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+
+    base = get_config("jamba-v0.1-52b")
+    return base.scaled(n_layers=n_layers, d_model=256, d_ff=512, vocab=1000,
+                       moe=dataclasses.replace(base.moe, d_ff=128))
+
+
+@pytest.mark.parametrize("arch", ["smoke", "narrow"])
+def test_cuda_jamba_serving_equals_cpu(cuda, arch):
+    """The hybrid served on the card at f32 equals the CPU run (plain
+    versions): greedy tokens equal, logits within 1e-4; one selective_scan
+    launch a Mamba layer and forward, one flash_attention / flash_decode
+    launch an attention layer and forward, none on the CPU."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.kernels import selective_scan as ssk
+    from repro_torch.launch.serve import prefill_into_cache
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+
+    cfg = (smoke_config("jamba-v0.1-52b") if arch == "smoke" else _jamba_narrow(16)).scaled(
+        compute_dtype="float32")
+    n_mamba = sum(cfg.block_pattern[i % cfg.period] == "mamba" for i in range(cfg.n_layers))
+    n_attn = cfg.n_layers - n_mamba
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def to(tree):
+        if isinstance(tree, dict):
+            return {k: to(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v) for v in tree]
+        return tree.to(cuda)
+
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (2, 9)))
+    out = {}
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev, p in (("cuda", to(params)), ("cpu", params)):
+            fa.flash_attention.launches = fd.flash_decode.launches = ssk.selective_scan.launches = 0
+            logits = make_prefill_step(cfg)(p, {"tokens": prompt.to(dev)})
+            last, cache = prefill_into_cache(p, cfg, prompt.to(dev), 14)
+            toks = [last]
+            step = make_serve_step(cfg)
+            for i in range(4):
+                nxt, _, cache = step(p, cache, toks[-1][:, None], 9 + i)
+                toks.append(nxt)
+            out[dev] = (logits.cpu(), torch.stack(toks, 1).cpu(), fa.flash_attention.launches,
+                        fd.flash_decode.launches, ssk.selective_scan.launches)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert out["cuda"][2:] == (n_attn, 13 * n_attn, 14 * n_mamba)
+    assert out["cpu"][2:] == (0, 0, 0)
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max() < 1e-4 * max(out["cpu"][0].abs().max(), 1)
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
+def test_cuda_jamba_takes_the_tensor_core_routes(cuda):
+    """At bf16 and jamba's attention widths every prefill attention layer
+    takes "tc" and every decode one "split"; the Mamba layers launch the
+    scan; logits finite."""
+    from repro_torch.kernels import selective_scan as ssk
+    from repro_torch.launch.serve import prefill_into_cache
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.decode import make_prefill_step
+
+    cfg = _jamba_narrow()
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, 12)), device=cuda)
+    counts = (fa.flash_attention.launches_tc, fd.flash_decode.launches_split,
+              ssk.selective_scan.launches)
+    logits = make_prefill_step(cfg)(params, {"tokens": prompt})
+    _, cache = prefill_into_cache(params, cfg, prompt, 13)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches_tc - counts[0], fd.flash_decode.launches_split - counts[1],
+            ssk.selective_scan.launches - counts[2]) == (1, 12, 13 * 7)
+    assert torch.isfinite(logits).all()
+    assert cache["p0"]["ssm"].dtype == torch.float32 and cache["p0"]["conv"].dtype == torch.bfloat16
+    assert torch.isfinite(cache["p0"]["ssm"]).all() and cache["p0"]["ssm"].abs().max() > 0

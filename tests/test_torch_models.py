@@ -45,8 +45,9 @@ from repro_torch.serve import decode as tdecode
 
 DENSE = ["chatglm3-6b", "granite-8b", "gemma-7b"]
 # minicpm3-4b (MLA) is served too: tests/test_torch_mla.py; the MoE configs
-# (grok-1-314b, kimi-k2-1t-a32b): tests/test_torch_moe.py
-SERVED_ELSEWHERE = ["minicpm3-4b", "grok-1-314b", "kimi-k2-1t-a32b"]
+# (grok-1-314b, kimi-k2-1t-a32b): tests/test_torch_moe.py; the hybrid
+# (jamba-v0.1-52b): tests/test_torch_mamba.py
+SERVED_ELSEWHERE = ["minicpm3-4b", "grok-1-314b", "kimi-k2-1t-a32b", "jamba-v0.1-52b"]
 OTHER = [a for a in ARCH_IDS if a not in DENSE + SERVED_ELSEWHERE]
 F32_REL = 1e-5
 BF16_REL = 2e-2
