@@ -161,21 +161,31 @@ non-zero and no phase carries on past its own failure):
               expert products, the router, dispatch and combine, attention
               and idle time; then the smoke config on the card against
               the CPU at f32;
-  8d. hybrid  the selective scan (selective_scan: four lanes a channel,
-              the states in registers, runs of 32 steps staged in shared
-              memory) against its plain version (the reference's step
-              looped) on the card: jamba's prefill (B 4, S 2048, din
-              8 192, N 16, h0 zeros) and decode step (S 1, a normal h0),
-              odd S and channels no multiple of 64 (tests/_scan_cases.py,
-              shared with the card tests; N 16, the one state size the
-              kernel takes); y and hT each within SCAN_TOL of their
-              largest magnitude, two calls equal, refusals launching
-              nothing. Then
+  8d. hybrid  the scan kernel (csrc/selective_scan.cu: one thread a
+              channel, its 16 states in registers, a warp's own ring of
+              cp.async-staged runs) against its plain versions on the
+              card. The f32 instantiation (selective_scan) at
+              tests/_scan_cases.py's SCAN_CASES: jamba's prefill (B 4, S
+              2048, din 8 192, N 16, h0 zeros) and decode step (S 1, a
+              normal h0), odd S and channels no multiple of a warp; y and
+              hT each within SCAN_TOL of their largest magnitude. The fused
+              Mamba scan (mamba_scan: softplus, A, the scan, the skip and
+              the gate) against mamba_scan_plain at FUSED_CASES, f32 and
+              bf16, prefill and decode (the state written in place), on
+              mamba_apply's strided z and proj views: g at f32 and the
+              state within SCAN_TOL, g at bf16 within MAMBA_SCAN_BF16_TOL
+              and, element by element, within g_bf16_limit with at most
+              G_BF16_SHARE not bit-equal (tests/_scan_cases.py), the skip
+              left out (a planted fault) breaking that limit; two calls
+              equal, refusals launching nothing. One Mamba layer at
+              jamba's widths under the profiler: around its projections
+              and conv, one mamba_scan_kernel launch and nothing else. Then
               jamba-v0.1-52b at full width and 16 of its 32 layers (14
               Mamba and 2 attention layers, 8 MoE and 8 dense MLPs; 2.6e10
               random bf16 parameters, seed 0) as the moe phase serves
               grok-1, the counts set to 0 just before its main path and
-              read just after: 14 selective_scan launches a forward, 2
+              read just after: 14 mamba_scan launches a forward (none of
+              selective_scan), no softplus kernel in the profile, 2
               flash_attention ("tc") a prefill and 2 flash_decode
               ("split") a decode step. The prefill-against-cache check
               fills the first 63 prompt tokens and runs the 64th as the
@@ -189,8 +199,11 @@ non-zero and no phase carries on past its own failure):
               step beside their bounds, drops at capacity factor 1.25, a
               profile split into Mamba (the scan apart, summed by kernel
               name), MoE, attention, other and idle; then the smoke config on the card against
-              the CPU at f32, and the kernel's ms, device ms, plain ms
-              and bound at the prefill and decode shapes;
+              the CPU at f32, and both instantiations' ms, device ms,
+              plain ms and bound (scan_bound: bytes, or FMA-pipe and
+              special-function operations with the exponentials split to
+              balance the two pipes) at the prefill and decode
+              shapes;
   9. profile  one NT 16 Cholesky simulation per strategy under
               torch.profiler (twice with one strategy object; the second is
               read): device busy time against wall time, each placement
@@ -333,7 +346,7 @@ non-zero and no phase carries on past its own failure):
               launches_serving: each kernel's launches in those phases;
               launches_mla, launches_moe, launches_hybrid and
               launches_missing_bytes likewise; selective_scan's launches
-              are the hybrid phase's),
+              are the hybrid phase's mamba_scan launches),
               then the last line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA device; exits 2 without printing a result when there is
@@ -341,6 +354,7 @@ none. Imports nothing of JAX and nothing of the ``repro`` package.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -355,8 +369,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -365,6 +381,14 @@ H100_FP32_FLOPS = 67e12  # f32 outside the tensor cores (the f32 contract forbid
 # single f32 (or integer) instructions a second: the f32 rate counts an FMA as two
 H100_FP32_OPS = H100_FP32_FLOPS / 2
 H100_BF16_FLOPS = 989e12  # bf16 tensor cores, dense
+H100_SM_CLOCK_HZ = 1.98e9  # H100 SXM boost clock, 1 980 MHz
+# special-function unit results (MUFU: ex2, lg2, rcp) a second: 16 a clock
+# and SM on Hopper, 132 SMs at the boost clock
+H100_SFU_OPS = 132 * 16 * H100_SM_CLOCK_HZ
+# f32 flop of an exponential run on the FMA pipe in place of MUFU.EX2: a
+# range reduction (three adds) and a degree-5 polynomial (five FMAs), about
+# f32's accuracy; the integer step that builds 2^j runs on the ALU pipe
+EXP_FMA_FLOP = 3 + 5 * 2
 GEMM_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # tests/test_kernels.py:21
 # gemm_update plans the planner does not pick, launched as they are:
 # (m, n, k, (bm, bn, n_split, k_chunk)); the last split one 16-deep stage,
@@ -457,8 +481,13 @@ MAMBA_STEP_TOL = 1e-4
 # selective_scan against its plain version at tests/_scan_cases.py's
 # SCAN_CASES: y and hT each within this of their largest magnitude (f32; the
 # kernel sums over n and fuses multiply-adds in another order than the plain
-# loop)
+# loop); mamba_scan's g at f32 and its state likewise at FUSED_CASES
 SCAN_TOL = 1e-5
+# mamba_scan's g at bf16 against mamba_scan_plain, over its largest magnitude:
+# the f32 y of the two may differ in its last bits, and where y sits near a
+# rounding boundary its bf16 value (and the gate's product) moves one ulp;
+# besides, each element within tests/_scan_cases.py's g_bf16_limit
+MAMBA_SCAN_BF16_TOL = 2.0 ** -7
 DECODE_DV_CASES = [
     (SERVE_B, 40, 40, SERVE_PROMPT + SERVE_STEPS, 96, 64, SERVE_PROMPT + SERVE_STEPS),  # MLA
     (SERVE_B, 40, 40, 1, 96, 64, 1), (2, 8, 2, 700, 48, 32, 65), (2, 40, 40, 300, 48, 32, 300),
@@ -1963,7 +1992,7 @@ def _leaves(tree):
 # the port's own kernels by name: they launch from their ctypes libraries,
 # whose runtime calls torch.profiler does not tie to a record_function
 # range, so a range's device time leaves them out and they are summed by name
-OWN_KERNELS = {"selective_scan": ("selective_scan_kernel",),
+OWN_KERNELS = {"mamba_scan": ("mamba_scan_kernel",),
                "flash": ("flash_attention", "flash_decode")}
 
 
@@ -1991,7 +2020,8 @@ def profile_window(fn, label, ranges=()):
     own = {group: sum(us for name, us in top if any(k in name for k in keys)) / 1e6
            for group, keys in OWN_KERNELS.items()}
     return dict(wall_s=wall, device_busy_s=busy_us / 1e6,
-                device_idle_share=1.0 - busy_us / 1e6 / wall, spans_s=spans, own_kernels_s=own)
+                device_idle_share=1.0 - busy_us / 1e6 / wall, spans_s=spans, own_kernels_s=own,
+                kernel_names=[name for name, _ in top])
 
 
 @contextlib.contextmanager
@@ -2105,8 +2135,8 @@ def hybrid_bounds(cfg, n_bytes):
     at ``cfg``'s widths and depth (ms), block kind by block kind: the 4 x
     2048 prefill (the larger of its weight bytes over the memory rate and
     its bf16 tensor-core flop plus its f32 operations over their peaks:
-    Mamba's four projections in bf16, its scan and conv taps in f32 (an
-    exponential counted as one operation); attention's projections and
+    Mamba's four projections in bf16, its conv taps in f32 and its fused
+    scan at ``scan_bound``'s operations, the two pipes balanced; attention's projections and
     causal pairs at attention layers only, no rope; the experts over every
     capacity row and the f32 router at MoE positions; the dense MLP
     elsewhere) and a decode step at the serving cache (every parameter read
@@ -2127,10 +2157,13 @@ def hybrid_bounds(cfg, n_bytes):
     kinds = [cfg.block_pattern[i % cfg.period] for i in range(L)]
     moe_layers = sum(_is_moe_position(cfg, i % cfg.period) for i in range(L))
     flop, f32_ops = 2 * B * d * V, 0  # the last position's logits
+    scan_ms = 0
     for i, kind in enumerate(kinds):
         if kind == "mamba":
             flop += 2 * T * (d * 2 * din + din * (rank + 2 * N) + rank * din + din * d)
-            f32_ops += T * din * (1 + 7 * N) + 2 * T * din * w
+            f32_ops += 2 * T * din * w
+            scan = scan_bound(B, S, din, N, fused=True, esize=2)
+            scan_ms += scan["ops_ms"]
         else:
             flop += (2 * T * d * (hq * hd + 2 * hk * hd) + 2 * T * hq * hd * d
                      + 4 * hd * hq * B * S * (S + 1) // 2)
@@ -2139,8 +2172,8 @@ def hybrid_bounds(cfg, n_bytes):
             f32_ops += 2 * T * d * E
         else:
             flop += 6 * T * d * cfg.d_ff
-    prefill_ms = max(n_bytes / H100_HBM_BYTES_PER_S,
-                     flop / H100_BF16_FLOPS + f32_ops / H100_FP32_FLOPS) * 1e3
+    prefill_ms = max(n_bytes / H100_HBM_BYTES_PER_S * 1e3,
+                     (flop / H100_BF16_FLOPS + f32_ops / H100_FP32_FLOPS) * 1e3 + scan_ms)
     cache = SERVE_PROMPT + SERVE_STEPS
     state_bytes = kinds.count("mamba") * 2 * (B * din * N * 4 + B * (w - 1) * din * 2)
     kv_bytes = kinds.count("attn") * 2 * 2 * B * cache * hk * hd
@@ -2148,6 +2181,7 @@ def hybrid_bounds(cfg, n_bytes):
     touched = min(B * K, E)
     touched_bytes = step_bytes - moe_layers * (E - touched) * 3 * d * ff * 2
     return dict(capacity_prefill=C, prefill_flop=flop, prefill_f32_ops=f32_ops,
+                prefill_scan_ms=scan_ms,
                 prefill_bound_ms=prefill_ms, prefill_bound_tps=T / prefill_ms * 1e3,
                 decode_bytes=step_bytes, decode_state_bytes=state_bytes,
                 decode_bound_ms=step_bytes / H100_HBM_BYTES_PER_S * 1e3,
@@ -2155,24 +2189,62 @@ def hybrid_bounds(cfg, n_bytes):
                 decode_touched_bound_ms=touched_bytes / H100_HBM_BYTES_PER_S * 1e3)
 
 
-def scan_bound(B, S, din, N):
-    """(bound ms, bound_by, bytes, operations) of one selective_scan call:
-    dt, x, B, C, A and h0 read once, y and hT written once (f32); per token,
-    channel and state dt A, the exponential, a_bar h + bx (2), dx B and
-    h C summed (2), plus dt x per token and channel, at the f32 rate."""
-    nbytes = 4 * (2 * B * S * din + 2 * B * S * N + din * N + B * din * N + B * S * din
-                  + B * din * N)
-    ops = B * S * din * (1 + 7 * N)
-    bytes_ms, ops_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3, ops / H100_FP32_FLOPS * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), nbytes, ops
+def scan_bound(B, S, din, N, fused=False, esize=4, state=True):
+    """The least time of one call of the scan kernel on an H100: the larger
+    of its bytes (each input read once, each output written once) over 3.35
+    TB/s and its operations: f32 operations on the FMA pipe (an FMA two, as
+    the 67 TFLOP/s rate counts it) and special-function operations over
+    H100_SFU_OPS (16 a clock and SM at the 1.98 GHz boost clock), with as
+    many exponentials moved onto the FMA pipe (EXP_FMA_FLOP each) as balance
+    the two pipes. Per (b, t, c, n): dt A, dx B and the state's and y's FMAs
+    (6 flop) and one exponential; per (b, t, c): dt x and, fused, the bias
+    add, the skip's product and sum, silu's add and the gate's product (5
+    more), and softplus's and silu's exponentials and silu's reciprocal (3
+    special; softplus's log1p is a polynomial on the FMA pipe, not counted).
+    ``fused``: mamba_scan (dt_pre, x, z, B, C, a_log, dt_bias, d_skip in
+    ``esize`` bytes read, g written; the f32 state read and written when
+    ``state``); else selective_scan (f32 dt, x, B, C, A, h0 read, y and hT
+    written). Returns ms, bound_by ("bytes" or "operations"), bytes, both
+    operation counts with every exponential on the special-function unit
+    (as the kernel runs them) and their times, the exponentials a (b, t, c)
+    that the balance moves and the balanced operations' time."""
+    cells, rows = B * S * din, B * S * N
+    if fused:
+        nbytes = esize * (4 * cells + 2 * rows + din * N + 2 * din)
+        nbytes += 8 * B * din * N if state else 0
+        fma, sfu, exps = 6 * N + 6, N + 3, N + 2
+    else:
+        nbytes = 4 * (3 * cells + 2 * rows + din * N + 2 * B * din * N)
+        fma, sfu, exps = 6 * N + 1, N, N
+    # (fma + EXP_FMA_FLOP k) / FP32_FLOPS = (sfu - k) / SFU_OPS, k in [0, exps]
+    moved = (sfu * H100_FP32_FLOPS - fma * H100_SFU_OPS) / (H100_FP32_FLOPS
+                                                           + EXP_FMA_FLOP * H100_SFU_OPS)
+    moved = min(max(moved, 0.0), exps)
+    ops_ms = cells * max((fma + EXP_FMA_FLOP * moved) / H100_FP32_FLOPS,
+                         (sfu - moved) / H100_SFU_OPS) * 1e3
+    bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", bytes=nbytes,
+                fma_ops=cells * fma, sfu_ops=cells * sfu, bytes_ms=bytes_ms,
+                fma_ms=cells * fma / H100_FP32_FLOPS * 1e3,
+                sfu_ms=cells * sfu / H100_SFU_OPS * 1e3, exps_moved=moved, ops_ms=ops_ms)
 
 
 def scan_check(ssk, dev):
-    """selective_scan against its plain version on the card at SCAN_CASES:
-    y and hT each within SCAN_TOL of their largest magnitude; two calls give
-    the same bits; refusals launch nothing. Returns (max abs err, max
-    relative err, cases)."""
-    from _scan_cases import SCAN_CASES, scan_inputs
+    """The scan kernel against its plain versions on the card. The f32
+    instantiation (selective_scan) at SCAN_CASES: y and hT each within
+    SCAN_TOL of their largest magnitude. The fused one (mamba_scan) at
+    FUSED_CASES, f32 and bf16, on mamba_apply's strided views, prefill (from
+    zeros) and decode (a state, written in place: the same storage): g at
+    f32 and the state within SCAN_TOL of their largest magnitude; g at bf16
+    within MAMBA_SCAN_BF16_TOL of its largest magnitude and, element by
+    element, within tests/_scan_cases.py's g_bf16_limit, with at most
+    G_BF16_SHARE of the elements not bit-equal. A fault planted at bf16 (the
+    kernel run with d_skip zero: the skip left out) must break that limit.
+    Two calls give the same bits; refusals launch nothing. Returns the
+    errors and case counts by instantiation."""
+    from _scan_cases import (FUSED_CASES, G_BF16_SHARE, SCAN_CASES, fused_inputs, g_bf16_limit,
+                             g_bf16_reading, scan_inputs)
 
     max_abs = max_rel = 0.0
     for case in SCAN_CASES:
@@ -2202,7 +2274,80 @@ def scan_check(ssk, dev):
                 ssk.selective_scan)
     must_refuse("a CPU h0", lambda: ssk.selective_scan(*args[:5], args[5].cpu()),
                 ssk.selective_scan)
-    return max_abs, max_rel, len(SCAN_CASES)
+    out = {"selective_scan": dict(max_abs_err=max_abs, max_rel_err=max_rel, cases=len(SCAN_CASES),
+                                  tol_rel=SCAN_TOL)}
+
+    fused = {}
+    for dtype, tol in ((torch.float32, SCAN_TOL), (torch.bfloat16, MAMBA_SCAN_BF16_TOL)):
+        row = dict(max_abs_err=0.0, max_rel_err=0.0, state_max_rel_err=0.0, not_bit_equal=0.0,
+                   tol_rel=tol, state_tol_rel=SCAN_TOL, cases=len(FUSED_CASES))
+        if dtype == torch.bfloat16:
+            row.update(over_limit=0.0, share_tol=G_BF16_SHARE, skip_left_out_over_limit=1.0,
+                       skip_left_out_not_bit_equal=1.0)
+        for case in FUSED_CASES:
+            args = fused_inputs(*case, sum(case), dev, dtype)
+            state0 = None if args[8] is None else args[8].clone()
+            want_state = None if state0 is None else state0.clone()
+            want = ssk.mamba_scan_plain(*args[:8], want_state).float()
+            before = ssk.mamba_scan.launches
+            ptr = None if args[8] is None else args[8].data_ptr()
+            got = ssk.mamba_scan(*args)
+            again_state = None if state0 is None else state0.clone()
+            again = ssk.mamba_scan(*args[:8], again_state)
+            torch.cuda.synchronize()
+            launches = ssk.mamba_scan.launches - before
+            same = torch.equal(got, again) and (state0 is None or torch.equal(args[8], again_state))
+            rel = rel_err(got.float(), want)
+            diff = (got.float() - want).abs()
+            share = (diff != 0).float().mean().item()
+            state_rel = 0.0 if state0 is None else rel_err(args[8], want_state)
+            in_place = state0 is None or (args[8].data_ptr() == ptr
+                                          and not torch.equal(args[8], state0))
+            holds, elementwise = True, ""
+            if dtype == torch.bfloat16:
+                limit = g_bf16_limit(args[:8] + [state0], want, ssk.selective_scan_plain)
+                ratio, over, _, holds = g_bf16_reading(got, want, limit)
+                # the planted fault: the skip left out (d_skip zero in the kernel)
+                bad = ssk.mamba_scan(*args[:7], torch.zeros_like(args[7]),
+                                     None if state0 is None else state0.clone())
+                bad_ratio, bad_over, bad_share, bad_holds = g_bf16_reading(bad, want, limit)
+                del limit
+                elementwise = (f"; element by element {ratio:.3e} of the limit, {100 * over:.4f} "
+                               f"% over it (skip left out: {bad_ratio:.3e}, {100 * bad_over:.4f} % "
+                               f"over, {100 * bad_share:.4f} % not bit-equal, holds {bad_holds})")
+                holds = holds and not bad_holds
+                row["over_limit"] = max(row["over_limit"], over)
+                row["skip_left_out_over_limit"] = min(row["skip_left_out_over_limit"], bad_over)
+                row["skip_left_out_not_bit_equal"] = min(row["skip_left_out_not_bit_equal"],
+                                                         bad_share)
+            print(f"mamba_scan {str(dtype)[6:]} B{case[0]} S{case[1]} din{case[2]} rank "
+                  f"{case[4]} {'a state' if case[3] else 'from zeros'}: g max |diff| "
+                  f"{diff.max().item():.3e}, over its largest magnitude {rel:.3e} (tol {tol:.3e}), "
+                  f"{100 * share:.4f} % of elements not bit-equal{elementwise}; state "
+                  f"{state_rel:.3e} (tol {SCAN_TOL}, written in place {in_place}); two calls equal "
+                  f"{same}; launches {launches}", flush=True)
+            if not (rel <= tol and holds and state_rel <= SCAN_TOL and same and in_place
+                    and launches == 2):
+                raise SystemExit(f"mamba_scan disagrees with its plain version at {case} {dtype}")
+            row["max_abs_err"] = max(row["max_abs_err"], diff.max().item())
+            row["max_rel_err"] = max(row["max_rel_err"], rel)
+            row["state_max_rel_err"] = max(row["state_max_rel_err"], state_rel)
+            row["not_bit_equal"] = max(row["not_bit_equal"], share)
+        fused[str(dtype)[6:]] = row
+    args = fused_inputs(2, 5, 70, True, 8, 1, dev, torch.bfloat16)
+    must_refuse("an f32 dt_pre among bf16", lambda: ssk.mamba_scan(args[0].float(), *args[1:]),
+                ssk.mamba_scan)
+    must_refuse("a bf16 state", lambda: ssk.mamba_scan(*args[:8], args[8].bfloat16()),
+                ssk.mamba_scan)
+    must_refuse("an xc without unit stride", lambda: ssk.mamba_scan(
+        args[0], args[1].transpose(1, 2).contiguous().transpose(1, 2), *args[2:]),
+        ssk.mamba_scan)
+    must_refuse("N 12", lambda: ssk.mamba_scan(
+        *args[:3], args[3][..., :12], args[4][..., :12], args[5][:, :12], *args[6:8],
+        args[8][..., :12].contiguous()), ssk.mamba_scan)
+    must_refuse("a CPU state", lambda: ssk.mamba_scan(*args[:8], args[8].cpu()), ssk.mamba_scan)
+    out["mamba_scan"] = fused
+    return out
 
 
 def mamba_step_check(dev, cfg):
@@ -2242,27 +2387,108 @@ def mamba_step_check(dev, cfg):
 
 
 def scan_timing(ssk, dev, din, N):
-    """The kernel's ms per call (CUDA events around back-to-back calls),
-    device ms (from a CUDA graph), the plain loop's ms and the bound, at the
-    main path's prefill (B 4, S 2048) and decode step (S 1) shapes."""
-    from _scan_cases import scan_inputs
+    """Both instantiations at the main path's prefill (B 4, S 2048) and
+    decode step (S 1, a state) shapes: the fused scan in bf16 on jamba's
+    views (its dt_rank din / 32), the path's, and the f32 scan. The
+    kernel's ms per call (CUDA events around back-to-back calls), device ms
+    (from a CUDA graph), the plain version's ms and the bound
+    (``scan_bound``)."""
+    from _scan_cases import fused_inputs, scan_inputs
 
     rows = {}
-    for key, S, h0_zero in (("prefill", SERVE_PREFILL, True), ("decode", 1, False)):
-        args = scan_inputs(SERVE_B, S, din, N, 7, dev, h0_zero)
-        ms = time_ms(lambda: ssk.selective_scan(*args), reps=20)
-        device_ms = graph_ms(lambda: ssk.selective_scan(*args), reps=10)
-        plain_ms = event_ms(lambda: ssk.selective_scan_plain(*args), reps=1 if S > 1 else 5)
-        bound_ms, bound_by, nbytes, ops = scan_bound(SERVE_B, S, din, N)
-        rows[key] = dict(shape=f"B{SERVE_B} S{S} din{din} N{N} f32", ms=ms, device_ms=device_ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                         operations=ops, share_of_bound=bound_ms / device_ms)
-        print(f"selective_scan {rows[key]['shape']}: kernel {ms:.6f} ms per call "
-              f"({device_ms:.6f} ms on the device, from a CUDA graph), plain loop "
-              f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} bytes, {ops} "
-              f"operations), {100 * bound_ms / device_ms:.2f} % of the bound; no PyTorch call "
-              f"computes it", flush=True)
+    for key, S, with_state in (("prefill", SERVE_PREFILL, False), ("decode", 1, True)):
+        for name in ("mamba_scan", "selective_scan"):
+            if name == "mamba_scan":
+                args = fused_inputs(SERVE_B, S, din, with_state, din // 32, 7, dev,
+                                    torch.bfloat16)
+                kernel, plain = ssk.mamba_scan, ssk.mamba_scan_plain
+                bound = scan_bound(SERVE_B, S, din, N, fused=True, esize=2, state=with_state)
+                shape = f"B{SERVE_B} S{S} din{din} N{N} bf16{' state' if with_state else ''}"
+            else:
+                args = scan_inputs(SERVE_B, S, din, N, 7, dev, not with_state)
+                kernel, plain = ssk.selective_scan, ssk.selective_scan_plain
+                bound = scan_bound(SERVE_B, S, din, N)
+                shape = f"B{SERVE_B} S{S} din{din} N{N} f32"
+            ms = time_ms(lambda: kernel(*args), reps=20)
+            device_ms = graph_ms(lambda: kernel(*args), reps=10)
+            plain_ms = event_ms(lambda: plain(*args), reps=1 if S > 1 else 5)
+            row = dict(shape=shape, ms=ms, device_ms=device_ms, plain_ms=plain_ms, **bound,
+                       share_of_bound=bound["bound_ms"] / device_ms)
+            rows[f"{name} {key}"] = row
+            print(f"{name} {shape}: kernel {ms:.6f} ms per call ({device_ms:.6f} ms on the "
+                  f"device, from a CUDA graph), plain {plain_ms:.6f} ms, bound "
+                  f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}: {bound['bytes']} bytes "
+                  f"{bound['bytes_ms']:.6f} ms; operations {bound['ops_ms']:.6f} ms with "
+                  f"{bound['exps_moved']:.3f} exponentials a (b, t, c) on the FMA pipe, else "
+                  f"{bound['fma_ops']} FMA-pipe flop {bound['fma_ms']:.6f} ms and "
+                  f"{bound['sfu_ops']} special-function operations {bound['sfu_ms']:.6f} ms), "
+                  f"{100 * row['share_of_bound']:.2f} % of the bound, "
+                  f"{100 * bound['sfu_ms'] / device_ms:.2f} % of the special-function time; "
+                  f"no PyTorch call computes it", flush=True)
     return rows
+
+
+class AtenOps(TorchDispatchMode):
+    """Counts the ATen operations run inside it, by name. On a CUDA tensor
+    each one but the views and the allocations is a kernel launch; a
+    ctypes launch of the port's own kernels is no ATen operation."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops[str(func)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def mamba_layer_kernels(ssk, mamba_mod, dev, cfg):
+    """One Mamba layer at ``cfg``'s widths in bf16 (weights seed 5), at the
+    prefill (B 4 x 2048) and a decode step: the ATen operations it runs
+    (AtenOps) and its mamba_scan launches, and the same with ``mamba_scan``
+    replaced by a stub that allocates ``g`` as the wrapper does and launches
+    nothing. The two must run the same operations, and the layer exactly
+    one mamba_scan launch: no softplus, skip, cast or gate kernel runs
+    around the scan. (torch.profiler sessions this deep into the script lose
+    kernel records now and then, so the count is taken at dispatch.)
+    Returns the counts."""
+    kw = dict(expand=cfg.mamba_expand, d_state=cfg.mamba_d_state, d_conv=cfg.mamba_d_conv)
+    params = mamba_mod.mamba_init(torch.Generator(device=dev).manual_seed(5), cfg.d_model,
+                                  dtype=torch.bfloat16, device=dev, **kw)
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((SERVE_B, SERVE_PREFILL, cfg.d_model)),
+                        dtype=torch.bfloat16, device=dev)
+
+    def stub(dt_pre, xc, *args, state=None):
+        return torch.empty(xc.shape, dtype=xc.dtype, device=xc.device)
+
+    def ops(fn):
+        before = (ssk.mamba_scan.launches, ssk.selective_scan.launches)
+        with AtenOps() as mode:
+            fn()
+        torch.cuda.synchronize()
+        return mode.ops, (ssk.mamba_scan.launches - before[0],
+                          ssk.selective_scan.launches - before[1])
+
+    out = {}
+    state = mamba_mod.mamba_state_init(SERVE_B, cfg.d_model, dtype=torch.bfloat16, device=dev,
+                                       **kw)
+    with torch.inference_mode():
+        for key, call in (("prefill", lambda: mamba_mod.mamba_apply(params, x, **kw)),
+                          ("decode", lambda: mamba_mod.mamba_apply(params, x[:, :1],
+                                                                   state=state, **kw))):
+            fused, launches = ops(call)
+            with patched([(mamba_mod, "mamba_scan", lambda fn: stub)]):
+                around, stub_launches = ops(call)
+            print(f"one Mamba layer (d {cfg.d_model}, bf16), {key}: {sum(fused.values())} ATen "
+                  f"operations and (mamba_scan, selective_scan) launches {launches}; with "
+                  f"mamba_scan stubbed {sum(around.values())} and {stub_launches}", flush=True)
+            if fused != around or launches != (1, 0) or stub_launches != (0, 0):
+                raise SystemExit(f"a Mamba layer's {key} is not its projections and conv and one "
+                                 f"mamba_scan launch: {dict(fused - around)} more, "
+                                 f"{dict(around - fused)} fewer operations; launches {launches}")
+            out[key] = dict(aten_ops=sum(fused.values()), mamba_scan_launches=launches[0])
+    return out
 
 
 def compare_cfg(cfg):
@@ -2357,7 +2583,7 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
         # ---- the main path, counted from here ----
         fa.flash_attention.launches = fa.flash_attention.launches_tc = 0
         fd.flash_decode.launches = fd.flash_decode.launches_split = 0
-        ssk.selective_scan.launches = 0
+        ssk.selective_scan.launches = ssk.mamba_scan.launches = 0
         n_prefill = n_decode = 0
         prefill_walls = []
         for _ in range(2):
@@ -2414,19 +2640,21 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
         n_decode += SERVE_STEPS
         fa_launches, fd_launches = fa.flash_attention.launches, fd.flash_decode.launches
         fa_tc, fd_split = fa.flash_attention.launches_tc, fd.flash_decode.launches_split
-        ss_launches = ssk.selective_scan.launches
+        ss_launches, ss_f32_launches = ssk.mamba_scan.launches, ssk.selective_scan.launches
         # ---- end of the main path ----
         peak = torch.cuda.max_memory_allocated()
         print(f"main path: {n_prefill} prefill forwards, {n_decode} decode forwards; "
               f"flash_attention launches {fa_launches} (tensor-core route {fa_tc}), "
-              f"flash_decode launches {fd_launches} (split route {fd_split}), selective_scan "
-              f"launches {ss_launches}; peak device memory {peak} bytes", flush=True)
+              f"flash_decode launches {fd_launches} (split route {fd_split}), mamba_scan "
+              f"launches {ss_launches} (selective_scan {ss_f32_launches}); peak device memory "
+              f"{peak} bytes", flush=True)
         if (fa_launches != n_attn * n_prefill or fd_launches != n_attn * n_decode
-                or ss_launches != n_mamba * (n_prefill + n_decode)):
+                or ss_launches != n_mamba * (n_prefill + n_decode) or ss_f32_launches):
             raise SystemExit(f"launches per forward are not {n_attn} attention and {n_mamba} "
-                             f"scans: flash_attention {fa_launches} over {n_prefill}, flash_decode "
-                             f"{fd_launches} over {n_decode}, selective_scan {ss_launches} over "
-                             f"{n_prefill + n_decode}")
+                             f"fused scans: flash_attention {fa_launches} over {n_prefill}, "
+                             f"flash_decode {fd_launches} over {n_decode}, mamba_scan "
+                             f"{ss_launches} over {n_prefill + n_decode}, selective_scan "
+                             f"{ss_f32_launches}")
         if fa_tc != n_attn * n_prefill or fd_split != n_attn * n_decode:
             raise SystemExit(f"the serving path left the tensor-core routes: flash_attention "
                              f"tc {fa_tc} of {fa_launches}, flash_decode split {fd_split} of "
@@ -2491,7 +2719,8 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
             print(f"bounds (H100: {H100_HBM_BYTES_PER_S:.3g} B/s, {H100_BF16_FLOPS:.3g} bf16 "
                   f"flop/s, {H100_FP32_FLOPS:.3g} f32): prefill {bounds['prefill_bound_ms']:.3f} ms "
                   f"({bounds['prefill_flop']:.4g} bf16 flop, {f32_ops:.4g} f32 "
-                  f"{'operations (scan, conv, router)' if hybrid else 'router flop'}; "
+                  + (f"operations (conv, router), the fused scans "
+                     f"{bounds['prefill_scan_ms']:.3f} ms" if hybrid else "router flop") + "; "
                   f"C {bounds['capacity_prefill']}) -> "
                   f"{bounds['prefill_bound_tps']:.1f} tokens/s, measured {prefill_tps:.1f} "
                   f"({100 * prefill_tps / bounds['prefill_bound_tps']:.2f} %); decode step "
@@ -2562,8 +2791,11 @@ def serve_phase(fa, fd, dev, arch=SERVE_ARCH, smoke_archs=("chatglm3-6b", "grani
                 # though no range holds them (OWN_KERNELS)
                 attention = sp["attention"] + own["flash"]
                 if hybrid:
+                    soft = [n for n in win["kernel_names"] if "softplus" in n.lower()]
+                    if soft:
+                        raise SystemExit(f"a softplus kernel ran in the hybrid's {key}: {soft}")
                     parts = {"mamba (scan apart)": sp["mamba"],
-                             "selective_scan": own["selective_scan"],
+                             "mamba_scan": own["mamba_scan"],
                              "moe": sp["moe"], "attention": attention}
                 else:
                     parts = {"expert products": sp["moe.experts"], "router": sp["moe.router"],
@@ -3424,6 +3656,7 @@ def main() -> int:
     from repro_torch.kernels import tile_gemm as tg
     from repro_torch.kernels._build import build_library
     from repro_torch.linalg import tiles
+    from repro_torch.models import mamba as mamba_mod
     from repro_torch.linalg.cholesky import cholesky_graph
     from repro_torch.linalg.execute import execute_graph, execute_schedule
     from repro_torch.linalg.lu import lu_graph
@@ -3464,6 +3697,9 @@ def main() -> int:
         raise SystemExit("no ptxas report for selective_scan.cu")
     for row in scan_ptxas:
         print(f"selective_scan ptxas: {row}")
+    scan_plans = {name: ssk.scan_plan(name, dev) for name in ssk.PLAN_KINDS}
+    for name, plan in scan_plans.items():
+        print(f"selective_scan.cu plan, {name}: {plan}")
     done("build", t0)
 
     # ---- 2. kernels against their plain versions -----------------------------
@@ -3915,13 +4151,15 @@ def main() -> int:
 
     # ---- 8d. hybrid: jamba-v0.1-52b at full width, 16 of its 32 layers --------
     t0 = phase("hybrid")
-    scan_abs_err, scan_rel_err, scan_cases = scan_check(ssk, dev)
+    scan_errs = scan_check(ssk, dev)
     hybrid_cfg = get_config(HYBRID_ARCH)
     mamba_step_gaps = mamba_step_check(dev, hybrid_cfg)
+    mamba_layer = mamba_layer_kernels(ssk, mamba_mod, dev, hybrid_cfg)
     torch.cuda.empty_cache()
     served_hybrid = serve_phase(fa, fd, dev, HYBRID_ARCH, smoke_archs=(HYBRID_ARCH,),
                                 n_layers=HYBRID_LAYERS)
     served_hybrid["mamba_step_gaps"] = mamba_step_gaps
+    served_hybrid["mamba_layer_kernels"] = mamba_layer
     scan_rows = scan_timing(ssk, dev, hybrid_cfg.mamba_expand * hybrid_cfg.d_model,
                             hybrid_cfg.mamba_d_state)
     torch.cuda.empty_cache()
@@ -4171,26 +4409,33 @@ def main() -> int:
     episode_entry["launches_faults"] = fault_launches["episode_scan"]
     episode_entry["launches_serving"] = serving_launches["episode_scan"]
     kernels.append(episode_entry)
+    fused_bf16 = scan_errs["mamba_scan"]["bfloat16"]
     kernels.append({
         "name": "selective_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
-        "replaces": "src/repro/models/mamba.py:82 (lax.scan; no Pallas kernel)",
+        "replaces": "src/repro/models/mamba.py:82 (lax.scan; no Pallas kernel) with :79-80 and "
+                    ":99-100 around it",
+        "wrapper": "mamba_scan (the path); selective_scan (the f32 instantiation)",
         "launches": served_hybrid["ss_launches"],
         "launches_by_phase": {"hybrid": served_hybrid["ss_launches"]},
-        "max_abs_err": scan_abs_err,
-        "max_rel_err": scan_rel_err,
-        "tol_rel": SCAN_TOL,
-        "cases": scan_cases,
-        "ms": scan_rows["prefill"]["ms"],
-        "device_ms": scan_rows["prefill"]["device_ms"],
-        "plain_ms": scan_rows["prefill"]["plain_ms"],
-        "bound_ms": scan_rows["prefill"]["bound_ms"],
-        "bound_by": scan_rows["prefill"]["bound_by"],
+        "max_abs_err": fused_bf16["max_abs_err"],
+        "max_rel_err": fused_bf16["max_rel_err"],
+        "tol_rel": fused_bf16["tol_rel"],
+        "errors": scan_errs,
+        "ms": scan_rows["mamba_scan prefill"]["ms"],
+        "device_ms": scan_rows["mamba_scan prefill"]["device_ms"],
+        "plain_ms": scan_rows["mamba_scan prefill"]["plain_ms"],
+        "bound_ms": scan_rows["mamba_scan prefill"]["bound_ms"],
+        "bound_by": scan_rows["mamba_scan prefill"]["bound_by"],
+        "sfu_only_ms": scan_rows["mamba_scan prefill"]["sfu_ms"],
         "library_ms": None,
-        "shape": scan_rows["prefill"]["shape"],
-        "decode_step": scan_rows["decode"],
+        "shape": scan_rows["mamba_scan prefill"]["shape"],
+        "decode_step": scan_rows["mamba_scan decode"],
+        "f32_instantiation": {k: scan_rows[f"selective_scan {k}"] for k in ("prefill", "decode")},
+        "mamba_layer_kernels": mamba_layer,
         "ptxas": scan_ptxas,
+        "plans": scan_plans,
     })
     print(json.dumps({"serve": served}))
     print(json.dumps({"mla": served_mla}))

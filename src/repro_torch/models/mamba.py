@@ -2,10 +2,13 @@
 
 Counterpart of ``repro/models/mamba.py`` (``mamba_init`` :19,
 ``_conv1d_causal`` :38, ``mamba_apply`` :48, ``mamba_state_init`` :105),
-with its names and layouts. The selective scan (the reference's per-token
-``step`` through ``chunked_scan``, :82-98) goes through
-:func:`repro_torch.kernels.selective_scan.selective_scan`: one CUDA kernel
-launch a call on the card, the plain loop on the CPU.
+with its names and layouts. Everything between ``dt_r @ w_dt`` and
+``@ w_out`` -- softplus, ``A = -exp(a_log)``, the selective scan (the
+reference's per-token ``step`` through ``chunked_scan``, :82-98), the skip
+and the gate -- goes through
+:func:`repro_torch.kernels.selective_scan.mamba_scan`: one CUDA kernel
+launch a Mamba layer and call on the card, the old composition on the CPU
+(:func:`~repro_torch.kernels.selective_scan.mamba_scan_plain`, bit for bit).
 
 Where the port differs in form:
 
@@ -13,12 +16,21 @@ Where the port differs in form:
     ``_cast_floats`` casts ``a_log``, ``dt_bias`` and ``d_skip`` with the
     rest on every call): ``A = -exp(a_log)`` is taken in that dtype and
     widened to f32 for the scan, where the reference rounds too;
+  * the card's kernel reads ``dt``, ``xc``, ``z``, B and C in the compute
+    dtype, each where it lies (``z`` and B, C are strided views of ``xz``
+    and ``proj``), and widens them itself: the values the reference's f32
+    copies hold, with no copy. It rounds where they round (the softplus,
+    the cast before the gate, the gate) and sums the skip unfused; its
+    recurrence takes ``exp`` as ``ex2`` of a product folded with log2(e)
+    and its sum over n in another order, so on the card ``g`` agrees with
+    the composition within rounding (f32) or a bf16 ulp, not bit for bit;
   * the causal conv is the reference's four unrolled taps in the compute
     dtype, not ``F.conv1d`` (cuDNN runs that in TF32 by default and sums in
     another order);
   * a decode step writes its state in place, as the KV cache is written:
-    ``state["ssm"]`` and ``state["conv"]`` take the new values and the same
-    dict returns, where the reference returns fresh arrays.
+    ``state["ssm"]`` (by the kernel, into the state it read) and
+    ``state["conv"]`` take the new values and the same dict returns, where
+    the reference returns fresh arrays.
 """
 from __future__ import annotations
 
@@ -27,7 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.selective_scan import selective_scan
+from ..kernels.selective_scan import mamba_scan
 from .layers import dense_init
 
 
@@ -96,20 +108,10 @@ def mamba_apply(
     dt_r = proj[..., :dt_rank]
     Bm = proj[..., dt_rank : dt_rank + d_state]
     Cm = proj[..., dt_rank + d_state :]
-    dt = F.softplus(dt_r @ params["w_dt"] + params["dt_bias"])  # (B, S, din)
-    A = -torch.exp(params["a_log"])  # (din, N), in the compute dtype
-
-    xs_f32 = xc.float()
-    h0 = (state["ssm"] if state is not None
-          else torch.zeros((Bsz, din, d_state), dtype=torch.float32, device=x.device))
-    ys, hT = selective_scan(
-        dt.float().contiguous(), xs_f32.contiguous(), Bm.float().contiguous(),
-        Cm.float().contiguous(), A.float().contiguous(), h0,
-    )
-    y = ys + xs_f32 * params["d_skip"]  # (B, S, din) f32
-    y = (y.to(x.dtype) * F.silu(z)) @ params["w_out"]
-    if state is not None:
-        state["ssm"].copy_(hT)
+    # softplus(dt), A, the scan, the skip and the gate: one kernel on the card
+    g = mamba_scan(dt_r @ params["w_dt"], xc, z, Bm, Cm, params["a_log"], params["dt_bias"],
+                   params["d_skip"], state=None if state is None else state["ssm"])
+    y = g @ params["w_out"]
     return y, state
 
 

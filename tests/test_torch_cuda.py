@@ -13,7 +13,8 @@ import torch
 from _episode_cases import FIGURE_SPECS, case_graph, cases, configs, plan_and_batch, tile_graph
 from _place_cases import (LIVE_KINDS, MACHINES, MID_ROUND, dada_case, heft_case, live_case,
                           live_heft_case, packed_dada, packed_heft)
-from _scan_cases import SCAN_CASES, scan_inputs
+from _scan_cases import (FUSED_CASES, SCAN_CASES, fused_inputs, g_bf16_limit, g_bf16_reading,
+                         scan_inputs)
 from repro_torch.core import episode as ep
 from repro_torch.core import run_batch
 from repro_torch.kernels import sched_episode as se
@@ -1878,6 +1879,83 @@ def test_cuda_selective_scan_refuses_and_launches_nothing(cuda):
     assert ssk.selective_scan.launches == before
 
 
+# the fused Mamba scan (mamba_scan) at tests/_scan_cases.py's FUSED_CASES:
+# g at f32 and the state within 1e-5 of their largest magnitude (chip_smoke's
+# SCAN_TOL: the recurrence takes ex2 and sums over n in another order), g at
+# bf16 within 2^-7 (one bf16 ulp of a value can flip where y rounds) and,
+# element by element, within _scan_cases.g_bf16_limit
+FUSED_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FUSED_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_cuda_mamba_scan_equals_plain(cuda, case, dtype):
+    """One launch a call on mamba_apply's strided views; the state written
+    in place (same storage); two calls from the same state give equal
+    bits."""
+    from repro_torch.kernels import selective_scan as ssk
+
+    args = fused_inputs(*case, seed=sum(case), dev=cuda, dtype=dtype)
+    state0 = None if args[8] is None else args[8].clone()
+    want_state = None if state0 is None else state0.clone()
+    want = ssk.mamba_scan_plain(*args[:8], want_state)
+    before = ssk.mamba_scan.launches
+    got = ssk.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert ssk.mamba_scan.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype and got.device.type == "cuda"
+    assert (got.float() - want.float()).abs().max() <= FUSED_TOL[dtype] * want.float().abs().max()
+    if dtype == torch.bfloat16:
+        limit = g_bf16_limit(args[:8] + [state0], want, ssk.selective_scan_plain)
+        assert g_bf16_reading(got, want, limit)[3]
+    again_state = None if state0 is None else state0.clone()
+    ptr = None if state0 is None else again_state.data_ptr()
+    again = ssk.mamba_scan(*args[:8], again_state)
+    assert torch.equal(again, got)
+    if state0 is not None:
+        assert again_state.data_ptr() == ptr and torch.equal(again_state, args[8])
+        assert not torch.equal(args[8], state0)
+        assert (args[8] - want_state).abs().max() <= 1e-5 * want_state.abs().max()
+
+
+def test_cuda_mamba_scan_refuses_and_launches_nothing(cuda):
+    from repro_torch.kernels import selective_scan as ssk
+
+    args = fused_inputs(2, 5, 70, True, 8, seed=1, dev=cuda, dtype=torch.bfloat16)
+    before = ssk.mamba_scan.launches
+    with pytest.raises(ValueError, match="compute dtype"):
+        ssk.mamba_scan(args[0].float(), *args[1:])
+    with pytest.raises(ValueError, match="state must be float32"):
+        ssk.mamba_scan(*args[:8], args[8].bfloat16())
+    with pytest.raises(ValueError, match="unit stride"):
+        ssk.mamba_scan(args[0], args[1].transpose(1, 2).contiguous().transpose(1, 2), *args[2:])
+    with pytest.raises(ValueError, match="state size"):
+        ssk.mamba_scan(*args[:3], args[3][..., :12], args[4][..., :12], args[5][:, :12],
+                       *args[6:8], args[8][..., :12].contiguous())
+    with pytest.raises(ValueError, match="devices"):
+        ssk.mamba_scan(*args[:8], args[8].cpu())
+    assert ssk.mamba_scan.launches == before
+
+
+def test_cuda_mamba_apply_is_one_launch(cuda):
+    """A Mamba layer is one mamba_scan launch a call (prefill and a decode
+    step), and no selective_scan launch."""
+    from repro_torch.kernels import selective_scan as ssk
+    from repro_torch.models import mamba as mamba_mod
+
+    kw = dict(expand=2, d_state=16, d_conv=4)
+    params = mamba_mod.mamba_init(torch.Generator(device=cuda).manual_seed(0), 64,
+                                  dtype=torch.bfloat16, device=cuda, **kw)
+    x = torch.randn(2, 9, 64, device=cuda).bfloat16()
+    state = mamba_mod.mamba_state_init(2, 64, dtype=torch.bfloat16, device=cuda, **kw)
+    before = (ssk.mamba_scan.launches, ssk.selective_scan.launches)
+    mamba_mod.mamba_apply(params, x, **kw)
+    mamba_mod.mamba_apply(params, x[:, :1], state=state, **kw)
+    torch.cuda.synchronize()
+    assert (ssk.mamba_scan.launches, ssk.selective_scan.launches) == (before[0] + 2, before[1])
+    assert state["ssm"].abs().max() > 0
+
+
 def _jamba_narrow(n_layers=8):
     """jamba-v0.1-52b's attention widths (32 query heads over 8 KV heads,
     hd 128), its pattern, 16 experts top-2 and d_state 16, at d 256."""
@@ -1893,7 +1971,7 @@ def _jamba_narrow(n_layers=8):
 @pytest.mark.parametrize("arch", ["smoke", "narrow"])
 def test_cuda_jamba_serving_equals_cpu(cuda, arch):
     """The hybrid served on the card at f32 equals the CPU run (plain
-    versions): greedy tokens equal, logits within 1e-4; one selective_scan
+    versions): greedy tokens equal, logits within 1e-4; one mamba_scan
     launch a Mamba layer and forward, one flash_attention / flash_decode
     launch an attention layer and forward, none on the CPU."""
     from repro_torch.configs.registry import smoke_config
@@ -1921,7 +1999,7 @@ def test_cuda_jamba_serving_equals_cpu(cuda, arch):
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         for dev, p in (("cuda", to(params)), ("cpu", params)):
-            fa.flash_attention.launches = fd.flash_decode.launches = ssk.selective_scan.launches = 0
+            fa.flash_attention.launches = fd.flash_decode.launches = ssk.mamba_scan.launches = 0
             logits = make_prefill_step(cfg)(p, {"tokens": prompt.to(dev)})
             last, cache = prefill_into_cache(p, cfg, prompt.to(dev), 14)
             toks = [last]
@@ -1930,7 +2008,7 @@ def test_cuda_jamba_serving_equals_cpu(cuda, arch):
                 nxt, _, cache = step(p, cache, toks[-1][:, None], 9 + i)
                 toks.append(nxt)
             out[dev] = (logits.cpu(), torch.stack(toks, 1).cpu(), fa.flash_attention.launches,
-                        fd.flash_decode.launches, ssk.selective_scan.launches)
+                        fd.flash_decode.launches, ssk.mamba_scan.launches)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
     assert out["cuda"][2:] == (n_attn, 13 * n_attn, 14 * n_mamba)
@@ -1942,7 +2020,7 @@ def test_cuda_jamba_serving_equals_cpu(cuda, arch):
 def test_cuda_jamba_takes_the_tensor_core_routes(cuda):
     """At bf16 and jamba's attention widths every prefill attention layer
     takes "tc" and every decode one "split"; the Mamba layers launch the
-    scan; logits finite."""
+    fused scan; logits finite."""
     from repro_torch.kernels import selective_scan as ssk
     from repro_torch.launch.serve import prefill_into_cache
     from repro_torch.models.transformer import init_params
@@ -1952,12 +2030,12 @@ def test_cuda_jamba_takes_the_tensor_core_routes(cuda):
     params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
     prompt = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, 12)), device=cuda)
     counts = (fa.flash_attention.launches_tc, fd.flash_decode.launches_split,
-              ssk.selective_scan.launches)
+              ssk.mamba_scan.launches)
     logits = make_prefill_step(cfg)(params, {"tokens": prompt})
     _, cache = prefill_into_cache(params, cfg, prompt, 13)
     torch.cuda.synchronize()
     assert (fa.flash_attention.launches_tc - counts[0], fd.flash_decode.launches_split - counts[1],
-            ssk.selective_scan.launches - counts[2]) == (1, 12, 13 * 7)
+            ssk.mamba_scan.launches - counts[2]) == (1, 12, 13 * 7)
     assert torch.isfinite(logits).all()
     assert cache["p0"]["ssm"].dtype == torch.float32 and cache["p0"]["conv"].dtype == torch.bfloat16
     assert torch.isfinite(cache["p0"]["ssm"]).all() and cache["p0"]["ssm"].abs().max() > 0
